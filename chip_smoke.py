@@ -16,8 +16,8 @@ non-zero:
    at the benchmark sizes — Alg. 6 at 1025, the 64×16 chunked recurrence,
    the 96×192 skew that runs the width ladder — every store bit-equal to
    ``run_sequential``, with levels and warm ms per run; then each
-   division-family operator with a Python-number operand (``**``, a known
-   divergence, is reported rather than checked);
+   division-family operator and ``**`` with a Python-number operand, every
+   cell checked bit-equal;
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
 5. the pipelined matmul kernel at yi-6b's full widths (d_model 4096, d_ff
@@ -25,8 +25,24 @@ non-zero:
    at depths 1 and 2: launch counts from the main run, the error against
    the plain PyTorch version, the kernel's time beside its bound, the plain
    version's and ``torch.matmul``'s;
-6. one JSON line listing every kernel with its numbers;
-7. ``{"ok": true, "device": {...}}`` as the last line.
+6. the flash-attention kernel against its plain version at yi-6b's prefill
+   shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in bf16 and
+   f32, the same with gemma3's 1024-token window, an unaligned 193 / 201
+   non-causal shape and hd 64: the largest row-relative error, the same
+   check's reading of two planted faults (a key edge off by one, a 64-key
+   tile dropped), which must exceed its limit, time, bound, plain and
+   ``scaled_dot_product_attention`` times;
+7. yi-6b at full width (32 layers, bf16, random weights from a seed)
+   serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
+   tokens each, through ``repro_torch.launch``'s step functions: one flash
+   launch per layer per prefill; the first wave's logits against a rerun
+   whose attention is the plain version, and against one whose causal
+   edge is off by one; every layer's kernel output against the plain
+   version on the wave's own activations, with the same planted fault;
+   prefill and decode times, tokens/s, peak memory and the idle share of
+   one decode wave;
+8. one JSON line listing every kernel with its numbers;
+9. ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
@@ -47,10 +63,41 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # f32: CUDA cores, no TF32
-TOL = {"bf16": 3e-2, "f32": 2e-5}  # tests/test_kernels.py; atol x sqrt(K)
+TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(K)
+# flash attention: the largest relative L2 error of one output row (one
+# query position of one head) against the plain version in f32.  A row's
+# norm falls from |v| (one live key) to about |v| / sqrt(2048) (a 2048-key
+# row), so an absolute limit loose enough for the first rows would pass a
+# dropped key on the last; a row-relative limit holds every row alike
+ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/pipelined_matmul.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
+
+# (label, B, Sq, Sk, H, KV, hd, causal, window, dtype): yi-6b's prefill
+# (src/repro/configs/yi_6b.py: 32 heads, GQA 4, hd 128) at 4 x 2048
+# tokens, gemma3's local window (src/repro/configs/gemma3_27b.py: 1024),
+# tests/test_kernels.py's unaligned 193 / 201, and granite-3-2b's hd 64
+# (32 heads, GQA 8); the first is the shape the serving phase gives it
+FLASH_CASES = [
+    ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "bf16"),
+    ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "f32"),
+    ("yi-6b prefill, window 1024", 4, 2048, 2048, 32, 4, 128, True, 1024, "bf16"),
+    ("yi-6b prefill, window 1024", 4, 2048, 2048, 32, 4, 128, True, 1024, "f32"),
+    ("unaligned 193/201", 1, 193, 201, 4, 4, 32, False, None, "bf16"),
+    ("unaligned 193/201", 1, 193, 201, 4, 4, 32, False, None, "f32"),
+    ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "bf16"),
+]
+
+# the serving phase: yi-6b at full width, 8 requests in waves of 4 slots
+SERVE_ARCH = "yi_6b"
+SERVE_REQUESTS = 8
+SERVE_SLOTS = 4
+SERVE_PROMPT = 2048
+SERVE_NEW_TOKENS = 32
+SERVE_LOGIT_RTOL = 5e-2  # relative L2 error of the kernel's logits vs plain
 
 # yi-6b (src/repro/configs/yi_6b.py): d_model 4096, d_ff 11008; a
 # 2048-token prefill through the MLP's up and down projections
@@ -145,8 +192,8 @@ def corpus():
 def _profiled_run(torch, fn):
     """Device busy time (the summed durations of the device events: kernels
     and copies, on one stream) and wall time of one call under
-    ``torch.profiler``, in ms; busy is None when the trace holds no device
-    time."""
+    ``torch.profiler``, in ms, and the number of device events; busy is
+    None when the trace holds no device time."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,12 +205,11 @@ def _profiled_run(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(
-        e.device_time_total
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return (busy_us / 1e3 if busy_us > 0 else None), wall_ms
+    device = [
+        e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_us = sum(e.device_time_total for e in device)
+    return (busy_us / 1e3 if busy_us > 0 else None), wall_ms, len(device)
 
 
 def level_loop_phase(torch):
@@ -209,7 +255,7 @@ def level_loop_phase(torch):
             host.append((time.perf_counter() - t0) * 1e3)
             device.append(start.elapsed_time(end))
         check(out == expect, f"level loop: {name} warm run diverged")
-        busy_ms, wall_ms = _profiled_run(torch, lambda: exe.run(store=init))
+        busy_ms, wall_ms, _ = _profiled_run(torch, lambda: exe.run(store=init))
         row = {
             "name": name,
             "levels": case.n_levels,
@@ -232,23 +278,24 @@ def level_loop_phase(torch):
 
 
 def operator_phase():
-    """Each division-family operator with a Python-number operand, on 4096
-    lanes of one statement: the division ops must be bit-equal to
-    ``run_sequential`` on the card; ``**`` is a known divergence (ROADMAP
-    Queue 3), so its count of differing cells is reported, not checked."""
+    """Each division-family operator and ``**`` with a Python-number
+    operand, on 4096 lanes of one statement, bit-equal to
+    ``run_sequential`` on the card (``**`` through the port's host ``pow``,
+    counted by ``torch.host_pow_lanes``)."""
 
     from repro_torch.core import ArrayRef, LoopProgram, Statement, plan, run_sequential
+    from repro_torch.obs import metrics
 
     ops = {
         "x/7": (lambda x: x / 7, True),
         "7/x": (lambda x: 7.0 / (x + 100.0), True),
         "x//3": (lambda x: x // 3, True),
         "x%3": (lambda x: x % 3, True),
-        "x**2": (lambda x: x ** 2, False),
-        "x**0.5": (lambda x: abs(x) ** 0.5, False),
-        "1.3**x": (lambda x: 1.3 ** x, False),
+        "x**2": (lambda x: x ** 2, True),
+        "x**0.5": (lambda x: abs(x) ** 0.5, True),
+        "1.3**x": (lambda x: 1.3 ** x, True),
     }
-    report = {}
+    report, warm_ms = {}, {}
     for name, (fn, exact) in ops.items():
         prog = LoopProgram(
             statements=(
@@ -262,13 +309,28 @@ def operator_phase():
             for i, cell in enumerate(sorted(init["b"]))
         }
         expect = run_sequential(prog, init)["a"]
-        out = plan(prog).compile("torch", device="cuda").run(store=init)["a"]
+        exe = plan(prog).compile("torch", device="cuda")
+        lanes = metrics.counter("torch.host_pow_lanes").value
+        out = exe.run(store=init)["a"]
         differ = sum(1 for cell, v in expect.items() if out[cell] != v)
         check(not exact or differ == 0, f"operator {name}: {differ} cells differ on cuda")
         report[name] = differ
+        lanes = metrics.counter("torch.host_pow_lanes").value - lanes
+        want = 4096 if "**" in name else 0
+        check(lanes == want, f"operator {name}: {lanes} host pow lanes, expected {want}")
+        host = []
+        for _ in range(WARM_RUNS):  # warm: the same tables
+            t0 = time.perf_counter()
+            exe.run(store=init)
+            host.append((time.perf_counter() - t0) * 1e3)
+        warm_ms[name] = statistics.median(host)
     emit(
         "operators on cuda, cells differing from run_sequential of "
-        f"{len(expect)} (division ops checked, ** reported): {json.dumps(report)}"
+        f"{len(expect)} (every op checked): {json.dumps(report)}"
+    )
+    emit(
+        "operators on cuda, warm run ms (median of 11, host clock; each ** "
+        f"runs Python's pow on 4096 lanes on the host): {json.dumps(warm_ms)}"
     )
 
 
@@ -417,6 +479,416 @@ def matmul_phase(torch):
     return entries
 
 
+# ---------------------------------------------------------------------- #
+# Phase 6: the flash-attention kernel
+# ---------------------------------------------------------------------- #
+
+def live_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs the mask keeps: the work the kernel must do."""
+
+    import numpy as np
+
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt):
+    """(bound ms, what bounds it): each input read once and the output
+    written once over the memory rate; QK^T and PV on the live pairs (2
+    FLOP per multiply-add each) over the peak rate of the type."""
+
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * elt
+    flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def row_rel_err(out, ref) -> float:
+    """The largest relative L2 error of one output row (the last axis)."""
+
+    d = (out.float() - ref.float()).norm(dim=-1)
+    return (d / ref.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def keep_mask(torch, Sq, Sk, causal, window, device, *, edge=0, drop=None):
+    """The (Sq, Sk) keys each query attends to; ``edge`` moves the causal
+    edge (or, with a window, the window's far edge; or, with neither, the
+    end of the keys) by that many keys, and ``drop`` removes a key range:
+    the planted faults."""
+
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        keep &= kp <= qp + (edge if window is None else 0)
+    if window is not None:
+        keep &= kp > qp - window - edge
+    if not causal and window is None and edge:
+        keep &= kp < Sk + edge
+    if drop is not None:
+        keep &= (kp < drop[0]) | (kp >= drop[1])
+    return keep
+
+
+def masked_attention(torch, q, k, v, keep):
+    """Plain f32 attention over q (B, Sq, H, hd), k / v (B, Sk, KV, hd) and
+    a (Sq, Sk) keep mask: the reference with a planted fault."""
+
+    H, hd = q.shape[2], q.shape[3]
+    k = k.float().repeat_interleave(H // k.shape[2], dim=2)
+    v = v.float().repeat_interleave(H // v.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * hd**-0.5
+    p = torch.softmax(s.masked_fill_(~keep, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def planted_faults(torch, q, k, v, out, causal, window):
+    """The check's reading of the kernel's output against a reference with
+    each planted fault: a key edge off by one, and one 64-key tile dropped
+    from the middle of the keys.  Each must read above the limit."""
+
+    Sq, Sk = q.shape[1], k.shape[1]
+    t0 = (Sk // 2) // 64 * 64
+    faults = {
+        "causal edge +1" if causal and window is None
+        else "window +1" if window is not None else "last key dropped":
+            dict(edge=1 if (causal or window is not None) else -1),
+        f"keys {t0}:{t0 + 64} dropped": dict(drop=(t0, t0 + 64)),
+    }
+    return {
+        name: row_rel_err(
+            out,
+            masked_attention(
+                torch, q, k, v,
+                keep_mask(torch, Sq, Sk, causal, window, q.device, **kw),
+            ),
+        )
+        for name, kw in faults.items()
+    }
+
+
+def _sdpa(torch, q, k, v, causal, window):
+    """One PyTorch call computing the same function, for comparison only."""
+
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True
+        )
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kp > qp - window
+    if causal:
+        mask &= qp >= kp
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True
+    )
+
+
+def flash_phase(torch):
+    """The kernel against its plain version at every listed shape; returns
+    the numbers of each shape keyed by case."""
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for case in FLASH_CASES:
+        label, B, Sq, Sk, H, KV, hd, causal, window, dt = case
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[dt])
+        k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtypes[dt])
+        v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtypes[dt])
+        kw = dict(causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
+        err = (out.float() - ref).abs().max().item()
+        rel = row_rel_err(out, ref)
+        del ref
+        check(out.shape == q.shape, f"flash {case}: output of shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()), f"flash {case}: non-finite output")
+        check(rel <= ROW_TOL[dt], f"flash {case}: row relative error {rel} > {ROW_TOL[dt]}")
+        faults = planted_faults(torch, q, k, v, out, causal, window)
+        for name, reading in faults.items():
+            check(
+                reading > ROW_TOL[dt],
+                f"flash {case}: planted fault {name!r} reads {reading}, inside "
+                f"the limit {ROW_TOL[dt]}: the check cannot see it",
+            )
+        del out
+        bound_ms, bound_by, flops = flash_bound(
+            B, Sq, Sk, H, KV, hd, causal, window, dt, q.element_size()
+        )
+        reps = 21 if flops > 1e10 else 101
+        ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
+        plain_ms = _time_ms(torch, lambda: flash_attention_bshd_ref(q, k, v, **kw), 5)
+        library_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, causal, window), reps)
+        row = {
+            "case": f"{label}, {dt}",
+            "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                      "causal": causal, "window": window},
+            "max_abs_err": err,
+            "max_row_rel_err": rel,
+            "row_rel_limit": ROW_TOL[dt],
+            "planted_faults": faults,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "reps": reps,
+            "tflops": flops / ms / 1e9,
+        }
+        rows[case] = row
+        emit("flash: " + json.dumps(row))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------- #
+# Phase 7: yi-6b serving, the LM slice's main path
+# ---------------------------------------------------------------------- #
+
+def _attention_replaced(fn):
+    """Route the model's prefill attention to ``fn`` for one rerun (a
+    comparison, not the served path)."""
+
+    from unittest import mock
+
+    from repro_torch.models import attention
+
+    return mock.patch.object(attention, "chunked_attention", fn)
+
+
+def _causal_edge_off_by_one(q, k, v, *, causal=True, window=None, chunk=1024, q_offset=0):
+    """The plain version with a planted fault: each query also sees the
+    next key (its position moved one key on)."""
+
+    from repro_torch.models.attention import chunked_attention_plain
+
+    return chunked_attention_plain(
+        q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset + 1
+    )
+
+
+def _layer_check(torch, readings):
+    """Prefill attention that launches the kernel and holds each layer's
+    output against the plain version in f32, and against the same with the
+    causal edge off by one, on the activations the layer is given."""
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+    from repro_torch.models.attention import chunked_attention
+
+    def checked(q, k, v, *, causal=True, window=None, **kw):
+        out = chunked_attention(q, k, v, causal=causal, window=window, **kw)
+        ref = flash_attention_bshd_ref(
+            q.float(), k.float(), v.float(), causal=causal, window=window
+        )
+        sound = row_rel_err(out, ref)
+        del ref
+        fault = row_rel_err(
+            out,
+            masked_attention(
+                torch, q, k, v,
+                keep_mask(torch, q.shape[1], k.shape[1], causal, window, q.device, edge=1),
+            ),
+        )
+        readings.append((sound, fault))
+        return out
+
+    return checked
+
+
+def serve_phase(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+    from repro_torch.launch.serve_lm import generate, make_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model_zoo
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model_zoo.param_count(params)
+    waves = [
+        make_batch(cfg, SERVE_SLOTS, SERVE_PROMPT, device="cuda", seed=SEED + 1 + w)
+        for w in range(SERVE_REQUESTS // SERVE_SLOTS)
+    ]
+    cache = model_zoo.init_cache(
+        cfg, SERVE_SLOTS, SERVE_PROMPT + SERVE_NEW_TOKENS, device="cuda"
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every count set to 0 just before, read just after
+    flash_ops.flash_attention.launches = 0
+    matmul_ops.matmul.launches = 0
+    t0 = time.perf_counter()
+    results = [generate(params, cfg, batch, SERVE_NEW_TOKENS, cache=cache) for batch in waves]
+    wall_s = time.perf_counter() - t0
+    launches = flash_ops.flash_attention.launches
+    matmul_launches = matmul_ops.matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    prefills = len(waves)
+    check(
+        launches == cfg.num_layers * prefills,
+        f"serve: {launches} flash launches, expected {cfg.num_layers} x {prefills}",
+    )
+    check(  # the projections are torch.matmul, as the reference leaves them to XLA
+        matmul_launches == 0,
+        f"serve: {matmul_launches} pipelined-matmul launches, expected none",
+    )
+    for r in results:
+        check(
+            tuple(r.tokens.shape) == (SERVE_SLOTS, SERVE_NEW_TOKENS),
+            f"serve: tokens of shape {tuple(r.tokens.shape)}",
+        )
+        check(bool(torch.isfinite(r.prefill_logits.float()).all()), "serve: non-finite logits")
+        check(
+            int(r.tokens.min()) >= 0 and int(r.tokens.max()) < cfg.vocab_size,
+            "serve: a token outside the vocabulary",
+        )
+
+    # the first wave again, its prefill attention the plain version; then
+    # its prefill with the plain version's causal edge off by one, which the
+    # same check must fail
+    from repro_torch.models.attention import chunked_attention_plain
+
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    with _attention_replaced(chunked_attention_plain):
+        plain = generate(params, cfg, waves[0], SERVE_NEW_TOKENS, cache=cache)
+    with _attention_replaced(_causal_edge_off_by_one):
+        faulty, cache = prefill_step(params, waves[0], cache)
+    a = results[0].prefill_logits.float()[..., : cfg.vocab_size]
+    b = plain.prefill_logits.float()[..., : cfg.vocab_size]
+    c = faulty.float()[..., : cfg.vocab_size]
+    rel = ((a - b).norm() / b.norm()).item()
+    max_err = (a - b).abs().max().item()
+    fault_rel = ((c - b).norm() / b.norm()).item()
+    check(rel <= SERVE_LOGIT_RTOL, f"serve: logits differ from the plain rerun by {rel} (relative L2)")
+    check(
+        fault_rel > SERVE_LOGIT_RTOL,
+        f"serve: the planted causal-edge fault moves the logits by {fault_rel}, "
+        f"inside the limit {SERVE_LOGIT_RTOL}: the check cannot see it",
+    )
+    agree = int((results[0].tokens == plain.tokens).sum())
+    del faulty
+
+    # every layer's kernel output against the plain version, on the first
+    # wave's own activations
+    layers = []
+    with _attention_replaced(_layer_check(torch, layers)):
+        prefill_step(params, waves[0], cache)
+    layer_err = max(r[0] for r in layers)
+    layer_fault = min(r[1] for r in layers)
+    check(len(layers) == cfg.num_layers, f"serve: {len(layers)} attention layers checked")
+    check(layer_err <= ROW_TOL["bf16"], f"serve: a layer's attention reads {layer_err} > {ROW_TOL['bf16']}")
+    check(
+        layer_fault > ROW_TOL["bf16"],
+        f"serve: a layer's planted causal-edge fault reads {layer_fault}, "
+        f"inside the limit {ROW_TOL['bf16']}: the check cannot see it",
+    )
+
+    # one decode wave timed, then again under the profiler for the busy
+    # time: the idle share is taken against the unprofiled wall time
+    logits, cache = prefill_step(params, waves[0], cache)
+    first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+
+    def decode_wave():
+        nonlocal cache
+        cur = first
+        for i in range(SERVE_NEW_TOKENS - 1):
+            cur, cache = serve_step(params, cur, cache, SERVE_PROMPT + i)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_wave()
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, prof_wall_ms, n_events = _profiled_run(torch, decode_wave)
+
+    prefill_ms = [r.prefill_ms for r in results]
+    decode_ms = [t for r in results for t in r.decode_ms]
+    tokens = SERVE_REQUESTS * SERVE_NEW_TOKENS
+    row = {
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "params": n_params,
+        "init_s": init_s,
+        "requests": SERVE_REQUESTS,
+        "slots": SERVE_SLOTS,
+        "prompt_tokens": SERVE_PROMPT,
+        "new_tokens": SERVE_NEW_TOKENS,
+        "flash_launches": launches,
+        "pipelined_matmul_launches": matmul_launches,
+        "prefill_ms": prefill_ms,
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_ms_per_step_min": min(decode_ms),
+        "decode_ms_per_step_max": max(decode_ms),
+        "decode_tokens_per_s": SERVE_SLOTS * len(decode_ms) / (sum(decode_ms) / 1e3),
+        "tokens_per_s_end_to_end": tokens / wall_s,
+        "prefill_tokens_per_s": SERVE_SLOTS * SERVE_PROMPT / (statistics.median(prefill_ms) / 1e3),
+        "wall_s": wall_s,
+        "peak_memory_bytes": peak,
+        "logits_vs_plain_rel_l2": rel,
+        "logits_vs_plain_max_abs": max_err,
+        "logits_rel_l2_limit": SERVE_LOGIT_RTOL,
+        "logits_planted_fault_rel_l2": fault_rel,
+        "layers_max_row_rel_err": layer_err,
+        "layers_min_planted_fault": layer_fault,
+        "layers_row_rel_limit": ROW_TOL["bf16"],
+        "greedy_tokens_agreeing_with_plain": agree,
+        "greedy_tokens_compared": plain.tokens.numel(),
+        "decode_wave_wall_ms": wave_ms,
+        "decode_wave_profiled_wall_ms": prof_wall_ms,
+        "decode_wave_device_busy_ms": busy_ms,
+        "decode_wave_idle_share": (
+            1.0 - busy_ms / wave_ms if busy_ms is not None else None
+        ),
+        "decode_device_events_per_step": n_events / (SERVE_NEW_TOKENS - 1),
+    }
+    emit("serve: " + json.dumps(row))
+    del params, cache, results, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_entry(rows, launches):
+    """The kernels-line entry of the flash kernel, at the shape the
+    serving phase gives it."""
+
+    row = rows[FLASH_CASES[0]]
+    return {
+        "name": f"flash_attention[{row['case']}]",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "max_row_rel_err": row["max_row_rel_err"],
+        "row_rel_limit": row["row_rel_limit"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "reps": row["reps"],
+        "tflops": row["tflops"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -451,18 +923,24 @@ def main() -> int:
     built = _build.build(sources())
     emit(f"build: {len(built)} source(s) in {time.perf_counter() - t0:.2f} s")
     for log in _build.BUILD_LOG.values():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or (
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]  # the mangled kernel name
+            elif "registers" in line or (
                 "spill" in line and " 0 bytes spill" not in line
             ):
-                emit("  ptxas: " + line.strip())
+                emit(f"  ptxas {kernel}: {line.strip()}")
 
     level_loop_phase(torch)  # phase 3
     operator_phase()
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
+    flash_rows = flash_phase(torch)  # phase 6
+    flash_launches = serve_phase(torch)  # phase 7
+    entries.append(flash_entry(flash_rows, flash_launches))
 
-    emit(json.dumps({"kernels": entries}))  # phase 6
+    emit(json.dumps({"kernels": entries}))  # phase 8
     emit(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     emit(smi)
     emit(

@@ -128,17 +128,39 @@ def current_device():
 # ---------------------------------------------------------------------- #
 # Strict lane arithmetic.  Eager PyTorch rounds every op on its own, so the
 # reference's xor laundering (against XLA's FMA contraction) has no job
-# here.  Two hazards remain, and the lane proxy handles both:
+# here.  Three hazards remain, and the lane proxy handles them:
 #
-#  * A division-family op (/ // % **) with a Python-number operand: CUDA's
+#  * A division-family op (/ // %) with a Python-number operand: CUDA's
 #    true-division kernel turns a CPU-scalar divisor into a multiply by its
 #    reciprocal, and ``number / tensor`` is ``reciprocal(t) * number`` —
 #    neither is correctly rounded.  The number becomes a float64 tensor on
 #    the lane's device, so the kernel performs a true IEEE division.
+#  * ``**``: the oracle's ``float ** float`` is libm's ``pow``, and neither
+#    PyTorch's CPU nor its CUDA ``pow`` gives the same last bit.  Every
+#    ``**`` of a lane goes through :func:`host_pow`, which copies the
+#    operands to the host and applies Python's ``**`` to each live lane (a
+#    fixed rule for one operator, counted by ``torch.host_pow_lanes``).
+#    The ``vmap`` fallback refuses ``**`` rather than reach ``torch.pow``.
 #  * ``if lane:`` would take one branch for every lane: ``__bool__``
 #    raises, which routes the compute to the ``torch.func.vmap`` fallback,
 #    where a value branch fails loudly as well.
 # ---------------------------------------------------------------------- #
+
+# The live-lane mask of the statement step being computed (None: every
+# lane is live); host_pow gives the other lanes a safe base.
+_LIVE: "contextvars.ContextVar[Optional[object]]" = contextvars.ContextVar(
+    "repro_torch_live_lanes", default=None
+)
+
+
+class _LaneFailure(Exception):
+    """A live lane's ``**`` failed; the compute re-raises ``error`` as the
+    oracle would, instead of trying the ``vmap`` fallback."""
+
+    def __init__(self, error: Exception) -> None:
+        super().__init__(error)
+        self.error = error
+
 
 class _StrictLane:
     """Operator-intercepting wrapper around a lane vector."""
@@ -211,7 +233,6 @@ def _install_strict_ops() -> None:
         ("truediv", operator.truediv, True),
         ("floordiv", operator.floordiv, True),
         ("mod", operator.mod, True),
-        ("pow", operator.pow, True),
     ]:
         setattr(
             _StrictLane, f"__{name}__",
@@ -221,6 +242,8 @@ def _install_strict_ops() -> None:
             _StrictLane, f"__r{name}__",
             _strict_binop(op, True, device_operands),
         )
+    _StrictLane.__pow__ = lambda self, other: _lane_pow(self, other)
+    _StrictLane.__rpow__ = lambda self, other: _lane_pow(other, self)
     for name, op in [
         ("neg", operator.neg),
         ("pos", operator.pos),
@@ -244,6 +267,81 @@ def _install_strict_ops() -> None:
                 op(_unwrap(self), _unwrap(other))
             ),
         )
+
+
+def host_pow(base, exp, live=None):
+    """``base ** exp`` lane by lane, exactly as Python's ``float ** float``
+    computes it (libm's ``pow``, as the sequential oracle does).
+
+    ``base`` and ``exp`` are float64 tensors of one shape, or a tensor and a
+    Python number; the result is a float64 tensor on the tensor's device.
+    Lanes where the bool tensor ``live`` is False get base and exponent 1.0
+    first, so padding and masked lanes can neither raise nor turn complex.
+    A live lane raises what Python raises (``ZeroDivisionError`` for ``0.0
+    ** -1``, ``OverflowError``); a complex result (a negative base to a
+    fractional power) raises :class:`TorchLoweringError`, since the store
+    holds float64.
+    """
+
+    import torch
+
+    device = (base if isinstance(base, torch.Tensor) else exp).device
+    b, e = torch.broadcast_tensors(
+        torch.as_tensor(base, dtype=torch.float64, device=device),
+        torch.as_tensor(exp, dtype=torch.float64, device=device),
+    )
+    n_live = b.numel()
+    if live is not None:
+        b = torch.where(live, b, 1.0)
+        e = torch.where(live, e, 1.0)
+        n_live = int(live.sum())
+    _metrics.counter("torch.host_pow_lanes").inc(n_live)
+    xs, ys = b.cpu().tolist(), e.cpu().tolist()
+    if b.ndim == 0:
+        xs, ys = [xs], [ys]
+    out = [x ** y for x, y in zip(xs, ys)]
+    for i, r in enumerate(out):
+        if isinstance(r, complex):
+            raise TorchLoweringError(
+                f"lane {i}: {xs[i]!r} ** {ys[i]!r} is complex ({r!r}); the "
+                "store holds float64"
+            )
+    return torch.tensor(out, dtype=torch.float64).reshape(b.shape).to(device)
+
+
+def _lane_pow(base, exp):
+    a, b = _arith(_unwrap(base)), _arith(_unwrap(exp))
+    try:
+        return _StrictLane(host_pow(a, b, _LIVE.get()))
+    except (ArithmeticError, TorchLoweringError) as e:
+        raise _LaneFailure(e) from None
+
+
+_POW_NAMES = frozenset(
+    {"pow", "pow_", "__pow__", "__rpow__", "__ipow__", "float_power",
+     "float_power_"}
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _no_pow_mode():
+    """A ``TorchFunctionMode`` that refuses ``**`` inside the
+    ``torch.func.vmap`` fallback: batched tensors cannot go to the host, and
+    ``torch.pow`` would silently differ from the oracle."""
+
+    from torch.overrides import TorchFunctionMode
+
+    class NoPowMode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in _POW_NAMES:
+                raise TorchLoweringError(
+                    "'**' reached torch.pow in the vmap fallback; a compute "
+                    "fn's '**' must act on its lane arguments (Python's ** "
+                    "per lane) or run backend='wavefront'"
+                )
+            return func(*args, **(kwargs or {}))
+
+    return NoPowMode
 
 
 _install_strict_ops()
@@ -420,11 +518,12 @@ class CompiledProgram:
 
         return (str(current_device()),)
 
-    def _lane_values(self, k, ss, store, ridx, width, device):
-        """Gather + vectorized compute of one table row's lanes."""
+    def _lane_values(self, k, ss, store, ridx, width, device, live):
+        """Gather + vectorized compute of one table row's lanes (``live``:
+        the lanes whose value is stored)."""
 
         reads = [store[a][ix] for a, ix in zip(ss.reads, ridx)]
-        return self._batched[k](reads, width, device)
+        return self._batched[k](reads, width, device, live)
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -438,7 +537,7 @@ class CompiledProgram:
 
         n_reads = len(stmt.reads)
 
-        def batched(reads: List, width: int, device):
+        def batched(reads: List, width: int, device, live=None):
             import torch
 
             if n_reads == 0:
@@ -446,6 +545,7 @@ class CompiledProgram:
                     (width,), float(stmt.compute()), dtype=torch.float64,
                     device=device,
                 )
+            token = _LIVE.set(live)
             try:
                 out = torch.as_tensor(
                     _unwrap(stmt.compute(*(_StrictLane(r) for r in reads))),
@@ -456,14 +556,19 @@ class CompiledProgram:
                     return out
                 if out.ndim == 0:
                     return out.expand(width)
+            except _LaneFailure as f:
+                raise f.error from None
             except Exception:
                 pass
+            finally:
+                _LIVE.reset(token)
             try:
-                return torch.as_tensor(
-                    torch.func.vmap(stmt.compute)(*reads),
-                    dtype=torch.float64,
-                    device=device,
-                )
+                with _no_pow_mode()():
+                    return torch.as_tensor(
+                        torch.func.vmap(stmt.compute)(*reads),
+                        dtype=torch.float64,
+                        device=device,
+                    )
             except Exception as e:
                 raise TorchLoweringError(
                     f"compute function of {stmt.name!r} cannot be evaluated "
@@ -1096,7 +1201,9 @@ class CompiledProgram:
             oob_row = row(t["oob"])
             flags[0].append(torch.any(mask & oob_row))
             mask = mask & ~oob_row
-        vals = self._lane_values(k, ss, store, ridx, lanes.shape[0], device)
+        vals = self._lane_values(
+            k, ss, store, ridx, lanes.shape[0], device, mask
+        )
         if ss.guard is None:
             tgt = row(t["wtgt"])
         else:

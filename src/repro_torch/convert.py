@@ -1,12 +1,14 @@
-"""Carry programs and stores across from the JAX package.
+"""Carry programs, stores and model weights across from the JAX package.
 
 :func:`program_from_reference` rebuilds a reference ``LoopProgram`` from
 this package's IR classes, field by field, with the compute callables
 passed through unchanged; :func:`store_from_reference` copies a store.
-Both read attributes only (duck typing) and import nothing of the
-reference package, so the port stays importable without it.  Matmul
-operands need no converter: they are NumPy arrays on both sides
-(``torch.from_numpy``).
+:func:`params_from_jax` turns a reference parameter tree (NumPy arrays)
+into the port's decoder parameters, and :func:`cache_to_jax_layout` lays
+the port's KV cache out as the reference's.  All read attributes and
+arrays only (duck typing) and import nothing of the reference package, so
+the port stays importable without it.  Matmul operands need no converter:
+they are NumPy arrays on both sides (``torch.from_numpy``).
 """
 
 from __future__ import annotations
@@ -50,3 +52,76 @@ def store_from_reference(store: Mapping[str, Mapping]) -> dict:
     """A copy of a ``{array: {cell: value}}`` store."""
 
     return {a: dict(cells) for a, cells in store.items()}
+
+
+# ---------------------------------------------------------------------- #
+# Model weights and KV caches
+# ---------------------------------------------------------------------- #
+
+def tensor_from_numpy(arr, device="cuda"):
+    """A tensor equal to ``arr`` on ``device``.  ``torch.from_numpy``
+    rejects ml_dtypes' ``bfloat16``, so a bf16 array crosses as its 16-bit
+    pattern (``view(uint16)`` → ``view(torch.bfloat16)``)."""
+
+    import numpy as np
+    import torch
+
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(cfg, tree, *, device="cuda") -> dict:
+    """The port's decoder parameters for a reference tree
+    (``repro.models.model_zoo.init``'s, as NumPy arrays): the stacked
+    ``blocks`` are unstacked along their leading ``num_blocks`` axis into a
+    list of per-block dicts; ``embed``, ``rem`` and ``final_norm`` are
+    copied."""
+
+    def conv(a):
+        return tensor_from_numpy(a, device)
+
+    return {
+        "embed": _map(tree["embed"], conv),
+        "blocks": [
+            _map(tree["blocks"], lambda a, b=b: conv(a[b]))
+            for b in range(cfg.num_blocks)
+        ],
+        "rem": _map(tree.get("rem", {}), conv),
+        "final_norm": _map(tree["final_norm"], conv),
+    }
+
+
+def cache_to_jax_layout(cfg, cache) -> dict:
+    """The port's KV cache as NumPy arrays in the reference's layout: the
+    per-block caches stacked on a leading ``num_blocks`` axis under
+    ``blocks`` (absent without blocks), ``rem`` as it is.  bf16 entries
+    come back as float32 (exact)."""
+
+    import numpy as np
+    import torch
+
+    def host(t):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.detach().cpu().numpy()
+
+    def stacked(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stacked([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([host(t) for t in trees])
+
+    out = {"rem": _map(cache["rem"], host)}
+    if cfg.num_blocks:
+        out["blocks"] = stacked(cache["blocks"])
+    return out

@@ -296,6 +296,104 @@ def test_compute_operators_round_like_python(compute):
     assert out == tc.run_sequential(prog, init)
 
 
+# ``**``: the chip smoke run's operator phase, one statement over the 4112
+# cells of a padded 4096-iteration store, held bit for bit against the
+# reference's run_sequential (Python's float ** float, libm's pow)
+POW_COMPUTES = {
+    "x**2": lambda x: x ** 2,
+    "abs(x)**0.5": lambda x: abs(x) ** 0.5,
+    "1.3**x": lambda x: 1.3 ** x,
+}
+
+
+def _operator_program(compute, n=4096, guard=None):
+    return tc.LoopProgram(
+        statements=(
+            tc.Statement(
+                "S1", tc.ArrayRef("a", 0), (tc.ArrayRef("b", 0),),
+                compute=compute, guard=guard,
+            ),
+        ),
+        bounds=((0, n),),
+    )
+
+
+def _operator_store(prog):
+    init = prog.initial_store()
+    init["b"] = {
+        cell: (i * 0.7137) % 11.3 - 5.1
+        for i, cell in enumerate(sorted(init["b"]))
+    }
+    return init
+
+
+@pytest.mark.parametrize("name", list(POW_COMPUTES))
+def test_pow_bit_equal_to_run_sequential(name):
+    from repro_torch.obs import metrics
+
+    prog = _operator_program(POW_COMPUTES[name])
+    init = _operator_store(prog)
+    ref_prog = ref_core.LoopProgram(
+        statements=(
+            ref_core.Statement(
+                "S1", ref_core.ArrayRef("a", 0), (ref_core.ArrayRef("b", 0),),
+                compute=POW_COMPUTES[name],
+            ),
+        ),
+        bounds=((0, 4096),),
+    )
+    expect = ref_core.run_sequential(ref_prog, init)
+    assert len(expect["a"]) == 4112
+    lanes = metrics.counter("torch.host_pow_lanes")
+    before = lanes.value
+    out = tc.plan(prog).compile("torch", device="cpu").run(store=init)
+    differ = [c for c, v in expect["a"].items() if out["a"][c] != v]
+    assert not differ, f"{name}: {len(differ)} cells differ, first {differ[0]}"
+    assert out == expect
+    assert lanes.value - before == 4096  # live lanes only, each once
+
+
+def test_pow_masked_lanes_get_a_safe_base():
+    """Guarded-off lanes hold negative bases that Python's ``** 0.5`` would
+    turn complex; they never reach the operator."""
+
+    prog = _operator_program(
+        lambda x: x ** 0.5, n=64, guard=tc.ArrayRef("p", 0)
+    )
+    init = _operator_store(prog)
+    init["p"] = {cell: float(init["b"][cell] >= 0) for cell in init["b"]}
+    out = tc.plan(prog).compile("torch", device="cpu").run(store=init)
+    assert out == tc.run_sequential(prog, init)
+
+
+def test_pow_live_lane_fails_as_run_sequential_fails():
+    prog = _operator_program(lambda x: x ** -1, n=8)
+    init = prog.initial_store()
+    init["b"] = {cell: float(cell[0] - 3) for cell in init["b"]}  # one 0.0
+    with pytest.raises(ZeroDivisionError) as seq:
+        tc.run_sequential(prog, init)
+    with pytest.raises(ZeroDivisionError) as port:
+        tc.plan(prog).compile("torch", device="cpu").run(store=init)
+    assert str(port.value) == str(seq.value)
+
+
+def test_pow_live_lane_with_a_complex_result_raises():
+    prog = _operator_program(lambda x: x ** (1 / 3), n=8)
+    init = prog.initial_store()
+    init["b"] = {cell: cell[0] - 3.5 for cell in init["b"]}
+    assert isinstance(tc.run_sequential(prog, init)["a"][(0,)], complex)
+    with pytest.raises(TorchLoweringError, match="complex"):
+        tc.plan(prog).compile("torch", device="cpu").run(store=init)
+
+
+def test_pow_never_reaches_torch_pow_in_the_vmap_fallback():
+    prog = _operator_program(lambda x: torch.sin(x) ** 2, n=8)
+    with pytest.raises(TorchLoweringError, match="torch.pow"):
+        tc.plan(prog).compile("torch", device="cpu").run(
+            store=_operator_store(prog)
+        )
+
+
 def test_out_of_store_read_raises():
     prog = tc.LoopProgram(
         statements=(tc.Statement("S1", tc.ArrayRef("a", 0), (tc.ArrayRef("b", -20),)),),

@@ -5,7 +5,8 @@ without one.  On the machine with the card:
 
 This file imports no jax, so it runs where only PyTorch is installed; its
 oracles are the reference's framework-free ``run_sequential`` and the
-port's plain PyTorch versions.
+port's plain PyTorch versions (for the LM path, the same model run on the
+CPU).
 """
 
 import numpy as np
@@ -16,9 +17,14 @@ import repro.core as ref_core
 from programs import ALL_PROGRAMS
 
 import repro_torch.core as tc
+from repro_torch.configs import get_smoke_config
 from repro_torch.convert import program_from_reference, store_from_reference
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 from repro_torch.kernels.pipelined_matmul import ops, schedule
 from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+from repro_torch.launch import serve_lm
+from repro_torch.models import attention, model_zoo
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +32,10 @@ METHODS = ("none", "isd", "pattern", "both")
 DEPS_MODES = (None, "inspect", "speculate")
 SHAPES = [(128, 128, 128), (256, 512, 128), (300, 257, 130), (64, 8, 24)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# flash attention: the largest relative L2 error of one output row against
+# the plain version in f32 (a row's norm shrinks with its live keys, so an
+# absolute limit would be loose on long rows); the limits of chip_smoke.py
+ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -57,8 +67,11 @@ def test_corpus_bit_equal_on_cuda(cuda, method):
         lambda x: 7.0 / (x + 100.0),
         lambda x: x // 3 + x % 3,
         lambda x: (x > 0.5) * 0.1 - x / 3,
+        lambda x: x ** 2,
+        lambda x: abs(x) ** 0.5,
+        lambda x: 1.3 ** x,
     ],
-    ids=["div", "rdiv", "floordiv_mod", "bool_select"],
+    ids=["div", "rdiv", "floordiv_mod", "bool_select", "x**2", "abs(x)**0.5", "1.3**x"],
 )
 def test_division_family_bit_equal_on_cuda(cuda, compute):
     prog = tc.LoopProgram(
@@ -138,3 +151,102 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ops.matmul(a, torch.randn(32, 16, device=cuda).t())
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.matmul(a, torch.randn(16, 8))
+
+
+# ---------------------------------------------------------------------- #
+# Flash attention: the kernel against its plain version
+# ---------------------------------------------------------------------- #
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KV, hd, causal, window
+    (2, 128, 128, 4, 2, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, None),
+    (2, 192, 192, 4, 2, 64, True, None),
+    (1, 256, 256, 2, 2, 32, True, 32),
+    (1, 256, 256, 2, 2, 32, True, 100),
+    (1, 256, 256, 2, 2, 32, True, 1000),
+    (1, 193, 201, 4, 4, 32, False, None),
+    (1, 201, 193, 4, 1, 16, True, None),
+    (2, 300, 300, 8, 2, 128, True, 64),
+    (1, 77, 77, 2, 1, 128, False, 16),
+]
+
+
+def _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, device=cuda, generator=gen).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_kernel_matches_plain_version_on_cuda(cuda, case, dtype):
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, dtype)
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    ref = flash_attention_bshd_ref(
+        q.float(), k.float(), v.float(), causal=causal, window=window
+    )
+    assert out.shape == ref.shape and out.dtype == dtype
+    row_err = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    assert row_err.max().item() <= ROW_TOL[dtype]
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k and v as head slices of one fused projection: strided, not
+    contiguous, read in place."""
+
+    qkv = torch.randn(2, 96, 4 + 2 + 2, 64, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    out = flash_ops.flash_attention(q, k, v, causal=True)
+    ref = flash_attention_bshd_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_chunked_attention_on_cuda_is_the_kernel(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 32, torch.bfloat16)
+    before = flash_ops.flash_attention.launches
+    out = attention.chunked_attention(q, k, v, causal=True, window=16)
+    assert flash_ops.flash_attention.launches == before + 1
+    ref = attention.chunked_attention_plain(q, k, v, causal=True, window=16)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        attention.chunked_attention(q, k, v, q_offset=8)
+    q8, k8, v8 = _flash_inputs(cuda, 1, 16, 16, 2, 2, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="hd=8"):
+        attention.chunked_attention(q8, k8, v8)
+    assert flash_ops.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "gemma3_27b"])
+def test_smoke_size_serving_on_cuda_goes_through_the_kernel(cuda, arch):
+    """The smoke configuration served on the card agrees with the same
+    weights served on the CPU (logits within 1e-4 in f32: the two devices
+    sum in other orders), with one kernel launch per attention layer per
+    prefill."""
+
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = model_zoo.init(cfg, device="cpu", seed=0)
+    batch = serve_lm.make_batch(cfg, 2, 24, device="cpu", seed=1)
+    on_cpu = serve_lm.generate(params, cfg, batch, 6)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    before = flash_ops.flash_attention.launches
+    on_cuda = serve_lm.generate(to(params), cfg, to(batch), 6)
+    assert flash_ops.flash_attention.launches - before == cfg.num_layers
+    torch.testing.assert_close(
+        on_cuda.prefill_logits.cpu(), on_cpu.prefill_logits, atol=1e-4, rtol=1e-4
+    )
+    assert on_cuda.tokens.shape == on_cpu.tokens.shape

@@ -29,6 +29,9 @@ VERBATIM = [
     "compile/cache.py",
     "compile/executor.py",
     "kernels/pipelined_matmul/schedule.py",
+    *sorted(
+        str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py")
+    ),
 ]
 
 # The copies that differ beyond the rename, and why.
@@ -64,6 +67,12 @@ def test_core_copy_covers_every_reference_module():
     ref = {p.name for p in (REF / "core").glob("*.py")}
     port = {p.name for p in (PORT / "core").glob("*.py")}
     assert ref == port and len(ref) == 15
+
+
+def test_configs_copy_covers_every_reference_config():
+    ref = {p.name for p in (REF / "configs").glob("*.py")}
+    port = {p.name for p in (PORT / "configs").glob("*.py")}
+    assert ref == port and len(ref) == 12
 
 
 def _imports(path: Path):
@@ -113,6 +122,16 @@ for prog, deps in ((paper_alg6(16), None), (gather_scatter(8), "speculate")):
 compile_kloop(2, 16, device="cpu")
 a = torch.ones(5, 3)
 assert torch.equal(matmul(a, torch.ones(3, 2)), torch.full((5, 2), 3.0))
+
+# the LM serving path: a prefill and a decode step on the CPU
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve_lm import generate, make_batch
+from repro_torch.models import model_zoo
+
+cfg = get_smoke_config("gemma3_27b")
+params = model_zoo.init(cfg, device="cpu")
+res = generate(params, cfg, make_batch(cfg, 2, 8, device="cpu"), 2)
+assert res.tokens.shape == (2, 2) and len(res.decode_ms) == 1
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro")
