@@ -20,11 +20,19 @@ non-zero:
    cell checked bit-equal;
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
-5. the pipelined matmul kernel at yi-6b's full widths (d_model 4096, d_ff
-   11008) as a 2048-token prefill, plus an unaligned shape, in bf16 and f32
-   at depths 1 and 2: launch counts from the main run, the error against
-   the plain PyTorch version, the kernel's time beside its bound, the plain
-   version's and ``torch.matmul``'s;
+   the Hopper K-loop plan (a producer warpgroup issues and loads, consumer
+   warpgroups compute) and the TMA kernel's mbarriers at the depths phase 5
+   runs;
+5. the pipelined matmul at yi-6b's full widths (d_model 4096, d_ff 11008)
+   as a 2048-token prefill, plus a ragged shape TMA can describe and an
+   unaligned one, in bf16 and f32 at depths 1, 2 and 4: launch counts per
+   route from the main run (bf16 takes the TMA / wgmma kernel where TMA can
+   describe the operands, the cp.async / mma.sync kernel elsewhere; f32
+   takes FFMA), the exact identity probes I @ B and A @ I on the TMA route,
+   the error against the plain PyTorch version, the kernel's time beside
+   its bound, the plain version's and ``torch.matmul``'s; for bf16 at
+   yi-6b's shapes the kernel, the cp.async kernel and ``torch.matmul`` are
+   timed in turns;
 6. the flash-attention kernel against its plain version at yi-6b's prefill
    shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in bf16 and
    f32, the same with gemma3's 1024-token window, an unaligned 193 / 201
@@ -72,6 +80,7 @@ TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(
 ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/pipelined_matmul.cu"
+TMA_KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_matmul.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
@@ -99,10 +108,12 @@ SERVE_PROMPT = 2048
 SERVE_NEW_TOKENS = 32
 SERVE_LOGIT_RTOL = 5e-2  # relative L2 error of the kernel's logits vs plain
 
-# yi-6b (src/repro/configs/yi_6b.py): d_model 4096, d_ff 11008; a
-# 2048-token prefill through the MLP's up and down projections
-MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 257, 130)]
-MATMUL_DEPTHS = (1, 2)
+# (M, K, N). yi-6b (src/repro/configs/yi_6b.py): d_model 4096, d_ff
+# 11008; a 2048-token prefill through the MLP's up and down projections.
+# (300, 264, 136): ragged M, N below one tile, K not a multiple of the
+# K-step, but TMA-aligned; (300, 257, 130): strides TMA cannot describe
+MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 264, 136), (300, 257, 130)]
+MATMUL_DEPTHS = (1, 2, 4)  # 4: the TMA route's default, ops.HOPPER_STAGES
 SEED = 0
 WARM_RUNS = 11
 
@@ -341,7 +352,12 @@ def operator_phase():
 def kloop_phase():
     from repro_torch.core import PlanOptions, plan, run_sequential
     from repro_torch.kernels.pipelined_matmul import schedule
-    from repro_torch.kernels.pipelined_matmul.ops import kernel_schedule
+    from repro_torch.kernels.pipelined_matmul.ops import (
+        HOPPER_PROCESSORS,
+        hopper_plan,
+        hopper_schedule,
+        kernel_schedule,
+    )
 
     for depth in (1, 2):
         p = schedule.plan_pipeline(depth)
@@ -382,6 +398,28 @@ def kloop_phase():
             )
     emit("kloop compile: bit-equal on cuda at steps 16 and 128, structural hit across steps")
 
+    # the TMA kernel's plan: ISSUE and LOAD on the producer warpgroup,
+    # COMPUTE on the consumers; its retained dependences are its mbarriers
+    for depth in MATMUL_DEPTHS:
+        res = hopper_plan(depth)
+        hs = hopper_schedule(depth)
+        check(
+            hs.full and hs.empty,
+            f"hopper plan depth {depth}: waits {hs.waits}, expected full and empty",
+        )
+        emit(
+            "hopper kloop plan: "
+            + json.dumps(
+                {
+                    "depth": depth,
+                    "processors": HOPPER_PROCESSORS,
+                    "retained": [d.pretty() for d in res.retained],
+                    "eliminated": [d.pretty() for d in res.eliminated],
+                    "kernel_mbarriers": list(hs.waits),
+                }
+            )
+        )
+
 
 # ---------------------------------------------------------------------- #
 # Phase 5: the matmul kernel
@@ -405,6 +443,36 @@ def _time_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def _time_turns_ms(torch, fns, reps):
+    """Median of ``reps`` launches of each of ``fns``, taken in turns (one
+    launch of each per round, each between its own CUDA events), after two
+    warm-up rounds: two kernels compared within one call, on one card."""
+
+    for _ in range(2):
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def expected_route(dt, K, N):
+    """The route rule, written out independently of ``ops.route``: the
+    operands here are fresh allocations, so 16-byte aligned."""
+
+    if dt == "f32":
+        return "ffma"
+    return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
+
+
 def matmul_phase(torch):
     from repro_torch.kernels.pipelined_matmul import ops
     from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
@@ -426,13 +494,16 @@ def matmul_phase(torch):
 
     # the main path: every count set to 0 just before, read just after
     ops.matmul.launches = 0
-    launches, errors = {}, {}
+    ops.matmul.routes = dict.fromkeys(ops.matmul.routes, 0)
+    launches, routes, errors = {}, {}, {}
     for cfg in configs:
         M, K, N, dt, depth = cfg
         a, b = operands[(M, K, N, dt)]
-        before = ops.matmul.launches
+        before, before_routes = ops.matmul.launches, dict(ops.matmul.routes)
         out = ops.matmul(a, b, depth=depth)
         launches[cfg] = ops.matmul.launches - before
+        took = [r for r, n in ops.matmul.routes.items() if n != before_routes[r]]
+        routes[cfg] = took[0] if len(took) == 1 else took
         torch.cuda.synchronize()
         ref = matmul_ref(a, b)
         errors[cfg] = (out.float() - ref.float()).abs().max().item()
@@ -442,8 +513,23 @@ def matmul_phase(torch):
         check(ok and out.shape == (M, N), f"matmul {cfg}: outside tolerance (max err {errors[cfg]})")
         check(bool(torch.isfinite(out.float()).all()), f"matmul {cfg}: non-finite output")
     total = ops.matmul.launches
+    by_route = dict(ops.matmul.routes)
     check(total == len(configs), f"matmul: {total} launches in the main run, expected {len(configs)}")
     check(all(n == 1 for n in launches.values()), "matmul: a configuration did not launch the kernel")
+    for cfg in configs:
+        want = expected_route(cfg[3], cfg[1], cfg[2])
+        check(routes[cfg] == want, f"matmul {cfg}: took route {routes[cfg]}, expected {want}")
+    check(sum(by_route.values()) == total, f"matmul: routes {by_route} do not sum to {total}")
+    emit("matmul routes in the main run: " + json.dumps(by_route))
+
+    # the identity probes on the TMA route at yi-6b's widths: a descriptor,
+    # swizzle or epilogue mistake shows position by position
+    eye = torch.eye(4096, device="cuda", dtype=torch.bfloat16)
+    a, b = operands[(2048, 4096, 11008, "bf16")]
+    check(torch.equal(ops.matmul(eye, b), b), "matmul: I @ B differs from B on the TMA route")
+    check(torch.equal(ops.matmul(a, eye), a), "matmul: A @ I differs from A on the TMA route")
+    del eye
+    emit("matmul identity probes (bf16, TMA route): I @ B == B and A @ I == A exactly")
 
     entries = []
     for cfg in configs:
@@ -451,16 +537,27 @@ def matmul_phase(torch):
         a, b = operands[(M, K, N, dt)]
         flops = 2.0 * M * N * K
         reps = 21 if flops > 1e10 else 101
-        ms = _time_ms(torch, lambda: ops.matmul(a, b, depth=depth), reps)
+        kernel = lambda: ops.matmul(a, b, depth=depth)  # noqa: E731
+        library = lambda: torch.matmul(a, b)  # noqa: E731
+        cp_async_ms = None
+        if routes[cfg] == "tma_wgmma" and flops > 1e10:
+            # the TMA kernel, the cp.async / mma.sync kernel it replaces on
+            # these operands (at its default depth) and torch.matmul, in turns
+            ms, cp_async_ms, library_ms = _time_turns_ms(
+                torch, [kernel, lambda: ops._cp_async_matmul(a, b), library], reps
+            )
+        else:
+            ms = _time_ms(torch, kernel, reps)
+            library_ms = _time_ms(torch, library, reps)
         plain_ms = _time_ms(torch, lambda: matmul_ref(a, b), reps)
-        library_ms = _time_ms(torch, lambda: torch.matmul(a, b), reps)
         nbytes = (M * K + K * N + M * N) * a.element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         entry = {
             "name": f"pipelined_matmul[{dt},D={depth},{M}x{K}x{N}]",
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "kernel_route": routes[cfg],
+            "source": TMA_KERNEL_SOURCE if routes[cfg] == "tma_wgmma" else KERNEL_SOURCE,
             "replaces": TPU_KERNEL,
             "launches": launches[cfg],
             "max_abs_err": errors[cfg],
@@ -474,6 +571,9 @@ def matmul_phase(torch):
             "reps": reps,
             "tflops": flops / ms / 1e9,
         }
+        if cp_async_ms is not None:
+            entry["cp_async_mma_ms"] = cp_async_ms
+            entry["timed_in_turns"] = ["ms", "cp_async_mma_ms", "library_ms"]
         entries.append(entry)
         emit("matmul: " + json.dumps(entry))
     return entries
@@ -873,6 +973,7 @@ def flash_entry(rows, launches):
     return {
         "name": f"flash_attention[{row['case']}]",
         "route": "cuda",
+        "kernel_route": "cp_async_mma",
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
         "launches": launches,
@@ -922,15 +1023,24 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build(sources())
     emit(f"build: {len(built)} source(s) in {time.perf_counter() - t0:.2f} s")
-    for log in _build.BUILD_LOG.values():
+    for name, log in _build.BUILD_LOG.items():
         kernel = "?"
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1]  # the mangled kernel name
-            elif "registers" in line or (
+            elif "registers" in line or "warning" in line.lower() or (
                 "spill" in line and " 0 bytes spill" not in line
             ):
                 emit(f"  ptxas {kernel}: {line.strip()}")
+        if name == Path(TMA_KERNEL_SOURCE).name:
+            # setmaxnreg must be honoured and the 128 accumulators a
+            # consumer thread holds must stay in registers
+            check("C7508" not in log, "tma_wgmma_matmul.cu: ptxas ignored setmaxnreg (C7508)")
+            check(
+                all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                    for line in log.splitlines() if "spill" in line),
+                "tma_wgmma_matmul.cu: ptxas reports spills",
+            )
 
     level_loop_phase(torch)  # phase 3
     operator_phase()

@@ -1,12 +1,22 @@
-"""Public wrapper of the pipelined matmul: the Hopper kernel of
-``csrc/pipelined_matmul.cu`` for CUDA tensors, :func:`ref.matmul_ref` for
-CPU tensors.
+"""Public wrapper of the pipelined matmul: a Hopper kernel for CUDA
+tensors, :func:`ref.matmul_ref` for CPU tensors.
 
-The kernel's shared-memory ring depth and its per-K-step waits are not
-constants: :func:`kernel_schedule` reads them from the K-loop plan that the
-synchronization compiler derives (:func:`schedule.plan_pipeline`), and the
-wrapper raises on a plan whose retained dependences the kernel has no wait
-for.
+A CUDA call takes one of three kernels, by a rule on the operands
+(:func:`route`), never as a fallback:
+
+    tma_wgmma     bf16 that TMA can describe: ``csrc/tma_wgmma_matmul.cu``
+                  (TMA ring, wgmma consumers, a producer warpgroup)
+    cp_async_mma  other bf16: ``csrc/pipelined_matmul.cu``'s cp.async ring
+                  and mma.sync
+    ffma          f32: ``csrc/pipelined_matmul.cu``'s FFMA kernel
+
+Each kernel's shared-memory ring depth and its waits are not constants:
+they are read from the K-loop plan that the synchronization compiler
+derives, :func:`kernel_schedule` (``schedule.plan_pipeline``: the block's
+threads issue, the copy engine loads) for the two cp.async kernels and
+:func:`hopper_schedule` (a producer warpgroup issues and loads, consumer
+warpgroups compute) for the TMA kernel.  The wrapper raises on a plan whose
+retained dependences a kernel has no wait for.
 """
 
 from __future__ import annotations
@@ -16,15 +26,28 @@ import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
+from repro_torch.core.parallelizer import PlanOptions, plan
 from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
 from repro_torch.kernels.pipelined_matmul.schedule import (
     PROCESSORS,
+    kloop_dependences,
+    make_kloop_program,
     min_buffers,
     plan_pipeline,
 )
 
 SOURCE = Path(__file__).parent / "csrc" / "pipelined_matmul.cu"
-MAX_STAGES = 4  # csrc: MAX_STAGES
+TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_matmul.cu"
+MAX_STAGES = 4  # csrc: MAX_STAGES (both sources)
+
+# the routes of a CUDA call (see :func:`route`)
+TMA_WGMMA, CP_ASYNC_MMA, FFMA = "tma_wgmma", "cp_async_mma", "ffma"
+
+# tma_wgmma_matmul.cu: a stage is a 128 x 64 tile of A and a 64 x 256 tile
+# of B in bf16; the ring also needs 1 KB to align itself and its barriers
+HOPPER_STAGE_BYTES = (128 * 64 + 64 * 256) * 2
+SMEM_PER_BLOCK = 232448  # H100: 227 KB of dynamic shared memory a block
+HOPPER_STAGES = min(MAX_STAGES, (SMEM_PER_BLOCK - 1024 - 64) // HOPPER_STAGE_BYTES)
 
 
 def _wait_for(dep, depth: int) -> Optional[str]:
@@ -103,33 +126,134 @@ def default_depth() -> int:
     return min_buffers()
 
 
+HOPPER_PROCESSORS = {"ISSUE": "producer", "LOAD": "producer", "COMPUTE": "consumer"}
+
+
+def _hopper_wait_for(dep, depth: int) -> Optional[str]:
+    """How the TMA kernel realizes one retained cross-processor dependence
+    of the K-loop plan (None: it has no mechanism for it).
+
+    full   LOAD -> COMPUTE: the consumers wait on the slot's mbarrier, which
+           the TMA completes (the producer's expect_tx counts the bytes)
+    empty  COMPUTE -> LOAD at the ring depth (slot reuse): the consumers
+           arrive once the wgmma that read the slot has retired, and the
+           producer waits on it before it refills the slot
+    """
+
+    (dist,) = dep.distance
+    return {
+        ("flow", "LOAD", "COMPUTE", 0): "full",
+        ("anti", "COMPUTE", "LOAD", depth): "empty",
+    }.get((dep.kind, dep.source, dep.sink, dist))
+
+
+def hopper_plan(depth: int, steps: int = 16):
+    """``plan()`` of the K-loop under :data:`HOPPER_PROCESSORS`: its
+    elimination result (``retained`` / ``eliminated`` dependences)."""
+
+    return plan(
+        make_kloop_program(steps),
+        PlanOptions(
+            method="isd",
+            deps=tuple(kloop_dependences(depth)),
+            model="procmap",
+            processors=HOPPER_PROCESSORS,
+        ),
+    ).elimination
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperSchedule:
+    """The K-loop plan as the TMA kernel takes it."""
+
+    depth: int                  # shared-memory ring stages
+    waits: Tuple[str, ...]      # one mbarrier per retained cross wait
+
+    @property
+    def full(self) -> bool:
+        return "full" in self.waits
+
+    @property
+    def empty(self) -> bool:
+        return "empty" in self.waits
+
+
 @functools.lru_cache(maxsize=None)
-def _entry_points():
-    """The library's two launchers, built and loaded on first use:
-    ``(A, B, C, M, N, K, stages, credit, vec, stream) -> cudaError_t``."""
+def hopper_schedule(depth: int) -> HopperSchedule:
+    """Map ``hopper_plan(depth)`` onto the TMA kernel's mbarriers, or raise
+    ``NotImplementedError`` for a plan shape it does not implement."""
+
+    if not 1 <= depth <= MAX_STAGES:
+        raise NotImplementedError(
+            f"pipelined matmul: ring depth {depth} outside the kernel's "
+            f"1..{MAX_STAGES} stages"
+        )
+    waits = []
+    for d in hopper_plan(depth).retained:
+        if HOPPER_PROCESSORS[d.source] == HOPPER_PROCESSORS[d.sink]:
+            continue  # same processor: program order, no wait
+        mech = _hopper_wait_for(d, depth)
+        if mech is None:
+            raise NotImplementedError(
+                f"pipelined matmul: the Hopper K-loop plan at depth {depth} "
+                f"retains {d.pretty()}, which the kernel has no mbarrier for"
+            )
+        waits.append(mech)
+    if sorted(waits) != ["empty", "full"]:
+        raise NotImplementedError(
+            f"pipelined matmul: the Hopper K-loop plan at depth {depth} asks "
+            f"for waits {waits}; the kernel needs the full and the empty "
+            "wait, one each"
+        )
+    return HopperSchedule(depth=depth, waits=tuple(waits))
+
+
+def route(dtype, K: int, N: int, a_addr: int, b_addr: int) -> str:
+    """Which kernel a CUDA call with contiguous row-major operands ``A (M,
+    K)`` at ``a_addr`` and ``B (K, N)`` at ``b_addr`` takes.
+
+    TMA needs 16-byte aligned bases and row strides that are multiples of
+    16 bytes: in bf16, K % 8 == 0 and N % 8 == 0.  Such bf16 operands take
+    the TMA kernel whatever M, N and K are (ragged edges are zero-filled
+    and masked); other bf16 operands take the cp.async kernel; f32 takes
+    FFMA."""
+
+    import torch
+
+    if dtype == torch.float32:
+        return FFMA
+    if K % 8 == 0 and N % 8 == 0 and a_addr % 16 == 0 and b_addr % 16 == 0:
+        return TMA_WGMMA
+    return CP_ASYNC_MMA
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_point(src: Path, name: str):
+    """One launcher of a library, built and loaded on first use:
+    ``(A, B, C, M, N, K, stages, flag, flag, stream) -> cudaError_t``
+    (the flags: ``credit, vec`` in ``pipelined_matmul.cu``, ``full, empty``
+    in ``tma_wgmma_matmul.cu``)."""
 
     import ctypes
 
     from repro_torch.kernels._build import load
 
-    lib = load(SOURCE)
-    fns = {}
-    for name in ("pm_matmul_f32", "pm_matmul_bf16"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        fns[name] = fn
-    return fns
+    fn = getattr(load(src), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
 
 
 def _launch(a, b, out, sched: KernelSchedule) -> None:
+    """The cp.async kernels of ``pipelined_matmul.cu`` (bf16 mma.sync, f32
+    FFMA)."""
+
     import torch
 
-    fn = _entry_points()[
-        "pm_matmul_bf16" if a.dtype == torch.bfloat16 else "pm_matmul_f32"
-    ]
+    fn = _entry_point(
+        SOURCE,
+        "pm_matmul_bf16" if a.dtype == torch.bfloat16 else "pm_matmul_f32",
+    )
     M, K = a.shape
     N = b.shape[1]
     elt = a.element_size()
@@ -142,11 +266,47 @@ def _launch(a, b, out, sched: KernelSchedule) -> None:
         sched.depth, int(sched.credit), int(vec),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
+    _check(rc, M, N, K, a.dtype, sched.depth)
+
+
+def _launch_tma(a, b, out, sched: HopperSchedule) -> None:
+    """``tma_wgmma_matmul.cu``, with the plan's two waits as its flags."""
+
+    import torch
+
+    M, K = a.shape
+    N = b.shape[1]
+    rc = _entry_point(TMA_SOURCE, "pm_matmul_bf16_tma")(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+        sched.depth, int(sched.full), int(sched.empty),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _check(rc, M, N, K, a.dtype, sched.depth)
+
+
+def _check(rc: int, M, N, K, dtype, depth) -> None:
+    if rc <= -1000:
+        raise RuntimeError(
+            f"pipelined matmul: cuTensorMapEncodeTiled failed (CUresult "
+            f"{-1000 - rc}; -1: the CUDA driver lacks it) for M={M}, N={N}, K={K}"
+        )
     if rc != 0:
         raise RuntimeError(
             f"pipelined matmul launch failed: cudaError {rc} "
-            f"(M={M}, N={N}, K={K}, dtype={a.dtype}, depth={sched.depth})"
+            f"(M={M}, N={N}, K={K}, dtype={dtype}, depth={depth})"
         )
+
+
+def _cp_async_matmul(a, b, depth: Optional[int] = None):
+    """The cp.async / mma.sync kernel on bf16 operands that :func:`route`
+    sends to the TMA kernel, to time the two side by side; not counted in
+    the launch counts and no route of :func:`matmul`."""
+
+    import torch
+
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+    _launch(a, b, out, kernel_schedule(default_depth() if depth is None else depth))
+    return out
 
 
 def matmul(
@@ -161,11 +321,13 @@ def matmul(
     """``C = A @ B`` for ``A (M, K)`` and ``B (K, N)`` in f32 or bf16, with
     f32 accumulation.
 
-    ``depth`` is the shared-memory ring depth (default ``min_buffers()``);
-    its waits come from ``plan_pipeline(depth)``.  ``blk_m/n/k`` keep the
-    reference wrapper's signature; the Hopper kernel's tiles are its own
-    (128 x 128, with a K step of 16 in f32 and 32 in bf16).  A CPU tensor
-    takes the plain version; a CUDA tensor takes the kernel or raises.
+    ``depth`` is the shared-memory ring depth, 1..4 on every route; by
+    default ``HOPPER_STAGES`` on the TMA route (the deepest ring that fits)
+    and ``min_buffers()`` on the others.  Its waits come from the route's
+    K-loop plan.  ``blk_m/n/k`` keep the reference wrapper's signature; the
+    kernels' tiles are their own (TMA: 128 x 256, K step 64; cp.async: 128
+    x 128, K step 16 in f32 and 32 in bf16).  A CPU tensor takes the plain
+    version; a CUDA tensor takes its route's kernel or raises.
     """
 
     import torch
@@ -183,7 +345,13 @@ def matmul(
             f"matmul takes two float32 or two bfloat16 tensors; got "
             f"{a.dtype} and {b.dtype}"
         )
-    sched = kernel_schedule(default_depth() if depth is None else depth)
+    M, K = a.shape
+    N = b.shape[1]
+    path = route(a.dtype, K, N, a.data_ptr(), b.data_ptr())
+    if path == TMA_WGMMA:
+        sched = hopper_schedule(HOPPER_STAGES if depth is None else depth)
+    else:
+        sched = kernel_schedule(default_depth() if depth is None else depth)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b)
     if a.device.type != "cuda" or b.device != a.device:
@@ -193,16 +361,19 @@ def matmul(
         )
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul takes row-major contiguous operands")
-    M, K = a.shape
-    N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return out
     if K == 0:
         return out.zero_()
-    _launch(a, b, out, sched)
+    if path == TMA_WGMMA:
+        _launch_tma(a, b, out, sched)
+    else:
+        _launch(a, b, out, sched)
     matmul.launches += 1
+    matmul.routes[path] += 1
     return out
 
 
 matmul.launches = 0
+matmul.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, FFMA: 0}

@@ -30,7 +30,10 @@ pytestmark = pytest.mark.cuda
 
 METHODS = ("none", "isd", "pattern", "both")
 DEPS_MODES = (None, "inspect", "speculate")
-SHAPES = [(128, 128, 128), (256, 512, 128), (300, 257, 130), (64, 8, 24)]
+# (M, K, N); in bf16 all but (300, 257, 130) take the TMA kernel, and
+# (300, 264, 136) has a ragged M, N below one 256-wide tile and K not a
+# multiple of the 64-deep K-step
+SHAPES = [(128, 128, 128), (256, 512, 128), (300, 257, 130), (64, 8, 24), (300, 264, 136)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # flash attention: the largest relative L2 error of one output row against
 # the plain version in f32 (a row's norm shrinks with its live keys, so an
@@ -114,6 +117,24 @@ def test_kloop_compiles_and_runs_on_cuda(cuda, depth):
     assert out == tc.run_sequential(p.program, init)
 
 
+def _expected_route(dtype, K, N):
+    if dtype == torch.float32:
+        return "ffma"
+    return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
+
+
+def _launch_counted(a, b, **kw):
+    """``ops.matmul`` and the route its one launch took."""
+
+    before, routes = ops.matmul.launches, dict(ops.matmul.routes)
+    out = ops.matmul(a, b, **kw)
+    torch.cuda.synchronize()
+    assert ops.matmul.launches == before + 1
+    took = [r for r, n in ops.matmul.routes.items() if n != routes[r]]
+    assert len(took) == 1 and ops.matmul.routes[took[0]] == routes[took[0]] + 1
+    return out, took[0]
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("M,K,N", SHAPES)
@@ -122,10 +143,8 @@ def test_kernel_matches_plain_version_on_cuda(cuda, M, K, N, dtype, depth):
     a = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32))
     b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32))
     a, b = a.to(cuda, dtype), b.to(cuda, dtype)
-    before = ops.matmul.launches
-    out = ops.matmul(a, b, depth=depth)
-    torch.cuda.synchronize()
-    assert ops.matmul.launches == before + 1
+    out, took = _launch_counted(a, b, depth=depth)
+    assert took == _expected_route(dtype, K, N)
     tol = TOL[dtype]
     torch.testing.assert_close(
         out.float(), matmul_ref(a, b).float(), atol=tol * K**0.5, rtol=tol
@@ -143,6 +162,73 @@ def test_kernel_takes_offset_views_through_the_element_path(cuda):
     torch.testing.assert_close(
         out, matmul_ref(a, b), atol=2e-5 * 64**0.5, rtol=2e-5
     )
+
+
+@pytest.mark.parametrize("M,K,N", [(200, 200, 264), (256, 256, 512)])
+def test_tma_kernel_identity_a_returns_b_exactly(cuda, M, K, N):
+    """A = I: every output element is one bf16 value of B times 1 plus
+    zeros, exact in f32 and back in bf16; a B-descriptor, swizzle or
+    epilogue mistake shows position by position."""
+
+    b = torch.randn(K, N, device=cuda).bfloat16()
+    out, took = _launch_counted(torch.eye(M, device=cuda).bfloat16(), b)
+    assert took == "tma_wgmma"
+    assert torch.equal(out, b)
+
+
+@pytest.mark.parametrize("M,K,N", [(300, 264, 264), (128, 256, 256)])
+def test_tma_kernel_identity_b_returns_a_exactly(cuda, M, K, N):
+    a = torch.randn(M, K, device=cuda).bfloat16()
+    out, took = _launch_counted(a, torch.eye(K, device=cuda).bfloat16())
+    assert took == "tma_wgmma"
+    assert torch.equal(out, a)
+
+
+def test_bf16_route_follows_the_base_address_on_cuda(cuda):
+    """A view 16 bytes into its allocation takes the TMA kernel; one 2 bytes
+    in takes the cp.async kernel; both agree with the plain version."""
+
+    base = torch.randn(128 * 64 + 8, device=cuda).bfloat16()
+    b = torch.randn(64, 256, device=cuda).bfloat16()
+    for offset, expect in ((8, "tma_wgmma"), (1, "cp_async_mma")):
+        a = base[offset:offset + 128 * 64].view(128, 64)
+        out, took = _launch_counted(a, b)
+        assert took == expect
+        torch.testing.assert_close(
+            out.float(), matmul_ref(a, b).float(), atol=3e-2 * 8, rtol=3e-2
+        )
+
+
+def test_tma_route_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
+    """An eligible operand whose TMA launch fails raises; it is never
+    retried on the cp.async kernel."""
+
+    real = ops._entry_point
+
+    def failing(src, name):
+        if src == ops.TMA_SOURCE:
+            return lambda *args: 1  # cudaErrorInvalidValue
+        return real(src, name)
+
+    monkeypatch.setattr(ops, "_entry_point", failing)
+    a = torch.randn(128, 64, device=cuda).bfloat16()
+    b = torch.randn(64, 256, device=cuda).bfloat16()
+    before, routes = ops.matmul.launches, dict(ops.matmul.routes)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ops.matmul(a, b)
+    assert ops.matmul.launches == before and ops.matmul.routes == routes
+
+
+def test_tma_kernel_refuses_a_schedule_without_both_waits(cuda):
+    a = torch.randn(128, 64, device=cuda).bfloat16()
+    b = torch.randn(64, 256, device=cuda).bfloat16()
+    out = torch.empty(128, 256, device=cuda).bfloat16()
+    fn = ops._entry_point(ops.TMA_SOURCE, "pm_matmul_bf16_tma")
+    stream = torch.cuda.current_stream().cuda_stream
+    for full, empty in ((1, 0), (0, 1)):
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 128, 256, 64, 4,
+                full, empty, stream)
+        assert rc == 1  # cudaErrorInvalidValue
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
