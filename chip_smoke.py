@@ -33,17 +33,23 @@ non-zero:
    its bound, the plain version's and ``torch.matmul``'s; for bf16 at
    yi-6b's shapes the kernel, the cp.async kernel and ``torch.matmul`` are
    timed in turns;
-6. the flash-attention kernel against its plain version at yi-6b's prefill
-   shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in bf16 and
-   f32, the same with gemma3's 1024-token window, an unaligned 193 / 201
-   non-causal shape and hd 64: the largest row-relative error, the same
-   check's reading of two planted faults (a key edge off by one, a 64-key
-   tile dropped), which must exceed its limit, time, bound, plain and
-   ``scaled_dot_product_attention`` times;
+6. the flash-attention kernels against their plain version at yi-6b's
+   prefill shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in
+   bf16 and f32, the same with gemma3's 1024-token window, an unaligned
+   193 / 201 non-causal shape at hd 32, the same lengths at hd 128 (causal
+   and not) and granite's hd 64: launch counts per route from the main run
+   (bf16 at hd 64 and 128 takes the TMA / wgmma kernel, other bf16 the
+   cp.async / mma.sync kernel, f32 FFMA), the largest row-relative error,
+   the same check's reading of two planted faults (a key edge off by one,
+   a 64-key tile dropped), which must exceed its limit, the one-hot probes
+   on the TMA route (exact), time, bound, plain and
+   ``scaled_dot_product_attention`` times; at the yi-6b bf16 prefill the
+   TMA kernel at ring depths 1, 2 and its default, the cp.async kernel
+   and SDPA are timed in turns;
 7. yi-6b at full width (32 layers, bf16, random weights from a seed)
    serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
    tokens each, through ``repro_torch.launch``'s step functions: one flash
-   launch per layer per prefill; the first wave's logits against a rerun
+   launch per layer per prefill, all on the TMA route; the first wave's logits against a rerun
    whose attention is the plain version, and against one whose causal
    edge is off by one; every layer's kernel output against the plain
    version on the wave's own activations, with the same planted fault;
@@ -83,13 +89,16 @@ KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/pipelined_matmul.
 TMA_KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_matmul.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+TMA_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, dtype): yi-6b's prefill
 # (src/repro/configs/yi_6b.py: 32 heads, GQA 4, hd 128) at 4 x 2048
 # tokens, gemma3's local window (src/repro/configs/gemma3_27b.py: 1024),
-# tests/test_kernels.py's unaligned 193 / 201, and granite-3-2b's hd 64
-# (32 heads, GQA 8); the first is the shape the serving phase gives it
+# tests/test_kernels.py's unaligned 193 / 201 (at hd 32, and at hd 128
+# with GQA, where the TMA kernel zero-fills the ragged ends and masks the
+# stores), and granite-3-2b's hd 64 (32 heads, GQA 8); the first is the
+# shape the serving phase gives it
 FLASH_CASES = [
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "bf16"),
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "f32"),
@@ -97,7 +106,19 @@ FLASH_CASES = [
     ("yi-6b prefill, window 1024", 4, 2048, 2048, 32, 4, 128, True, 1024, "f32"),
     ("unaligned 193/201", 1, 193, 201, 4, 4, 32, False, None, "bf16"),
     ("unaligned 193/201", 1, 193, 201, 4, 4, 32, False, None, "f32"),
+    ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, True, None, "bf16"),
+    ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, False, None, "bf16"),
     ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "bf16"),
+]
+# (B, Sq, Sk, H, KV, hd, keyword arguments): the one-hot probes on the TMA
+# route (repro_torch.kernels.flash_attention.probe), several tiles, ragged
+# ends, a window and V = I
+FLASH_PROBES = [
+    (2, 1024, 1024, 8, 2, 128, dict(causal=True)),
+    (1, 193, 201, 4, 2, 128, dict(causal=False)),
+    (2, 1024, 1024, 8, 2, 128, dict(causal=True, window=300, identity_v=True)),
+    (2, 1024, 1024, 8, 2, 64, dict(causal=True)),
+    (1, 193, 201, 4, 4, 64, dict(causal=False, identity_v=True)),
 ]
 
 # the serving phase: yi-6b at full width, 8 requests in waves of 4 slots
@@ -690,24 +711,77 @@ def _sdpa(torch, q, k, v, causal, window):
     )
 
 
-def flash_phase(torch):
-    """The kernel against its plain version at every listed shape; returns
-    the numbers of each shape keyed by case."""
+def expected_flash_route(dt, hd):
+    """The flash route rule, written out independently of ``ops.route``:
+    the operands here are fresh allocations, so 16-byte aligned."""
 
+    if dt == "f32":
+        return "ffma"
+    return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
+
+
+def ptxas_lines(log):
+    """ptxas's summary (registers, barriers, stack, spills) of each
+    instantiation of the TMA flash kernel in a build log, keyed
+    ``"hd{HD} D{STAGES}"``."""
+
+    import re
+
+    lines, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", line)
+            kernel = f"hd{found.group(1)} D{found.group(2)}" if found else None
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.setdefault(kernel, []).append(line.replace("ptxas info    :", "").strip())
+    return {k: "; ".join(v) for k, v in lines.items()}
+
+
+def flash_phase(torch):
+    """The kernels against their plain version at every listed shape;
+    returns the numbers of each shape keyed by case, and the launches of
+    each route in the main run."""
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe
     from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {}
+    inputs = {}
     for case in FLASH_CASES:
         label, B, Sq, Sk, H, KV, hd, causal, window, dt = case
-        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[dt])
-        k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtypes[dt])
-        v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtypes[dt])
+        inputs[case] = tuple(
+            torch.randn(shape, device="cuda", generator=gen).to(dtypes[dt])
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))
+        )
+
+    # the main path: every count set to 0 just before, read just after
+    ops.flash_attention.launches = 0
+    ops.flash_attention.routes = dict.fromkeys(ops.flash_attention.routes, 0)
+    outs, routes = {}, {}
+    for case in FLASH_CASES:
+        q, k, v = inputs[case]
+        before = dict(ops.flash_attention.routes)
+        outs[case] = ops.flash_attention(q, k, v, causal=case[7], window=case[8])
+        took = [r for r, n in ops.flash_attention.routes.items() if n != before[r]]
+        routes[case] = took[0] if len(took) == 1 else took
+    torch.cuda.synchronize()
+    total, by_route = ops.flash_attention.launches, dict(ops.flash_attention.routes)
+    check(total == len(FLASH_CASES), f"flash: {total} launches in the main run, expected {len(FLASH_CASES)}")
+    for case in FLASH_CASES:
+        want = expected_flash_route(case[9], case[6])
+        check(routes[case] == want, f"flash {case}: took route {routes[case]}, expected {want}")
+    check(sum(by_route.values()) == total, f"flash: routes {by_route} do not sum to {total}")
+    emit("flash routes in the main run: " + json.dumps(by_route))
+
+    checks = {}
+    for case in FLASH_CASES:
+        label, B, Sq, Sk, H, KV, hd, causal, window, dt = case
+        q, k, v = inputs[case]
+        out = outs.pop(case)
         kw = dict(causal=causal, window=window)
-        out = ops.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
         ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
         err = (out.float() - ref).abs().max().item()
         rel = row_rel_err(out, ref)
@@ -722,16 +796,65 @@ def flash_phase(torch):
                 f"flash {case}: planted fault {name!r} reads {reading}, inside "
                 f"the limit {ROW_TOL[dt]}: the check cannot see it",
             )
+        checks[case] = (err, rel, faults)
         del out
+    torch.cuda.empty_cache()
+
+    # the one-hot probes on the TMA route: each row's output is one v row
+    # (or, with V = I, the one-hot P) bit for bit
+    for B, Sq, Sk, H, KV, hd, kw in FLASH_PROBES:
+        q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=SEED, **kw)
+        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q, k, v))
+        mask = {n: x for n, x in kw.items() if n != "identity_v"}
+        check(ops._route_of(q, k, v) == "tma_wgmma", f"flash probe {kw}: not on the TMA route")
+        out = ops.flash_attention(q, k, v, **mask).float().cpu()
+        differ = int((out != torch.from_numpy(expected)).sum())
+        check(differ == 0, f"flash probe {(B, Sq, Sk, H, KV, hd, kw)}: {differ} values differ")
+    emit(f"flash one-hot probes (bf16, TMA route): {len(FLASH_PROBES)} exact")
+
+    ptxas = ptxas_lines(_build.BUILD_LOG.get(Path(TMA_FLASH_SOURCE).name, ""))
+    rows = {}
+    for case in FLASH_CASES:
+        label, B, Sq, Sk, H, KV, hd, causal, window, dt = case
+        q, k, v = inputs[case]
+        kw = dict(causal=causal, window=window)
+        err, rel, faults = checks[case]
         bound_ms, bound_by, flops = flash_bound(
             B, Sq, Sk, H, KV, hd, causal, window, dt, q.element_size()
         )
         reps = 21 if flops > 1e10 else 101
-        ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
+        library = lambda: _sdpa(torch, q, k, v, causal, window)  # noqa: E731
+        extra = {}
+        if routes[case] == "tma_wgmma":
+            # the TMA kernel at each ring depth, flash_attention.cu's
+            # cp.async kernel on the same tensors and SDPA, in turns (one
+            # launch each a round)
+            cp_async = lambda: ops._cp_async_flash(q, k, v, **kw)  # noqa: E731
+            default = ops.default_depth(hd)
+            depths = (1, 2, default) if label == "yi-6b prefill" else (default,)
+            by_depth = {}
+            for d in depths:
+                kernel = lambda d=d: ops.flash_attention(q, k, v, depth=d, **kw)  # noqa: E731
+                ms_d, cp_ms, lib_ms = _time_turns_ms(torch, [kernel, cp_async, library], reps)
+                by_depth[d] = {"ms": ms_d, "cp_async_mma_ms": cp_ms, "library_ms": lib_ms,
+                               "tflops": flops / ms_d / 1e9,
+                               "ptxas": ptxas.get(f"hd{hd} D{d}")}
+            ms, library_ms = by_depth[default]["ms"], by_depth[default]["library_ms"]
+            # the kernel alone, back to back: what the turns' neighbours
+            # (a 1.4 ms masked SDPA in the window case) do to its clock
+            ms_alone = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
+            extra = {"depth": default, "cp_async_mma_ms": by_depth[default]["cp_async_mma_ms"],
+                     "ms_alone": ms_alone, "by_depth": by_depth,
+                     "timed_in_turns": ["ms", "cp_async_mma_ms", "library_ms"]}
+        else:
+            ms, library_ms = _time_turns_ms(
+                torch, [lambda: ops.flash_attention(q, k, v, **kw), library], reps
+            )
+            extra = {"timed_in_turns": ["ms", "library_ms"]}
         plain_ms = _time_ms(torch, lambda: flash_attention_bshd_ref(q, k, v, **kw), 5)
-        library_ms = _time_ms(torch, lambda: _sdpa(torch, q, k, v, causal, window), reps)
         row = {
             "case": f"{label}, {dt}",
+            "kernel_route": routes[case],
             "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                       "causal": causal, "window": window},
             "max_abs_err": err,
@@ -745,12 +868,13 @@ def flash_phase(torch):
             "library_ms": library_ms,
             "reps": reps,
             "tflops": flops / ms / 1e9,
+            **extra,
         }
         rows[case] = row
         emit("flash: " + json.dumps(row))
-        del q, k, v
-        torch.cuda.empty_cache()
-    return rows
+    del inputs, q, k, v
+    torch.cuda.empty_cache()
+    return rows, by_route
 
 
 # ---------------------------------------------------------------------- #
@@ -833,17 +957,23 @@ def serve_phase(torch):
 
     # the main path: every count set to 0 just before, read just after
     flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.routes = dict.fromkeys(flash_ops.flash_attention.routes, 0)
     matmul_ops.matmul.launches = 0
     t0 = time.perf_counter()
     results = [generate(params, cfg, batch, SERVE_NEW_TOKENS, cache=cache) for batch in waves]
     wall_s = time.perf_counter() - t0
     launches = flash_ops.flash_attention.launches
+    flash_routes = dict(flash_ops.flash_attention.routes)
     matmul_launches = matmul_ops.matmul.launches
     peak = torch.cuda.max_memory_allocated()
     prefills = len(waves)
     check(
         launches == cfg.num_layers * prefills,
         f"serve: {launches} flash launches, expected {cfg.num_layers} x {prefills}",
+    )
+    check(
+        flash_routes["tma_wgmma"] == launches,
+        f"serve: flash routes {flash_routes}, expected all {launches} on tma_wgmma",
     )
     check(  # the projections are torch.matmul, as the reference leaves them to XLA
         matmul_launches == 0,
@@ -932,6 +1062,7 @@ def serve_phase(torch):
         "prompt_tokens": SERVE_PROMPT,
         "new_tokens": SERVE_NEW_TOKENS,
         "flash_launches": launches,
+        "flash_routes": flash_routes,
         "pipelined_matmul_launches": matmul_launches,
         "prefill_ms": prefill_ms,
         "decode_ms_per_step_median": statistics.median(decode_ms),
@@ -965,29 +1096,45 @@ def serve_phase(torch):
     return launches
 
 
-def flash_entry(rows, launches):
-    """The kernels-line entry of the flash kernel, at the shape the
-    serving phase gives it."""
+def flash_entries(rows, serve_launches, phase_launches):
+    """The kernels-line entries of the flash kernels, one per route taken:
+    ``tma_wgmma`` at the shape the serving phase gives it (its launches are
+    the serving run's), ``cp_async_mma`` at the unaligned hd-32 case and
+    ``ffma`` at the f32 prefill (their launches are phase 6's main run's)."""
 
-    row = rows[FLASH_CASES[0]]
-    return {
-        "name": f"flash_attention[{row['case']}]",
-        "route": "cuda",
-        "kernel_route": "cp_async_mma",
-        "source": FLASH_SOURCE,
-        "replaces": FLASH_TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "max_row_rel_err": row["max_row_rel_err"],
-        "row_rel_limit": row["row_rel_limit"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "reps": row["reps"],
-        "tflops": row["tflops"],
-    }
+    picks = [
+        ("tma_wgmma", ("yi-6b prefill", "bf16"), serve_launches, TMA_FLASH_SOURCE),
+        ("cp_async_mma", ("unaligned 193/201", "bf16"), phase_launches["cp_async_mma"], FLASH_SOURCE),
+        ("ffma", ("yi-6b prefill", "f32"), phase_launches["ffma"], FLASH_SOURCE),
+    ]
+    entries = []
+    for route, (label, dt), launches, source in picks:
+        row = next(r for c, r in rows.items() if c[0] == label and c[9] == dt)
+        check(row["kernel_route"] == route, f"flash entry {route}: the case took {row['kernel_route']}")
+        check(launches > 0, f"flash entry {route}: no launch on the main path")
+        entry = {
+            "name": f"flash_attention[{row['case']}]",
+            "route": "cuda",
+            "kernel_route": route,
+            "source": source,
+            "replaces": FLASH_TPU_KERNEL,
+            "launches": launches,
+            "max_abs_err": row["max_abs_err"],
+            "max_row_rel_err": row["max_row_rel_err"],
+            "row_rel_limit": row["row_rel_limit"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "reps": row["reps"],
+            "tflops": row["tflops"],
+        }
+        for key in ("depth", "cp_async_mma_ms", "timed_in_turns"):
+            if key in row:
+                entry[key] = row[key]
+        entries.append(entry)
+    return entries
 
 
 def main() -> int:
@@ -1032,23 +1179,23 @@ def main() -> int:
                 "spill" in line and " 0 bytes spill" not in line
             ):
                 emit(f"  ptxas {kernel}: {line.strip()}")
-        if name == Path(TMA_KERNEL_SOURCE).name:
-            # setmaxnreg must be honoured and the 128 accumulators a
-            # consumer thread holds must stay in registers
-            check("C7508" not in log, "tma_wgmma_matmul.cu: ptxas ignored setmaxnreg (C7508)")
+        if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name):
+            # setmaxnreg must be honoured and the accumulators a consumer
+            # thread holds must stay in registers
+            check("C7508" not in log, f"{name}: ptxas ignored setmaxnreg (C7508)")
             check(
                 all(" 0 bytes spill stores, 0 bytes spill loads" in line
                     for line in log.splitlines() if "spill" in line),
-                "tma_wgmma_matmul.cu: ptxas reports spills",
+                f"{name}: ptxas reports spills",
             )
 
     level_loop_phase(torch)  # phase 3
     operator_phase()
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
-    flash_rows = flash_phase(torch)  # phase 6
+    flash_rows, flash_phase_launches = flash_phase(torch)  # phase 6
     flash_launches = serve_phase(torch)  # phase 7
-    entries.append(flash_entry(flash_rows, flash_launches))
+    entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
 
     emit(json.dumps({"kernels": entries}))  # phase 8
     emit(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -1,30 +1,136 @@
-"""Public wrapper of flash attention: the Hopper kernel of
-``csrc/flash_attention.cu`` for CUDA tensors, the plain version
-(:func:`ref.flash_attention_bshd_ref`) for CPU tensors.
+"""Public wrapper of flash attention: a Hopper kernel for CUDA tensors,
+the plain version (:func:`ref.flash_attention_bshd_ref`) for CPU tensors.
 
 The layout is the reference wrapper's: q ``(B, Sq, H, hd)``, k and v
-``(B, Sk, KV, hd)`` with ``H % KV == 0`` (GQA).  The kernel reads all
-three by stride and indexes the KV head as ``h // (H / KV)``, so the
-wrapper makes no transpose, repeat or padded copy.  Its K/V ring depth and
-its per-step waits come from the same K-loop plan as the pipelined matmul's
-(:func:`repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
-``RING_DEPTH``): the kernel has the same producer (copy) / consumer
-(compute) structure, and raises if the plan asks for a wait it lacks.
+``(B, Sk, KV, hd)`` with ``H % KV == 0`` (GQA).  The kernels read all
+three by stride and index the KV head as ``h // (H / KV)``, so the wrapper
+makes no transpose, repeat or padded copy.
+
+A CUDA call takes one of three kernels, by a rule on the operands
+(:func:`route`), never as a fallback:
+
+    tma_wgmma     bf16, hd 64 or 128, that TMA can describe:
+                  ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
+                  producer warpgroup, wgmma QKᵀ and PV on two consumer
+                  warpgroups)
+    cp_async_mma  other bf16 (hd 16 and 32): ``csrc/flash_attention.cu``'s
+                  cp.async ring and mma.sync
+    ffma          f32: ``csrc/flash_attention.cu``'s FFMA kernel
+
+Each kernel's K/V ring depth and its waits come from the K-loop plan that
+the synchronization compiler derives, as the pipelined matmul's do:
+:func:`~repro_torch.kernels.pipelined_matmul.ops.hopper_schedule` (a
+producer warpgroup issues and loads, consumer warpgroups compute; its two
+retained dependences are the full and empty mbarriers) for the TMA kernel,
+:func:`~repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
+``RING_DEPTH`` for ``flash_attention.cu``.  The wrapper raises on a plan
+whose retained dependences a kernel has no wait for.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
-from repro_torch.kernels.pipelined_matmul.ops import kernel_schedule
+from repro_torch.kernels.pipelined_matmul.ops import (
+    CP_ASYNC_MMA,
+    FFMA,
+    SMEM_PER_BLOCK,
+    TMA_WGMMA,
+    hopper_schedule,
+    kernel_schedule,
+)
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)  # csrc: the instantiated HD values
-RING_DEPTH = 2  # csrc: STAGES
-KERNEL_WAITS = ("issue", "arrival")  # csrc: ISSUE(i) and the arrival wait
+TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash.cu"
+HEAD_DIMS = (16, 32, 64, 128)  # flash_attention.cu: the instantiated HD values
+RING_DEPTH = 2  # flash_attention.cu: STAGES
+KERNEL_WAITS = ("issue", "arrival")  # flash_attention.cu: ISSUE(i) and the arrival wait
+
+# tma_wgmma_flash.cu: 128-row Q tiles, 128-key K/V tiles, loaded as boxes of
+# 64 hd columns (128 bytes, the widest a 128-byte swizzle takes); a stage
+# holds K and V of one tile; the ring also needs 1 KB to align itself, two
+# mbarriers for Q and two a stage
+TMA_HEAD_DIMS = (64, 128)
+TMA_BQ = 128
+TMA_BK = 128
+TMA_BOX = 64
+MAX_STAGES = 4
+TMA_SMEM_EXTRA = 1024 + 8 * (2 + 2 * MAX_STAGES)
+
+
+def tma_smem_bytes(hd: int, depth: int) -> int:
+    """Dynamic shared memory of the TMA kernel at ``hd`` with a ring of
+    ``depth`` stages: the Q tile, the K/V stages, alignment and barriers."""
+
+    return TMA_BQ * hd * 2 + depth * 2 * TMA_BK * hd * 2 + TMA_SMEM_EXTRA
+
+
+def default_depth(hd: int) -> int:
+    """The deepest ring the shared-memory budget takes, at most
+    ``MAX_STAGES``: 3 at hd 128 (32 KB of Q and 64 KB a stage), 4 at hd 64."""
+
+    stage = 2 * TMA_BK * hd * 2
+    return min(MAX_STAGES, (SMEM_PER_BLOCK - tma_smem_bytes(hd, 0)) // stage)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """A 4-D TMA tensor map of one ``(B, S, heads, hd)`` operand, innermost
+    dimension first, as the kernel's host entry encodes it."""
+
+    dims: Tuple[int, int, int, int]     # (hd, heads, S, B)
+    strides: Tuple[int, int, int]       # bytes: heads, S, B
+    box: Tuple[int, int, int, int]      # (64, 1, rows, 1)
+
+    def flat(self) -> Tuple[int, ...]:
+        return (*self.dims, *self.strides, *self.box)
+
+
+def tensor_map(shape: Sequence[int], stride: Sequence[int], rows: int,
+               elt: int = 2) -> TensorMap:
+    """The tensor map of an operand of ``shape`` ``(B, S, heads, hd)`` and
+    element strides ``stride``, read in boxes of 64 hd columns by ``rows``
+    positions of one head of one batch.  A 4-D map, not a flattened 2-D
+    one, is what keeps a box at a ragged end of S inside its own batch:
+    TMA zero-fills past S instead of reading the next batch's rows."""
+
+    B, S, heads, hd = shape
+    sb, ss, sh = stride[:3]
+    return TensorMap(
+        dims=(hd, heads, S, B),
+        strides=(sh * elt, ss * elt, sb * elt),
+        box=(TMA_BOX, 1, rows, 1),
+    )
+
+
+def route(dtype, hd: int, strides: Sequence[Sequence[int]],
+          addresses: Sequence[int]) -> str:
+    """Which kernel a CUDA call takes, from the operands' dtype, head dim,
+    the (batch, sequence, head) element strides of q, k and v and their
+    base addresses.
+
+    TMA needs 16-byte aligned bases and strides that are positive multiples
+    of 16 bytes; the TMA kernel is instantiated at hd 64 and 128.  Such
+    bf16 operands take it whatever Sq and Sk are (ragged ends are
+    zero-filled and masked); other bf16 operands take the cp.async kernel;
+    f32 takes FFMA."""
+
+    import torch
+
+    if dtype == torch.float32:
+        return FFMA
+    if (
+        hd in TMA_HEAD_DIMS
+        and all(s > 0 and (2 * s) % 16 == 0 for st in strides for s in st[:3])
+        and all(a % 16 == 0 for a in addresses)
+    ):
+        return TMA_WGMMA
+    return CP_ASYNC_MMA
 
 
 def _check_schedule() -> None:
@@ -38,6 +144,27 @@ def _check_schedule() -> None:
             f"asks for waits {sched.waits}; the kernel has the waits "
             f"{KERNEL_WAITS}"
         )
+
+
+def _tma_schedule(hd: int, depth: Optional[int]):
+    """The K-loop plan of the TMA kernel at ``depth`` (default: the deepest
+    ring that fits), or ``NotImplementedError`` for a plan without both of
+    its mbarriers or a ring that does not fit."""
+
+    depth = default_depth(hd) if depth is None else depth
+    if not 1 <= depth <= MAX_STAGES or tma_smem_bytes(hd, depth) > SMEM_PER_BLOCK:
+        raise NotImplementedError(
+            f"flash attention (tma_wgmma): ring depth {depth} at hd={hd} "
+            f"(1..{default_depth(hd)} stages fit in {SMEM_PER_BLOCK} bytes)"
+        )
+    sched = hopper_schedule(depth)
+    if not (sched.full and sched.empty):
+        raise NotImplementedError(
+            f"flash attention (tma_wgmma): the Hopper K-loop plan at depth "
+            f"{depth} asks for waits {sched.waits}; the kernel needs the full "
+            "and the empty mbarrier"
+        )
+    return sched
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +188,48 @@ def _entry_point():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _tma_entry_point():
+    """``fa_forward_tma(q, k, v, o, dims[6], maps[33], o_strides[3], causal,
+    window, scale_log2, stages, full, empty, stream) -> cudaError_t``."""
+
+    import ctypes
+
+    from repro_torch.kernels._build import load
+
+    fn = load(TMA_SOURCE).fa_forward_tma
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.POINTER(ctypes.c_longlong)] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def _check(rc: int, path: str, q, k, depth) -> None:
+    """Raise for a failed launch, naming the route and the shape."""
+
+    if rc == 0:
+        return
+    B, Sq, H, hd = q.shape
+    shape = (
+        f"B={B}, Sq={Sq}, Sk={k.shape[1]}, H={H}, KV={k.shape[2]}, hd={hd}, "
+        f"dtype={q.dtype}, depth={depth}"
+    )
+    if rc <= -1000:
+        raise RuntimeError(
+            f"flash attention ({path}): cuTensorMapEncodeTiled failed "
+            f"(CUresult {-1000 - rc}; -1: the CUDA driver lacks it) for {shape}"
+        )
+    raise RuntimeError(f"flash attention launch failed ({path}): cudaError {rc} ({shape})")
+
+
 def _launch(q, k, v, o, causal: bool, window: Optional[int]) -> None:
+    """``flash_attention.cu`` (bf16 mma.sync, f32 FFMA)."""
+
     import ctypes
 
     import torch
@@ -79,11 +247,36 @@ def _launch(q, k, v, o, causal: bool, window: Optional[int]) -> None:
         hd**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"flash attention launch failed: cudaError {rc} (B={B}, Sq={Sq}, "
-            f"Sk={Sk}, H={H}, KV={KV}, hd={hd}, dtype={q.dtype})"
+    _check(rc, FFMA if q.dtype == torch.float32 else CP_ASYNC_MMA, q, k, RING_DEPTH)
+
+
+def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], sched) -> None:
+    """``tma_wgmma_flash.cu``, with the tensor maps of :func:`tensor_map` and
+    the plan's two waits as its flags."""
+
+    import ctypes
+
+    import torch
+
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dims = (ctypes.c_longlong * 6)(B, H, KV, Sq, Sk, hd)
+    maps = (ctypes.c_longlong * 33)(
+        *(
+            x
+            for t, rows in ((q, TMA_BQ), (k, TMA_BK), (v, TMA_BK))
+            for x in tensor_map(t.shape, t.stride(), rows).flat()
         )
+    )
+    o_strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    rc = _tma_entry_point()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dims, maps, o_strides, int(causal), 0 if window is None else int(window),
+        hd**-0.5 * math.log2(math.e),
+        sched.depth, int(sched.full), int(sched.empty),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(rc, TMA_WGMMA, q, k, sched.depth)
 
 
 def _check_kernel_call(q, k, v, window) -> None:
@@ -121,6 +314,28 @@ def _check_kernel_call(q, k, v, window) -> None:
             )
 
 
+def _route_of(q, k, v) -> str:
+    return route(
+        q.dtype, q.shape[-1], [t.stride()[:3] for t in (q, k, v)],
+        [t.data_ptr() for t in (q, k, v)],
+    )
+
+
+def _cp_async_flash(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """``flash_attention.cu``'s cp.async / mma.sync kernel on bf16 operands
+    that :func:`route` sends to the TMA kernel, to time the two side by
+    side; not counted in the launch counts and no route of
+    :func:`flash_attention`."""
+
+    import torch
+
+    _check_kernel_call(q, k, v, window)
+    _check_schedule()
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, o, causal, window)
+    return o
+
+
 def flash_attention(
     q,
     k,
@@ -128,15 +343,19 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    depth: Optional[int] = None,
 ):
     """Softmax attention ``softmax(q kᵀ · hd**-0.5 + mask) v`` with f32
     softmax state, over q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)``.
 
     ``causal`` masks keys after the query position, ``window`` keys at or
-    before ``q_pos - window``; positions start at 0 for q and k alike.  The
-    reference wrapper's ``blk_q`` / ``blk_k`` have no counterpart: the
-    Hopper kernel's tiles are its own.  A CPU tensor takes the plain
-    version; a CUDA tensor takes the kernel or raises.
+    before ``q_pos - window``; positions start at 0 for q and k alike.
+    ``depth`` is the K/V ring depth of the TMA route (default: the deepest
+    ring that fits, :func:`default_depth`); the other routes have one depth,
+    ``RING_DEPTH``.  The reference wrapper's ``blk_q`` / ``blk_k`` have no
+    counterpart: the Hopper kernels' tiles are their own.  A CPU tensor
+    takes the plain version; a CUDA tensor takes its route's kernel or
+    raises.
     """
 
     import torch
@@ -157,23 +376,40 @@ def flash_attention(
             f"flash attention takes one dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
-        return flash_attention_bshd_ref(q, k, v, causal=causal, window=window)
-    if len(devices) != 1 or q.device.type != "cuda":
+    on_cpu = devices == {torch.device("cpu")}
+    if not on_cpu and (len(devices) != 1 or q.device.type != "cuda"):
         raise ValueError(
             "flash attention operands must all be on the CPU or on one CUDA "
             f"device; got {[str(d) for d in devices]}"
         )
+    path = sched = None
+    if q.dtype in (torch.float32, torch.bfloat16):
+        path = _route_of(q, k, v)
+        if path == TMA_WGMMA:
+            sched = _tma_schedule(hd, depth)
+        elif depth not in (None, RING_DEPTH):
+            raise NotImplementedError(
+                f"flash attention ({path}): ring depth {depth} (this route "
+                f"has one depth, {RING_DEPTH})"
+            )
+    if on_cpu:
+        return flash_attention_bshd_ref(q, k, v, causal=causal, window=window)
     _check_kernel_call(q, k, v, window)
-    _check_schedule()
+    if path != TMA_WGMMA:
+        _check_schedule()
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o
     if k.shape[1] == 0:
         return o.zero_()
-    _launch(q, k, v, o, causal, window)
+    if path == TMA_WGMMA:
+        _launch_tma(q, k, v, o, causal, window, sched)
+    else:
+        _launch(q, k, v, o, causal, window)
     flash_attention.launches += 1
+    flash_attention.routes[path] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, FFMA: 0}

@@ -20,6 +20,7 @@ import repro_torch.core as tc
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import program_from_reference, store_from_reference
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.probe import one_hot_probe
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 from repro_torch.kernels.pipelined_matmul import ops, schedule
 from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
@@ -255,7 +256,33 @@ FLASH_CASES = [
     (1, 201, 193, 4, 1, 16, True, None),
     (2, 300, 300, 8, 2, 128, True, 64),
     (1, 77, 77, 2, 1, 128, False, 16),
+    (1, 193, 201, 4, 2, 128, True, None),
+    (1, 193, 201, 4, 2, 128, False, None),
+    (2, 333, 290, 4, 4, 64, False, 100),
 ]
+
+
+def _flash_route(dtype, hd):
+    if dtype == torch.float32:
+        return "ffma"
+    return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
+
+
+def _flash_counted(q, k, v, **kw):
+    """``flash_ops.flash_attention`` and the route its one launch took."""
+
+    before, routes = flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes)
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    took = [r for r, n in flash_ops.flash_attention.routes.items() if n != routes[r]]
+    assert len(took) == 1
+    return out, took[0]
+
+
+def _row_err(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
 
 
 def _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, dtype, seed=0):
@@ -271,16 +298,102 @@ def _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, dtype, seed=0):
 def test_flash_kernel_matches_plain_version_on_cuda(cuda, case, dtype):
     B, Sq, Sk, H, KV, hd, causal, window = case
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, dtype)
-    before = flash_ops.flash_attention.launches
-    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert flash_ops.flash_attention.launches == before + 1
+    out, took = _flash_counted(q, k, v, causal=causal, window=window)
+    assert took == _flash_route(dtype, hd)
     ref = flash_attention_bshd_ref(
         q.float(), k.float(), v.float(), causal=causal, window=window
     )
     assert out.shape == ref.shape and out.dtype == dtype
-    row_err = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
-    assert row_err.max().item() <= ROW_TOL[dtype]
+    assert _row_err(out, ref) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tma_kernel_at_every_depth_on_cuda(cuda, hd):
+    """Every ring depth that fits (1 .. default_depth) on the TMA route,
+    causal over several tiles and with a window."""
+
+    q, k, v = _flash_inputs(cuda, 2, 520, 520, 4, 2, hd, torch.bfloat16, seed=hd)
+    for window in (None, 200):
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+        for depth in range(1, flash_ops.default_depth(hd) + 1):
+            out, took = _flash_counted(q, k, v, causal=True, window=window, depth=depth)
+            assert took == "tma_wgmma"
+            assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16], (depth, window)
+
+
+@pytest.mark.parametrize(
+    "shape,kw",
+    [
+        ((2, 520, 520, 4, 2), dict(causal=True)),
+        ((1, 193, 201, 4, 2), dict(causal=False)),
+        ((1, 300, 300, 4, 1), dict(causal=True, window=130)),
+        ((2, 520, 520, 4, 2), dict(causal=True, identity_v=True)),
+        ((1, 193, 201, 4, 4), dict(causal=False, identity_v=True)),
+    ],
+    ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"],
+)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tma_one_hot_probes_are_exact_on_cuda(cuda, hd, shape, kw):
+    """Each row's one live key of margin >= 128 returns its v row (or, with
+    V = I, the one-hot P) bit for bit: a wrong P fragment, V transpose or
+    descriptor stride shows position by position."""
+
+    B, Sq, Sk, H, KV = shape
+    q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=hd, **kw)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    kw = {n: x for n, x in kw.items() if n != "identity_v"}
+    out, took = _flash_counted(q, k, v, **kw)
+    assert took == "tma_wgmma"
+    assert torch.equal(out.float().cpu(), torch.from_numpy(expected))
+
+
+def test_flash_tma_reads_kv_cache_slices_and_head_views_on_cuda(cuda):
+    """k and v as the first Sk positions of a longer cache, q as a head
+    slice of a fused projection: strided, read in place through the 4-D
+    tensor maps, a ragged Sk zero-filled inside its own batch."""
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache_k = torch.randn(2, 640, 2, 128, device=cuda, generator=gen).bfloat16()
+    cache_v = torch.randn(2, 640, 2, 128, device=cuda, generator=gen).bfloat16()
+    qkv = torch.randn(2, 201, 8, 128, device=cuda, generator=gen).bfloat16()
+    q = qkv[:, :, :4]
+    k, v = cache_k[:, :201], cache_v[:, :201]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    out, took = _flash_counted(q, k, v, causal=True)
+    assert took == "tma_wgmma"
+    ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=True)
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+
+
+def test_flash_tma_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
+    """An operand on the TMA route whose launch fails raises, naming the
+    route and the shape; it is never retried on another kernel."""
+
+    monkeypatch.setattr(flash_ops, "_tma_entry_point", lambda: (lambda *args: 1))
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 2, 128, torch.bfloat16)
+    before, routes = flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes)
+    with pytest.raises(RuntimeError, match=r"tma_wgmma.*cudaError 1.*hd=128"):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.flash_attention.launches == before
+    assert flash_ops.flash_attention.routes == routes
+
+
+def test_flash_tma_kernel_refuses_a_schedule_without_both_waits(cuda):
+    import ctypes
+
+    q, k, v = _flash_inputs(cuda, 1, 128, 128, 2, 2, 64, torch.bfloat16)
+    o = torch.empty_like(q)
+    fn = flash_ops._tma_entry_point()
+    dims = (ctypes.c_longlong * 6)(1, 2, 2, 128, 128, 64)
+    maps = (ctypes.c_longlong * 33)(
+        *(x for t in (q, k, v) for x in flash_ops.tensor_map(t.shape, t.stride(), 128).flat())
+    )
+    o_strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+    for full, empty in ((1, 0), (0, 1)):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dims, maps,
+                o_strides, 1, 0, 0.18, 2, full, empty, stream)
+        assert rc == 1  # cudaErrorInvalidValue
 
 
 def test_flash_kernel_reads_strided_views(cuda):

@@ -183,3 +183,201 @@ def test_ring_depth_comes_from_the_kloop_plan(monkeypatch):
     monkeypatch.setattr(ops, "RING_DEPTH", 1)
     with pytest.raises(NotImplementedError, match="depth 1"):
         ops._check_schedule()
+
+
+# ---------------------------------------------------------------------- #
+# The TMA route: what the wrapper decides without a card
+# ---------------------------------------------------------------------- #
+
+def _strides(shape):
+    """Contiguous (batch, seq, head) element strides of a (B, S, heads, hd)
+    tensor."""
+
+    B, S, heads, hd = shape
+    return (S * heads * hd, heads * hd, hd)
+
+
+@pytest.mark.parametrize(
+    "dtype,hd,strides,addresses,expect",
+    [
+        (torch.bfloat16, 128, [_strides((4, 2048, 32, 128))] + [_strides((4, 2048, 4, 128))] * 2,
+         (0, 1 << 20, 1 << 21), "tma_wgmma"),                                  # yi-6b prefill
+        (torch.bfloat16, 64, [_strides((4, 2048, 32, 64))] + [_strides((4, 2048, 8, 64))] * 2,
+         (0, 0, 0), "tma_wgmma"),                                              # granite hd 64
+        (torch.bfloat16, 128, [(8 * 201 * 128, 8 * 128, 128)] + [(640 * 256, 256, 128)] * 2,
+         (0, 16, 32), "tma_wgmma"),                                            # cache slices
+        (torch.bfloat16, 32, [_strides((1, 193, 4, 32))] * 3, (0, 0, 0), "cp_async_mma"),
+        (torch.bfloat16, 16, [_strides((1, 201, 4, 16))] * 3, (0, 0, 0), "cp_async_mma"),
+        (torch.bfloat16, 128, [(132 * 100, 132, 1)] * 3, (0, 0, 0), "cp_async_mma"),  # 2-byte strides
+        (torch.bfloat16, 128, [_strides((1, 64, 2, 128))] * 3, (0, 2, 0), "cp_async_mma"),  # k offset
+        (torch.bfloat16, 128, [_strides((1, 64, 2, 128)), (0, 256, 128), (0, 256, 128)],
+         (0, 0, 0), "cp_async_mma"),                                           # broadcast batch
+        (torch.float32, 128, [_strides((4, 2048, 32, 128))] * 3, (0, 0, 0), "ffma"),
+        (torch.float32, 32, [_strides((1, 193, 4, 32))] * 3, (4, 0, 0), "ffma"),
+    ],
+    ids=["yi6b", "hd64", "cache_slices", "hd32", "hd16", "odd_strides", "k_offset",
+         "stride_0", "f32", "f32_hd32"],
+)
+def test_route_rule(dtype, hd, strides, addresses, expect):
+    assert ops.route(dtype, hd, strides, addresses) == expect
+
+
+def test_route_of_views_follows_strides_and_base_addresses():
+    qkv = torch.zeros(2, 96, 8, 128, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 640, 2, 128, dtype=torch.bfloat16)
+    q, k = qkv[:, :, :4], cache[:, :201]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    assert ops._route_of(q, k, k) == "tma_wgmma"
+    flat = torch.zeros(1 * 64 * 2 * 128 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + 64 * 2 * 128].view(1, 64, 2, 128)  # 2 bytes in
+    aligned = flat[8:8 + 64 * 2 * 128].view(1, 64, 2, 128)  # 16 bytes in
+    assert ops._route_of(aligned, aligned, aligned) == "tma_wgmma"
+    assert ops._route_of(aligned, shifted, aligned) == "cp_async_mma"
+    assert ops._route_of(q.float(), k.float(), k.float()) == "ffma"
+
+
+@pytest.mark.parametrize("hd,depth", [(64, 4), (128, 3)])
+def test_default_depth_is_the_deepest_ring_that_fits(hd, depth):
+    assert ops.default_depth(hd) == depth <= ops.MAX_STAGES
+    assert ops.tma_smem_bytes(hd, depth) <= ops.SMEM_PER_BLOCK
+    assert depth == ops.MAX_STAGES or ops.tma_smem_bytes(hd, depth + 1) > ops.SMEM_PER_BLOCK
+    # hd 128: 32 KB of Q and three 64 KB stages, 230480 of the 232448 bytes
+    assert ops.tma_smem_bytes(128, 3) == 32768 + 3 * 65536 + 1024 + 80
+
+
+def test_tma_kernel_constants_agree_with_the_wrapper():
+    import re
+
+    src = ops.TMA_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("BQ"), const("BK"), const("BOX")) == (ops.TMA_BQ, ops.TMA_BK, ops.TMA_BOX)
+    assert const("MAX_STAGES") == ops.MAX_STAGES
+    assert const("SMEM_PER_BLOCK") == ops.SMEM_PER_BLOCK
+    assert "SMEM_BYTES_EXTRA = 1024 + 8 * (2 + 2 * MAX_STAGES)" in src
+    assert ops.TMA_SMEM_EXTRA == 1024 + 8 * (2 + 2 * ops.MAX_STAGES)
+    assert tuple(ops.TMA_HEAD_DIMS) == (64, 128)
+
+
+def test_tensor_map_of_a_contiguous_q():
+    q = torch.zeros(2, 300, 4, 128, dtype=torch.bfloat16)
+    tm = ops.tensor_map(q.shape, q.stride(), ops.TMA_BQ)
+    assert tm.dims == (128, 4, 300, 2)               # hd, heads, S, B
+    assert tm.strides == (256, 4 * 256, 300 * 4 * 256)  # bytes: head, seq, batch
+    assert tm.box == (64, 1, 128, 1)
+    assert tm.flat() == (*tm.dims, *tm.strides, *tm.box)
+
+
+def test_tensor_map_of_a_kv_cache_slice():
+    """The first 201 positions of a 640-position cache: the seq dim is 201
+    (a box past it is zero-filled inside its own batch), the strides are
+    the cache's."""
+
+    cache = torch.zeros(2, 640, 2, 64, dtype=torch.bfloat16)
+    k = cache[:, :201]
+    tm = ops.tensor_map(k.shape, k.stride(), ops.TMA_BK)
+    assert tm.dims == (64, 2, 201, 2)
+    assert tm.strides == (128, 2 * 128, 640 * 2 * 128)
+    assert tm.box == (64, 1, 128, 1)
+
+
+def _with_waits(depth, waits):
+    from repro_torch.kernels.pipelined_matmul.ops import HopperSchedule
+
+    return HopperSchedule(depth=depth, waits=tuple(waits))
+
+
+@pytest.mark.parametrize("waits", [("full",), ("empty",), ()], ids=["no_empty", "no_full", "none"])
+def test_tma_route_refuses_a_schedule_without_both_waits(monkeypatch, waits):
+    monkeypatch.setattr(ops, "hopper_schedule", lambda depth: _with_waits(depth, waits))
+    with pytest.raises(NotImplementedError, match="full and the empty"):
+        ops._tma_schedule(128, None)
+    q = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="full and the empty"):
+        ops.flash_attention(q, q, q)  # the plan is read on the CPU too
+    ops.flash_attention(q.float(), q.float(), q.float())  # ffma: not this plan
+
+
+def test_tma_route_takes_its_waits_from_the_kloop_plan(monkeypatch):
+    import types
+
+    from repro_torch.core.dependence import FLOW, Dependence
+    from repro_torch.kernels.pipelined_matmul import ops as mm_ops
+
+    for depth in range(1, ops.default_depth(128) + 1):
+        sched = ops._tma_schedule(128, depth)
+        assert sched.depth == depth and sched.full and sched.empty
+    assert ops._tma_schedule(64, None).depth == 4
+    # a plan that also keeps a dependence the kernel has no mbarrier for
+    real = mm_ops.hopper_plan(3)
+    odd = types.SimpleNamespace(
+        retained=real.retained + (Dependence(FLOW, "COMPUTE", "LOAD", "buf", (5,)),),
+        eliminated=(),
+    )
+    monkeypatch.setattr(mm_ops, "hopper_plan", lambda depth: odd)
+    mm_ops.hopper_schedule.cache_clear()
+    try:
+        with pytest.raises(NotImplementedError, match="no mbarrier for"):
+            ops._tma_schedule(128, 3)
+    finally:
+        mm_ops.hopper_schedule.cache_clear()
+
+
+def test_tma_route_refuses_a_ring_that_does_not_fit():
+    q = torch.zeros(1, 16, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ring depth 4 at hd=128"):
+        ops.flash_attention(q, q, q, depth=4)
+    with pytest.raises(NotImplementedError, match="ring depth 0"):
+        ops.flash_attention(q, q, q, depth=0)
+    small = torch.zeros(1, 16, 2, 32, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="cp_async_mma.*one depth"):
+        ops.flash_attention(small, small, small, depth=3)
+    out = ops.flash_attention(q, q, q, depth=3)  # fits: the plain version on the CPU
+    assert out.shape == q.shape
+
+
+def test_routes_are_counted_beside_launches():
+    assert set(ops.flash_attention.routes) == {"tma_wgmma", "cp_async_mma", "ffma"}
+    (_, tq), (_, tk), (_, tv) = _inputs(8, (1, 16, 2, 64), (1, 16, 2, 64), "bfloat16")
+    before = dict(ops.flash_attention.routes)
+    ops.flash_attention(tq, tk, tv)
+    assert ops.flash_attention.routes == before  # the CPU launches nothing
+
+
+# ---------------------------------------------------------------------- #
+# One-hot probes: outputs known exactly
+# ---------------------------------------------------------------------- #
+
+PROBES = [
+    ((1, 200, 200, 4, 2), dict(causal=True)),
+    ((1, 193, 201, 4, 2), dict(causal=False)),
+    ((1, 150, 150, 4, 4), dict(causal=True, window=48)),
+    ((1, 200, 200, 4, 2), dict(causal=True, identity_v=True)),
+    ((1, 193, 201, 2, 1), dict(causal=False, identity_v=True)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize(
+    "shape,kw", PROBES, ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"]
+)
+def test_one_hot_probe_is_exact_in_the_reference_kernel_and_the_plain_version(shape, kw, hd, dtype):
+    """Each row's one live key of margin >= 128 returns its v row bit for
+    bit (with V = I: the one-hot P), in the reference's Pallas kernel
+    (interpret mode) and in the port's plain version alike; the card runs
+    the same probes through the TMA route (tests/test_torch_cuda.py)."""
+
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe
+
+    B, Sq, Sk, H, KV = shape
+    q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=hd, **kw)
+    mask = {n: x for n, x in kw.items() if n != "identity_v"}
+    ref = jax_flash(
+        *(jnp.asarray(a).astype(JNP[dtype]) for a in (q, k, v)), blk_q=64, blk_k=64, **mask
+    )
+    np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)), expected)
+    out = ops.flash_attention(*(torch.from_numpy(a).to(TORCH[dtype]) for a in (q, k, v)), **mask)
+    np.testing.assert_array_equal(out.float().numpy(), expected)
