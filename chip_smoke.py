@@ -21,18 +21,24 @@ non-zero:
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
    the Hopper K-loop plan (a producer warpgroup issues and loads, consumer
-   warpgroups compute) and the TMA kernel's mbarriers at the depths phase 5
+   warpgroups compute) and the TMA kernels' mbarriers at the depths phase 5
    runs;
 5. the pipelined matmul at yi-6b's full widths (d_model 4096, d_ff 11008)
    as a 2048-token prefill, plus a ragged shape TMA can describe and an
-   unaligned one, in bf16 and f32 at depths 1, 2 and 4: launch counts per
-   route from the main run (bf16 takes the TMA / wgmma kernel where TMA can
-   describe the operands, the cp.async / mma.sync kernel elsewhere; f32
-   takes FFMA), the exact identity probes I @ B and A @ I on the TMA route,
-   the error against the plain PyTorch version, the kernel's time beside
-   its bound, the plain version's and ``torch.matmul``'s; for bf16 at
-   yi-6b's shapes the kernel, the cp.async kernel and ``torch.matmul`` are
-   timed in turns;
+   unaligned one, in bf16 and f32 at depths 1, 2 and the TMA routes'
+   defaults (4 in bf16, 3 in 3xTF32; FFMA and cp.async at 4): launch
+   counts per route from the main run (where TMA can describe the
+   operands, bf16 takes the TMA / wgmma kernel and f32 the 3xTF32 one, a
+   split pre-pass and TF32 wgmma products; elsewhere bf16 takes the
+   cp.async / mma.sync kernel and f32 FFMA), the split kernel's launches,
+   the exact identity probes I @ B and A @ I on both TMA routes (f32 with
+   operands of 21 significant bits), the error against the plain PyTorch
+   version and, in f32, against an f64 product, a planted one-TF32 product
+   that must read above the f32 limit, the kernel's time beside its bound,
+   the plain version's and ``torch.matmul``'s; at yi-6b's shapes the bf16
+   TMA kernel, the cp.async kernel and ``torch.matmul`` are timed in turns,
+   and so are the 3xTF32 route, the FFMA kernel and ``torch.matmul``, with
+   the split and the product also timed apart;
 6. the flash-attention kernels against their plain version at yi-6b's
    prefill shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in
    bf16 and f32, the same with gemma3's 1024-token window, an unaligned
@@ -76,7 +82,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # f32: CUDA cores, no TF32
+# f32: CUDA cores (FFMA); tf32: the tensor cores, one TF32 product
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(K)
 # flash attention: the largest relative L2 error of one output row (one
 # query position of one head) against the plain version in f32.  A row's
@@ -87,6 +94,7 @@ ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/pipelined_matmul.cu"
 TMA_KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_matmul.cu"
+TF32X3_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_tf32x3.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TMA_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash.cu"
@@ -134,7 +142,8 @@ SERVE_LOGIT_RTOL = 5e-2  # relative L2 error of the kernel's logits vs plain
 # (300, 264, 136): ragged M, N below one tile, K not a multiple of the
 # K-step, but TMA-aligned; (300, 257, 130): strides TMA cannot describe
 MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 264, 136), (300, 257, 130)]
-MATMUL_DEPTHS = (1, 2, 4)  # 4: the TMA route's default, ops.HOPPER_STAGES
+MATMUL_DEPTHS = (1, 2, 4)  # 4: the bf16 TMA route's default, ops.HOPPER_STAGES
+TF32X3_DEPTHS = (1, 2, 3)  # 3: the 3xTF32 route's default and deepest
 SEED = 0
 WARM_RUNS = 11
 
@@ -419,9 +428,9 @@ def kloop_phase():
             )
     emit("kloop compile: bit-equal on cuda at steps 16 and 128, structural hit across steps")
 
-    # the TMA kernel's plan: ISSUE and LOAD on the producer warpgroup,
-    # COMPUTE on the consumers; its retained dependences are its mbarriers
-    for depth in MATMUL_DEPTHS:
+    # the TMA kernels' plan: ISSUE and LOAD on the producer warpgroup,
+    # COMPUTE on the consumers; its retained dependences are their mbarriers
+    for depth in sorted(set(MATMUL_DEPTHS) | set(TF32X3_DEPTHS)):
         res = hopper_plan(depth)
         hs = hopper_schedule(depth)
         check(
@@ -464,6 +473,24 @@ def _time_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def _time_back_to_back_ms(torch, fn, reps):
+    """Device time of one launch in a run of ``reps`` launches between one
+    pair of CUDA events, after two warm-up calls: the host's launch path
+    overlaps the device's work, so a short kernel is not timed as its
+    launch overhead."""
+
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _time_turns_ms(torch, fns, reps):
     """Median of ``reps`` launches of each of ``fns``, taken in turns (one
     launch of each per round, each between its own CUDA events), after two
@@ -490,13 +517,102 @@ def expected_route(dt, K, N):
     operands here are fresh allocations, so 16-byte aligned."""
 
     if dt == "f32":
-        return "ffma"
+        return "tma_wgmma_tf32x3" if K % 4 == 0 and N % 4 == 0 else "ffma"
     return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
 
 
-def matmul_phase(torch):
+def limit_ratio(out, ref, K, tol=TOL["f32"]):
+    """The largest error of ``out`` as a share of the limit ``tol sqrt(K) +
+    tol |ref|`` (above 1: outside it)."""
+
+    err = (out.double() - ref.double()).abs()
+    return (err / (tol * math.sqrt(K) + tol * ref.double().abs())).max().item()
+
+
+def bits21(x):
+    """x with 21 significant bits: its 3xTF32 split is exact."""
+
+    import torch
+
+    return (x.view(torch.int32) & ~0x7).view(torch.float32)
+
+
+def tf32_accumulator_rounding(torch, ops):
+    """How the tensor core rounds its f32 accumulator between two TF32
+    wgmma of one run, read through the 3xTF32 product with lo = 0: row i
+    holds s_i at k = 0 and t_i ulp(1) at k = 8 (two hi.hi wgmma, both
+    exact products), so the output is s_i + t_i ulp(1) rounded once.  The
+    rows where rounding to nearest and toward zero differ say which it
+    is."""
+
+    import numpy as np
+
+    cases = [(s, t) for s in (1.0, -1.0)
+             for t in (0.0625, 0.25, 0.75, 1.25, 1.75, -0.0625, -0.375, -0.875)]
+    M, N, K = 64, 128, 16
+    a = torch.zeros(M, K)
+    for i, (s_i, t_i) in enumerate(cases):
+        a[i, 0], a[i, 8] = s_i, t_i * 2.0**-11
+    bt = torch.zeros(N, K)
+    bt[:, 0], bt[:, 8] = 1.0, 2.0**-12
+    a, bt = a.cuda(), bt.cuda()
+    zero_a, zero_b = torch.zeros_like(a), torch.zeros_like(bt)
+    out = torch.empty(M, N, device="cuda")
+    ops._launch_tf32x3(a, zero_a, bt, zero_b, out, ops.tf32x3_schedule())
+    got = out[: len(cases)].cpu().numpy()
+    exact = np.array([s_i + t_i * 2.0**-23 for s_i, t_i in cases])
+    nearest = exact.astype(np.float32)
+    zero = nearest.copy()
+    over = np.abs(zero.astype(np.float64)) > np.abs(exact)
+    zero[over] = np.nextafter(zero[over], np.float32(0))
+    tells = nearest != zero
+    rows_same = bool((got == got[:, :1]).all())
+    as_nearest = int((got[tells, 0] == nearest[tells]).sum())
+    as_zero = int((got[tells, 0] == zero[tells]).sum())
+    n = int(tells.sum())
+    ulp = 2.0**-23
+    return {
+        # (s, t, the output's offset from s in ulp(1), nearest's, zero's)
+        "rows": [(s_i, t_i, float((g - s_i) / ulp), float((r - s_i) / ulp),
+                  float((z - s_i) / ulp))
+                 for (s_i, t_i), g, r, z, tell
+                 in zip(cases, got[:, 0].astype(np.float64), nearest, zero, tells) if tell],
+        "rows_telling": n,
+        "as_round_to_nearest": as_nearest,
+        "as_round_toward_zero": as_zero,
+        "reading": ("round to nearest" if as_nearest == n else
+                    "round toward zero" if as_zero == n else "neither"),
+        "columns_agree": rows_same,
+    }
+
+
+def matmul_configs():
+    """(M, K, N, dtype, depth) of the main run: every shape in both types at
+    the depths of the route the rule gives it."""
+
+    return [
+        (M, K, N, dt, depth)
+        for (M, K, N) in MATMUL_SHAPES
+        for dt in ("bf16", "f32")
+        for depth in (
+            TF32X3_DEPTHS if expected_route(dt, K, N) == "tma_wgmma_tf32x3"
+            else MATMUL_DEPTHS
+        )
+    ]
+
+
+def default_depth(route):
+    """The ring depth a matmul route takes when none is asked for."""
+
     from repro_torch.kernels.pipelined_matmul import ops
-    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+
+    return ops._schedule(route, None).depth
+
+
+def matmul_phase(torch):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pipelined_matmul import ops
+    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -506,17 +622,13 @@ def matmul_phase(torch):
         b = torch.randn(K, N, device="cuda", generator=gen)
         for dt, tdt in dtypes.items():
             operands[(M, K, N, dt)] = (a.to(tdt), b.to(tdt))
-    configs = [
-        (M, K, N, dt, depth)
-        for (M, K, N) in MATMUL_SHAPES
-        for dt in dtypes
-        for depth in MATMUL_DEPTHS
-    ]
+    configs = matmul_configs()
 
     # the main path: every count set to 0 just before, read just after
     ops.matmul.launches = 0
     ops.matmul.routes = dict.fromkeys(ops.matmul.routes, 0)
-    launches, routes, errors = {}, {}, {}
+    ops.split_tf32.launches = 0
+    launches, routes, errors, outs = {}, {}, {}, {}
     for cfg in configs:
         M, K, N, dt, depth = cfg
         a, b = operands[(M, K, N, dt)]
@@ -533,25 +645,78 @@ def matmul_phase(torch):
         )
         check(ok and out.shape == (M, N), f"matmul {cfg}: outside tolerance (max err {errors[cfg]})")
         check(bool(torch.isfinite(out.float()).all()), f"matmul {cfg}: non-finite output")
+        if dt == "f32" and depth == default_depth(routes[cfg]):
+            outs[(M, K, N)] = out  # for the f64 check
     total = ops.matmul.launches
     by_route = dict(ops.matmul.routes)
+    splits = ops.split_tf32.launches
     check(total == len(configs), f"matmul: {total} launches in the main run, expected {len(configs)}")
     check(all(n == 1 for n in launches.values()), "matmul: a configuration did not launch the kernel")
     for cfg in configs:
         want = expected_route(cfg[3], cfg[1], cfg[2])
         check(routes[cfg] == want, f"matmul {cfg}: took route {routes[cfg]}, expected {want}")
     check(sum(by_route.values()) == total, f"matmul: routes {by_route} do not sum to {total}")
-    emit("matmul routes in the main run: " + json.dumps(by_route))
+    check(
+        splits == 2 * by_route["tma_wgmma_tf32x3"],
+        f"matmul: {splits} split launches for {by_route['tma_wgmma_tf32x3']} 3xTF32 products",
+    )
+    emit("matmul routes in the main run: " + json.dumps(by_route) + f", split_tf32 launches {splits}")
 
-    # the identity probes on the TMA route at yi-6b's widths: a descriptor,
-    # swizzle or epilogue mistake shows position by position
-    eye = torch.eye(4096, device="cuda", dtype=torch.bfloat16)
-    a, b = operands[(2048, 4096, 11008, "bf16")]
-    check(torch.equal(ops.matmul(eye, b), b), "matmul: I @ B differs from B on the TMA route")
-    check(torch.equal(ops.matmul(a, eye), a), "matmul: A @ I differs from A on the TMA route")
-    del eye
-    emit("matmul identity probes (bf16, TMA route): I @ B == B and A @ I == A exactly")
+    # f32 against an f64 product: each route at its default depth; at the
+    # 3xTF32 route's shapes also the FFMA kernel, torch.matmul (TF32 off)
+    # and a planted product of one TF32 term (hi @ hi, exact products summed
+    # in f32), which must read above the limit
+    f64 = {}
+    for (M, K, N), out in outs.items():
+        a, b = operands[(M, K, N, "f32")]
+        ref64 = a.double() @ b.double()
+        row = {"route": expected_route("f32", K, N),
+               "kernel": limit_ratio(out, ref64, K),
+               "kernel_max_abs_err": (out.double() - ref64).abs().max().item(),
+               "kernel_vs_plain": limit_ratio(out, matmul_ref(a, b), K)}
+        check(row["kernel"] <= 1, f"matmul f32 {(M, K, N)}: {row['kernel']} of the limit against f64")
+        if row["route"] == "tma_wgmma_tf32x3":
+            ffma = ops._ffma_matmul(a, b)
+            lib = torch.matmul(a, b)
+            a_hi, _ = split_tf32_ref(a)
+            b_hi, _ = split_tf32_ref(b)
+            one = torch.matmul(a_hi, b_hi)
+            row.update(
+                ffma=limit_ratio(ffma, ref64, K),
+                ffma_max_abs_err=(ffma.double() - ref64).abs().max().item(),
+                library=limit_ratio(lib, ref64, K),
+                library_max_abs_err=(lib.double() - ref64).abs().max().item(),
+                planted_one_tf32=limit_ratio(one, ref64, K),
+            )
+            check(
+                row["planted_one_tf32"] > 1,
+                f"matmul f32 {(M, K, N)}: the planted one-TF32 product reads "
+                f"{row['planted_one_tf32']} of the limit: the check cannot see it",
+            )
+            del ffma, lib, a_hi, b_hi, one
+        f64[(M, K, N)] = row
+        emit(f"matmul f32 {M}x{K}x{N} error as a share of the limit 2e-5 sqrt(K) + "
+             f"2e-5 |ref| against an f64 product: " + json.dumps(row))
+        del ref64
+    del outs
+    torch.cuda.empty_cache()
 
+    # the identity probes on both TMA routes at yi-6b's widths: a
+    # descriptor, swizzle, split, promotion or epilogue mistake shows
+    # position by position; the f32 operands have 21 significant bits, so
+    # hi + lo is exact
+    for dt, tdt, route, cast in (("bf16", torch.bfloat16, "tma_wgmma", lambda x: x),
+                                 ("f32", torch.float32, "tma_wgmma_tf32x3", bits21)):
+        eye = torch.eye(4096, device="cuda", dtype=tdt)
+        a, b = (cast(t) for t in operands[(2048, 4096, 11008, dt)])
+        check(ops.route(tdt, 4096, 11008, eye.data_ptr(), b.data_ptr()) == route, f"{dt} probe off {route}")
+        check(torch.equal(ops.matmul(eye, b), b), f"matmul: I @ B differs from B on the {route} route")
+        check(torch.equal(ops.matmul(a, eye), a), f"matmul: A @ I differs from A on the {route} route")
+        del eye, a, b
+        emit(f"matmul identity probes ({dt}, {route} route): I @ B == B and A @ I == A exactly")
+
+    ptxas = ptxas_lines(_build.BUILD_LOG.get(Path(TF32X3_SOURCE).name, ""),
+                        r"matmul_tf32x3_kernelILi(\d+)E", "D{}")
     entries = []
     for cfg in configs:
         M, K, N, dt, depth = cfg
@@ -560,25 +725,59 @@ def matmul_phase(torch):
         reps = 21 if flops > 1e10 else 101
         kernel = lambda: ops.matmul(a, b, depth=depth)  # noqa: E731
         library = lambda: torch.matmul(a, b)  # noqa: E731
-        cp_async_ms = None
+        extra = {}
         if routes[cfg] == "tma_wgmma" and flops > 1e10:
             # the TMA kernel, the cp.async / mma.sync kernel it replaces on
             # these operands (at its default depth) and torch.matmul, in turns
             ms, cp_async_ms, library_ms = _time_turns_ms(
                 torch, [kernel, lambda: ops._cp_async_matmul(a, b), library], reps
             )
+            extra = {"cp_async_mma_ms": cp_async_ms,
+                     "timed_in_turns": ["ms", "cp_async_mma_ms", "library_ms"]}
+        elif routes[cfg] == "tma_wgmma_tf32x3" and flops > 1e10:
+            # the route (split and product), pipelined_matmul.cu's FFMA
+            # kernel (at its default depth) and torch.matmul, in turns; then
+            # the product alone on split operands, and each split, back to
+            # back
+            ms, ffma_ms, library_ms = _time_turns_ms(
+                torch, [kernel, lambda: ops._ffma_matmul(a, b), library], reps
+            )
+            parts = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
+            out = torch.empty(M, N, device="cuda")
+            sched = ops.tf32x3_schedule(depth)
+            extra = {
+                "ffma_ms": ffma_ms,
+                "timed_in_turns": ["ms", "ffma_ms", "library_ms"],
+                "product_ms": _time_back_to_back_ms(
+                    torch, lambda: ops._launch_tf32x3(*parts, out, sched), reps),
+                "split_a_ms": _time_back_to_back_ms(torch, lambda: ops.split_tf32(a), reps),
+                "split_bt_ms": _time_back_to_back_ms(
+                    torch, lambda: ops.split_tf32(b, transpose=True), reps),
+                "timed_back_to_back": ["product_ms", "split_a_ms", "split_bt_ms"],
+            }
+            extra["product_tflops_3x"] = 3 * flops / extra["product_ms"] / 1e9
+            del parts, out
         else:
             ms = _time_ms(torch, kernel, reps)
             library_ms = _time_ms(torch, library, reps)
         plain_ms = _time_ms(torch, lambda: matmul_ref(a, b), reps)
         nbytes = (M * K + K * N + M * N) * a.element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        if routes[cfg] == "tma_wgmma_tf32x3":
+            # three TF32 products on the tensor cores; the split excluded
+            t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+            extra["bound_rate"] = "3xTF32: 3 x 2MNK at 495 TFLOP/s"
+            extra["ptxas"] = ptxas.get(f"D{depth}")
+        else:
+            t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        if dt == "f32" and depth == default_depth(routes[cfg]):
+            extra["f64_limit_share"] = f64[(M, K, N)]
         entry = {
             "name": f"pipelined_matmul[{dt},D={depth},{M}x{K}x{N}]",
             "route": "cuda",
             "kernel_route": routes[cfg],
-            "source": TMA_KERNEL_SOURCE if routes[cfg] == "tma_wgmma" else KERNEL_SOURCE,
+            "source": {"tma_wgmma": TMA_KERNEL_SOURCE,
+                       "tma_wgmma_tf32x3": TF32X3_SOURCE}.get(routes[cfg], KERNEL_SOURCE),
             "replaces": TPU_KERNEL,
             "launches": launches[cfg],
             "max_abs_err": errors[cfg],
@@ -591,12 +790,49 @@ def matmul_phase(torch):
             "library_ms": library_ms,
             "reps": reps,
             "tflops": flops / ms / 1e9,
+            **extra,
         }
-        if cp_async_ms is not None:
-            entry["cp_async_mma_ms"] = cp_async_ms
-            entry["timed_in_turns"] = ["ms", "cp_async_mma_ms", "library_ms"]
         entries.append(entry)
         emit("matmul: " + json.dumps(entry))
+
+    # the split pre-pass at yi-6b's up projection (A, and B transposed):
+    # bit-equal to its plain version, its time against its byte bound
+    a, b = operands[(2048, 4096, 11008, "f32")]
+    got = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
+    want = (*split_tf32_ref(a), *split_tf32_ref(b, transpose=True))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)), "split_tf32: not bit-equal to its plain version")
+    split_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    del got, want
+    split_ms = _time_back_to_back_ms(
+        torch, lambda: (ops.split_tf32(a), ops.split_tf32(b, transpose=True)), 21)
+    split_plain_ms = _time_back_to_back_ms(
+        torch, lambda: (split_tf32_ref(a), split_tf32_ref(b, transpose=True)), 21)
+    elems = a.numel() + b.numel()
+    entry = {
+        "name": "split_tf32[yi-6b up: A 2048x4096, B^T 4096x11008]",
+        "route": "cuda",
+        "kernel_route": "tma_wgmma_tf32x3 (split pre-pass)",
+        "source": TF32X3_SOURCE,
+        "replaces": TPU_KERNEL,
+        "launches": splits,
+        "max_abs_err": split_err,
+        "bit_equal": True,
+        "ms": split_ms,
+        "plain_ms": split_plain_ms,
+        "bound_ms": elems * 12 / HBM_BYTES_PER_S * 1e3,  # 4 B read, 8 written
+        "bound_by": "bytes",
+        "library_ms": None,
+        "reps": 21,
+        "timed_back_to_back": ["ms", "plain_ms"],
+    }
+    entries.append(entry)
+    emit("matmul split: " + json.dumps(entry))
+    emit("tf32 accumulator rounding (a reading, not a check): "
+         + json.dumps(tf32_accumulator_rounding(torch, ops)))
+    del operands, a, b
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -720,18 +956,19 @@ def expected_flash_route(dt, hd):
     return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
 
 
-def ptxas_lines(log):
+def ptxas_lines(log, pattern=r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", key="hd{} D{}"):
     """ptxas's summary (registers, barriers, stack, spills) of each
-    instantiation of the TMA flash kernel in a build log, keyed
-    ``"hd{HD} D{STAGES}"``."""
+    instantiation of a kernel in a build log: the entry functions whose
+    mangled name matches ``pattern``, keyed by ``key`` filled with its
+    groups (by default the TMA flash kernel's ``"hd{HD} D{STAGES}"``)."""
 
     import re
 
     lines, kernel = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", line)
-            kernel = f"hd{found.group(1)} D{found.group(2)}" if found else None
+            found = re.search(pattern, line)
+            kernel = key.format(*found.groups()) if found else None
         elif kernel and ("registers" in line or "spill" in line):
             lines.setdefault(kernel, []).append(line.replace("ptxas info    :", "").strip())
     return {k: "; ".join(v) for k, v in lines.items()}
@@ -1179,7 +1416,8 @@ def main() -> int:
                 "spill" in line and " 0 bytes spill" not in line
             ):
                 emit(f"  ptxas {kernel}: {line.strip()}")
-        if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name):
+        if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
+                    Path(TF32X3_SOURCE).name):
             # setmaxnreg must be honoured and the accumulators a consumer
             # thread holds must stay in registers
             check("C7508" not in log, f"{name}: ptxas ignored setmaxnreg (C7508)")

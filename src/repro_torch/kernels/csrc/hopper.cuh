@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
 // memory mbarriers, named barriers, TMA tile loads (2-D and 4-D), wgmma
 // shared-memory descriptors, warpgroup synchronization and the operand
-// lists of the wgmma shapes flash attention uses, register rebalancing,
-// and the host-side encoding of 2-D and 4-D TMA tensor maps.
+// lists of the wgmma shapes flash attention and the 3xTF32 matmul use, the
+// TF32 rounding, register rebalancing, and the host-side encoding of 2-D
+// (bf16, f32) and 4-D TMA tensor maps.
 //
 // Included as "hopper.cuh" (kernels/_build.py passes this directory with
 // -I and folds every included header into the library's digest).
@@ -236,6 +237,48 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// wgmma_m64n128k8_tf32_ss: D[64 x 128] (+)= A[64 x 8] B[8 x 128] on TF32
+// operands (f32 words whose low 13 bits the tensor core ignores; round
+// them first, e.g. with cvt.rna.tf32.f32), both from shared memory and both
+// K-major: .tf32 has no transpose bits, so MN-major operands are refused.
+// A k8 slice of a 128-byte-swizzled K-major tile is 32 bytes, as a k16
+// slice of bf16.  The accumulator layout is the one above; scale_d = 0
+// overwrites D, 1 accumulates.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
+                                                        uint64_t desc_a,
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// x rounded to TF32 (10 fraction bits), to nearest with ties away from
+// zero, as an f32 word.  The mask clears the 13 low bits in case the
+// conversion leaves them unspecified.
+__device__ __forceinline__ float rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
 // ------------------------------------------------- register rebalancing
 
 // Both must be reached by every thread of a warpgroup, on the two sides of
@@ -279,25 +322,41 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The tensor map of a row-major rows x cols bf16 matrix (leading dimension
-// ld elements) read in box_rows x box_cols boxes with 128-byte swizzle.
-// TMA requires a 16-byte aligned base and a row stride that is a multiple
-// of 16 bytes, and box_cols * 2 <= 128 for the swizzle.  Returns 0, or the
-// CUresult of the encoding (-1 when the CUDA driver lacks the function).
-static inline int encode_bf16_2d(CUtensorMap* map, const void* base,
-                                 uint64_t rows, uint64_t cols, uint64_t ld,
-                                 uint32_t box_rows, uint32_t box_cols) {
+// The tensor map of a row-major rows x cols matrix of `type`, elt bytes an
+// element (leading dimension ld elements), read in box_rows x box_cols
+// boxes with 128-byte swizzle.  TMA requires a 16-byte aligned base and a
+// row stride that is a multiple of 16 bytes, and box_cols * elt <= 128 for
+// the swizzle (64 bf16, 32 f32).  Returns 0, or the CUresult of the
+// encoding (-1 when the CUDA driver lacks the function).
+static inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                            uint32_t elt, const void* base, uint64_t rows,
+                            uint64_t cols, uint64_t ld, uint32_t box_rows,
+                            uint32_t box_cols) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint64_t strides[1] = {ld * elt};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return static_cast<int>(
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+static inline int encode_bf16_2d(CUtensorMap* map, const void* base,
+                                 uint64_t rows, uint64_t cols, uint64_t ld,
+                                 uint32_t box_rows, uint32_t box_cols) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols,
+                   ld, box_rows, box_cols);
+}
+
+static inline int encode_f32_2d(CUtensorMap* map, const void* base,
+                                uint64_t rows, uint64_t cols, uint64_t ld,
+                                uint32_t box_rows, uint32_t box_cols) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols,
+                   ld, box_rows, box_cols);
 }
 
 // The tensor map of a 4-D bf16 tensor with dims (innermost first) and

@@ -15,10 +15,11 @@
 // rate for bf16, the CUDA-core FFMA rate for f32.  The design answers that
 // with 128 x 128 block tiles (every operand byte staged in shared memory
 // feeds 128 multiply-adds), mma.sync m16n8k16 with f32 accumulators for
-// bf16, and FFMA for f32 (never TF32: the f32 tolerance is 2e-5 sqrt(K)).
-// wgmma, TMA, a warp-specialised producer and persistent blocks are later
-// work; the TPU's 128^3 f32 tiles (256 KB for two stages) do not fit the
-// 227 KB of shared memory and are not copied.
+// bf16, and FFMA for f32 (one TF32 product misses the f32 tolerance of
+// 2e-5 sqrt(K); f32 operands that TMA can describe take the tensor cores in
+// 3xTF32 instead, tma_wgmma_tf32x3.cu, and bf16 ones tma_wgmma_matmul.cu).
+// The TPU's 128^3 f32 tiles (256 KB for two stages) do not fit the 227 KB
+// of shared memory and are not copied.
 //
 // The synchronization is the compiler's output, not constants.  The wrapper
 // (ops.py) reads the K-loop plan of

@@ -1,14 +1,19 @@
 """Public wrapper of the pipelined matmul: a Hopper kernel for CUDA
 tensors, :func:`ref.matmul_ref` for CPU tensors.
 
-A CUDA call takes one of three kernels, by a rule on the operands
+A CUDA call takes one of four kernels, by a rule on the operands
 (:func:`route`), never as a fallback:
 
-    tma_wgmma     bf16 that TMA can describe: ``csrc/tma_wgmma_matmul.cu``
-                  (TMA ring, wgmma consumers, a producer warpgroup)
-    cp_async_mma  other bf16: ``csrc/pipelined_matmul.cu``'s cp.async ring
-                  and mma.sync
-    ffma          f32: ``csrc/pipelined_matmul.cu``'s FFMA kernel
+    tma_wgmma         bf16 that TMA can describe: ``csrc/tma_wgmma_matmul.cu``
+                      (TMA ring, wgmma consumers, a producer warpgroup)
+    cp_async_mma      other bf16: ``csrc/pipelined_matmul.cu``'s cp.async
+                      ring and mma.sync
+    tma_wgmma_tf32x3  f32 that the split and TMA can describe:
+                      ``csrc/tma_wgmma_tf32x3.cu``, a split pre-pass
+                      (:func:`split_tf32`) and three TF32 wgmma products on
+                      the tensor cores, partial sums promoted every
+                      ``TF32X3_RUN_K`` of K
+    ffma              other f32: ``csrc/pipelined_matmul.cu``'s FFMA kernel
 
 Each kernel's shared-memory ring depth and its waits are not constants:
 they are read from the K-loop plan that the synchronization compiler
@@ -16,7 +21,8 @@ derives, :func:`kernel_schedule` (``schedule.plan_pipeline``: the block's
 threads issue, the copy engine loads) for the two cp.async kernels and
 :func:`hopper_schedule` (a producer warpgroup issues and loads, consumer
 warpgroups compute) for the TMA kernel.  The wrapper raises on a plan whose
-retained dependences a kernel has no wait for.
+retained dependences a kernel has no wait for.  Both TMA kernels take
+:func:`hopper_schedule`.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 from repro_torch.core.parallelizer import PlanOptions, plan
-from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
 from repro_torch.kernels.pipelined_matmul.schedule import (
     PROCESSORS,
     kloop_dependences,
@@ -38,16 +44,27 @@ from repro_torch.kernels.pipelined_matmul.schedule import (
 
 SOURCE = Path(__file__).parent / "csrc" / "pipelined_matmul.cu"
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_matmul.cu"
-MAX_STAGES = 4  # csrc: MAX_STAGES (both sources)
+TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_tf32x3.cu"
+MAX_STAGES = 4  # csrc: MAX_STAGES (the two bf16 sources)
 
 # the routes of a CUDA call (see :func:`route`)
 TMA_WGMMA, CP_ASYNC_MMA, FFMA = "tma_wgmma", "cp_async_mma", "ffma"
+TMA_WGMMA_TF32X3 = "tma_wgmma_tf32x3"
 
 # tma_wgmma_matmul.cu: a stage is a 128 x 64 tile of A and a 64 x 256 tile
 # of B in bf16; the ring also needs 1 KB to align itself and its barriers
 HOPPER_STAGE_BYTES = (128 * 64 + 64 * 256) * 2
 SMEM_PER_BLOCK = 232448  # H100: 227 KB of dynamic shared memory a block
 HOPPER_STAGES = min(MAX_STAGES, (SMEM_PER_BLOCK - 1024 - 64) // HOPPER_STAGE_BYTES)
+
+# tma_wgmma_tf32x3.cu: 128 x 128 block tiles, K-steps of 32 f32 (one
+# 128-byte box), a stage holds A_hi, A_lo, B_hi and B_lo; a consumer
+# warpgroup's wgmma accumulator restarts every TF32X3_RUN_K of K and is
+# added into its register sum (the promotion)
+TF32X3_BM, TF32X3_BN, TF32X3_BK = 128, 128, 32
+TF32X3_RUN_K = 256
+TF32X3_STAGE_BYTES = 2 * (TF32X3_BM + TF32X3_BN) * TF32X3_BK * 4
+TF32X3_STAGES = min(MAX_STAGES, (SMEM_PER_BLOCK - 1024 - 64) // TF32X3_STAGE_BYTES)
 
 
 def _wait_for(dep, depth: int) -> Optional[str]:
@@ -213,34 +230,70 @@ def route(dtype, K: int, N: int, a_addr: int, b_addr: int) -> str:
     K)`` at ``a_addr`` and ``B (K, N)`` at ``b_addr`` takes.
 
     TMA needs 16-byte aligned bases and row strides that are multiples of
-    16 bytes: in bf16, K % 8 == 0 and N % 8 == 0.  Such bf16 operands take
-    the TMA kernel whatever M, N and K are (ragged edges are zero-filled
-    and masked); other bf16 operands take the cp.async kernel; f32 takes
-    FFMA."""
+    16 bytes: K % 8 == 0 and N % 8 == 0 in bf16, K % 4 == 0 and N % 4 == 0
+    in f32 (where the split pass also reads A and B 16 bytes at a time).
+    Such operands take the TMA kernel of their type whatever M, N and K are
+    (ragged edges are zero-filled and masked); other bf16 operands take the
+    cp.async kernel, other f32 operands FFMA."""
 
     import torch
 
+    aligned = a_addr % 16 == 0 and b_addr % 16 == 0
     if dtype == torch.float32:
+        if K % 4 == 0 and N % 4 == 0 and aligned:
+            return TMA_WGMMA_TF32X3
         return FFMA
-    if K % 8 == 0 and N % 8 == 0 and a_addr % 16 == 0 and b_addr % 16 == 0:
+    if K % 8 == 0 and N % 8 == 0 and aligned:
         return TMA_WGMMA
     return CP_ASYNC_MMA
 
 
+def tf32x3_schedule(depth: Optional[int] = None) -> HopperSchedule:
+    """The 3xTF32 kernel's ring: ``hopper_schedule(depth)``, by default
+    ``TF32X3_STAGES`` deep; ``NotImplementedError`` past the
+    ``TF32X3_STAGES`` stages of 64 KB that fit shared memory."""
+
+    depth = TF32X3_STAGES if depth is None else depth
+    if depth > TF32X3_STAGES:
+        raise NotImplementedError(
+            f"pipelined matmul: ring depth {depth} outside the "
+            f"{TMA_WGMMA_TF32X3} route's 1..{TF32X3_STAGES} stages"
+        )
+    return hopper_schedule(depth)
+
+
+def _schedule(path: str, depth: Optional[int]):
+    if path == TMA_WGMMA:
+        return hopper_schedule(HOPPER_STAGES if depth is None else depth)
+    if path == TMA_WGMMA_TF32X3:
+        return tf32x3_schedule(depth)
+    return kernel_schedule(default_depth() if depth is None else depth)
+
+
+# pointers and ints of each launcher, before the stream
+_SIGNATURES = {
+    "pm_matmul_f32": (3, 6),         # A, B, C; M, N, K, stages, credit, vec
+    "pm_matmul_bf16": (3, 6),
+    "pm_matmul_bf16_tma": (3, 6),    # A, B, C; M, N, K, stages, full, empty
+    "pm_matmul_f32_tf32x3": (5, 6),  # a_hi, a_lo, bt_hi, bt_lo, C; the same
+    "pm_split_tf32": (3, 3),         # X, hi, lo; rows, cols, transpose
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry_point(src: Path, name: str):
-    """One launcher of a library, built and loaded on first use:
-    ``(A, B, C, M, N, K, stages, flag, flag, stream) -> cudaError_t``
-    (the flags: ``credit, vec`` in ``pipelined_matmul.cu``, ``full, empty``
-    in ``tma_wgmma_matmul.cu``)."""
+    """One launcher of a library, built and loaded on first use: its
+    pointers and ints (:data:`_SIGNATURES`), then the stream, returning a
+    ``cudaError_t``."""
 
     import ctypes
 
     from repro_torch.kernels._build import load
 
     fn = getattr(load(src), name)
+    ptrs, ints = _SIGNATURES[name]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
     return fn
 
 
@@ -266,7 +319,8 @@ def _launch(a, b, out, sched: KernelSchedule) -> None:
         sched.depth, int(sched.credit), int(vec),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
-    _check(rc, M, N, K, a.dtype, sched.depth)
+    path = CP_ASYNC_MMA if a.dtype == torch.bfloat16 else FFMA
+    _check(rc, path, M, N, K, a.dtype, sched.depth)
 
 
 def _launch_tma(a, b, out, sched: HopperSchedule) -> None:
@@ -281,32 +335,97 @@ def _launch_tma(a, b, out, sched: HopperSchedule) -> None:
         sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
-    _check(rc, M, N, K, a.dtype, sched.depth)
+    _check(rc, TMA_WGMMA, M, N, K, a.dtype, sched.depth)
 
 
-def _check(rc: int, M, N, K, dtype, depth) -> None:
+def _launch_tf32x3(a_hi, a_lo, bt_hi, bt_lo, out, sched: HopperSchedule) -> None:
+    """``tma_wgmma_tf32x3.cu``'s product of split operands (``a_*`` (M, K),
+    ``bt_*`` (N, K)), with the plan's two waits as its flags."""
+
+    import torch
+
+    M, K = a_hi.shape
+    N = bt_hi.shape[0]
+    rc = _entry_point(TF32X3_SOURCE, "pm_matmul_f32_tf32x3")(
+        a_hi.data_ptr(), a_lo.data_ptr(), bt_hi.data_ptr(), bt_lo.data_ptr(),
+        out.data_ptr(), M, N, K, sched.depth, int(sched.full), int(sched.empty),
+        torch.cuda.current_stream(a_hi.device).cuda_stream,
+    )
+    _check(rc, TMA_WGMMA_TF32X3, M, N, K, a_hi.dtype, sched.depth)
+
+
+def _check(rc: int, path: str, M, N, K, dtype, depth) -> None:
     if rc <= -1000:
         raise RuntimeError(
-            f"pipelined matmul: cuTensorMapEncodeTiled failed (CUresult "
-            f"{-1000 - rc}; -1: the CUDA driver lacks it) for M={M}, N={N}, K={K}"
+            f"pipelined matmul ({path}): cuTensorMapEncodeTiled failed "
+            f"(CUresult {-1000 - rc}; -1: the CUDA driver lacks it) for M={M}, "
+            f"N={N}, K={K}"
         )
     if rc != 0:
         raise RuntimeError(
-            f"pipelined matmul launch failed: cudaError {rc} "
+            f"pipelined matmul launch failed on route {path}: cudaError {rc} "
             f"(M={M}, N={N}, K={K}, dtype={dtype}, depth={depth})"
         )
 
 
+def split_tf32(x, transpose: bool = False):
+    """``(hi, lo)`` of a row-major f32 matrix ``x`` (rows, cols), each a
+    TF32 value in an f32 word: ``hi = rna_tf32(x)``, ``lo = rna_tf32(x -
+    hi)``; with ``transpose`` both are (cols, rows), of ``x.T``.  The
+    3xTF32 route's pre-pass (``pm_split_tf32``).  A CPU tensor takes
+    :func:`ref.split_tf32_ref`; a CUDA tensor needs cols % 4 == 0 (and rows
+    % 4 == 0 with ``transpose``) and a 16-byte aligned base, and launches
+    the kernel or raises."""
+
+    import torch
+
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes a 2-D float32 tensor; got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return split_tf32_ref(x, transpose)
+    rows, cols = x.shape
+    if not x.is_contiguous() or x.device.type != "cuda":
+        raise ValueError("split_tf32 takes a row-major contiguous CUDA or CPU tensor")
+    if cols % 4 or (transpose and rows % 4) or x.data_ptr() % 16:
+        raise ValueError(
+            f"split_tf32: a ({rows}, {cols}) operand at byte {x.data_ptr() % 16} "
+            "of 16 is not one it reads 16 bytes at a time"
+        )
+    shape = (cols, rows) if transpose else (rows, cols)
+    hi = torch.empty(shape, dtype=x.dtype, device=x.device)
+    lo = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return hi, lo
+    rc = _entry_point(TF32X3_SOURCE, "pm_split_tf32")(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols, int(transpose),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"split_tf32 launch failed on route {TMA_WGMMA_TF32X3}: cudaError "
+            f"{rc} (rows={rows}, cols={cols}, transpose={transpose})"
+        )
+    split_tf32.launches += 1
+    return hi, lo
+
+
+split_tf32.launches = 0
+
+
 def _cp_async_matmul(a, b, depth: Optional[int] = None):
-    """The cp.async / mma.sync kernel on bf16 operands that :func:`route`
-    sends to the TMA kernel, to time the two side by side; not counted in
-    the launch counts and no route of :func:`matmul`."""
+    """The cp.async kernel of the operands' type (``pipelined_matmul.cu``:
+    mma.sync for bf16, FFMA for f32) on operands that :func:`route` sends
+    to a TMA kernel, to time the two side by side; not counted in the
+    launch counts and no route of :func:`matmul`."""
 
     import torch
 
     out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
     _launch(a, b, out, kernel_schedule(default_depth() if depth is None else depth))
     return out
+
+
+_ffma_matmul = _cp_async_matmul  # on f32 operands: the FFMA kernel
 
 
 def matmul(
@@ -321,13 +440,17 @@ def matmul(
     """``C = A @ B`` for ``A (M, K)`` and ``B (K, N)`` in f32 or bf16, with
     f32 accumulation.
 
-    ``depth`` is the shared-memory ring depth, 1..4 on every route; by
-    default ``HOPPER_STAGES`` on the TMA route (the deepest ring that fits)
-    and ``min_buffers()`` on the others.  Its waits come from the route's
-    K-loop plan.  ``blk_m/n/k`` keep the reference wrapper's signature; the
-    kernels' tiles are their own (TMA: 128 x 256, K step 64; cp.async: 128
-    x 128, K step 16 in f32 and 32 in bf16).  A CPU tensor takes the plain
-    version; a CUDA tensor takes its route's kernel or raises.
+    ``depth`` is the shared-memory ring depth: 1..3 on the 3xTF32 route,
+    1..4 on the others; by default the deepest ring that fits on the two
+    TMA routes (``HOPPER_STAGES``, ``TF32X3_STAGES``) and ``min_buffers()``
+    on the others.  Its waits come from the route's K-loop plan.
+    ``blk_m/n/k`` keep the reference wrapper's signature; the kernels'
+    tiles are their own (bf16 TMA: 128 x 256, K step 64; 3xTF32: 128 x
+    128, K step 32; cp.async: 128 x 128, K step 16 in f32 and 32 in bf16).
+    The 3xTF32 route first splits A, and B transposed, into TF32 halves
+    (:func:`split_tf32`, two launches counted there), then launches the
+    product.  A CPU tensor takes the plain version; a CUDA tensor takes its
+    route's kernel or raises.
     """
 
     import torch
@@ -348,10 +471,7 @@ def matmul(
     M, K = a.shape
     N = b.shape[1]
     path = route(a.dtype, K, N, a.data_ptr(), b.data_ptr())
-    if path == TMA_WGMMA:
-        sched = hopper_schedule(HOPPER_STAGES if depth is None else depth)
-    else:
-        sched = kernel_schedule(default_depth() if depth is None else depth)
+    sched = _schedule(path, depth)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b)
     if a.device.type != "cuda" or b.device != a.device:
@@ -368,6 +488,8 @@ def matmul(
         return out.zero_()
     if path == TMA_WGMMA:
         _launch_tma(a, b, out, sched)
+    elif path == TMA_WGMMA_TF32X3:
+        _launch_tf32x3(*split_tf32(a), *split_tf32(b, transpose=True), out, sched)
     else:
         _launch(a, b, out, sched)
     matmul.launches += 1
@@ -376,4 +498,4 @@ def matmul(
 
 
 matmul.launches = 0
-matmul.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, FFMA: 0}
+matmul.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0}

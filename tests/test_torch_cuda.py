@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.probe import one_hot_probe
 from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
 from repro_torch.kernels.pipelined_matmul import ops, schedule
-from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
 from repro_torch.launch import serve_lm
 from repro_torch.models import attention, model_zoo
 
@@ -119,8 +119,10 @@ def test_kloop_compiles_and_runs_on_cuda(cuda, depth):
 
 
 def _expected_route(dtype, K, N):
+    """The route rule written out for fresh (16-byte aligned) operands."""
+
     if dtype == torch.float32:
-        return "ffma"
+        return "tma_wgmma_tf32x3" if K % 4 == 0 and N % 4 == 0 else "ffma"
     return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
 
 
@@ -144,6 +146,10 @@ def test_kernel_matches_plain_version_on_cuda(cuda, M, K, N, dtype, depth):
     a = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32))
     b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32))
     a, b = a.to(cuda, dtype), b.to(cuda, dtype)
+    if _expected_route(dtype, K, N) == "tma_wgmma_tf32x3" and depth > ops.TF32X3_STAGES:
+        with pytest.raises(NotImplementedError, match="ring depth"):
+            ops.matmul(a, b, depth=depth)  # 4 x 64 KB does not fit
+        return
     out, took = _launch_counted(a, b, depth=depth)
     assert took == _expected_route(dtype, K, N)
     tol = TOL[dtype]
@@ -230,6 +236,129 @@ def test_tma_kernel_refuses_a_schedule_without_both_waits(cuda):
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 128, 256, 64, 4,
                 full, empty, stream)
         assert rc == 1  # cudaErrorInvalidValue
+
+
+# ---------------------------------------------------------------------- #
+# The 3xTF32 route: split pre-pass and tensor-core product
+# ---------------------------------------------------------------------- #
+
+# (M, K, N): whole tiles; a ragged M and N below one tile; K not a multiple
+# of the 256 promotion run (1000, 264) or of the 32-deep K-step (20); K
+# below one K-step (4); several runs with a ragged last one (4100)
+TF32X3_SHAPES = [(128, 128, 128), (300, 264, 136), (256, 1000, 256),
+                 (64, 20, 24), (130, 4, 44), (192, 4100, 136)]
+
+
+def _limit_ratio(out, ref, K):
+    """The largest error as a share of the f32 limit 2e-5 sqrt(K) + 2e-5
+    |ref|."""
+
+    err = (out.double() - ref.double()).abs()
+    return (err / (2e-5 * K**0.5 + 2e-5 * ref.double().abs())).max().item()
+
+
+def _bits21(x):
+    """x with 21 significant bits, so that hi + lo == x exactly."""
+
+    return (x.view(torch.int32) & ~0x7).view(torch.float32)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("M,K,N", TF32X3_SHAPES)
+def test_tf32x3_kernel_within_the_limit_of_plain_and_f64_on_cuda(cuda, M, K, N, depth):
+    rng = np.random.default_rng(M * K + N)
+    a = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)).to(cuda)
+    splits = ops.split_tf32.launches
+    out, took = _launch_counted(a, b, depth=depth)
+    assert took == "tma_wgmma_tf32x3" and out.shape == (M, N)
+    assert ops.split_tf32.launches == splits + 2
+    assert _limit_ratio(out, matmul_ref(a, b), K) <= 1
+    assert _limit_ratio(out, a.double() @ b.double(), K) <= 1
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["rows", "transposed"])
+@pytest.mark.parametrize("shape", [(64, 64), (300, 264), (36, 4), (4, 1028), (2048, 4096)])
+def test_split_kernel_is_bit_equal_to_its_plain_version_on_cuda(cuda, shape, transpose):
+    rng = np.random.default_rng(shape[0] + shape[1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= np.float32(2.0) ** rng.integers(-30, 30, shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[:8] = [0.0, -0.0, 1 + 2.0**-11, -(1 + 2.0**-11), 1e-38, -3e-39, 3e38, -1e-45]
+    x = torch.from_numpy(x).to(cuda)
+    before = ops.split_tf32.launches
+    hi, lo = ops.split_tf32(x, transpose)
+    torch.cuda.synchronize()
+    assert ops.split_tf32.launches == before + 1
+    rh, rl = split_tf32_ref(x, transpose)
+    assert torch.equal(hi.view(torch.int32), rh.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), rl.view(torch.int32))
+
+
+def test_split_kernel_refuses_what_it_cannot_read_on_cuda(cuda):
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.split_tf32(torch.randn(8, 6, device=cuda))
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.split_tf32(torch.randn(6, 8, device=cuda), transpose=True)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.split_tf32(torch.randn(8 * 8 + 1, device=cuda)[1:].view(8, 8))
+
+
+def test_tf32x3_identity_a_returns_b_exactly_at_yi6b_widths(cuda):
+    """A = I and B of 21 significant bits: every output is b_lo + b_hi of
+    one element of B plus zeros, exact if the split, the descriptors, the
+    promotion and the epilogue are."""
+
+    b = _bits21(torch.randn(4096, 11008, device=cuda))
+    out, took = _launch_counted(torch.eye(4096, device=cuda), b)
+    assert took == "tma_wgmma_tf32x3"
+    assert torch.equal(out, b)
+
+
+def test_tf32x3_identity_b_returns_a_exactly_at_yi6b_widths(cuda):
+    a = _bits21(torch.randn(2048, 4096, device=cuda))
+    out, took = _launch_counted(a, torch.eye(4096, device=cuda))
+    assert took == "tma_wgmma_tf32x3"
+    assert torch.equal(out, a)
+
+
+def test_tf32x3_route_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
+    """A failing product launch raises naming the route; the FFMA kernel is
+    never tried."""
+
+    real = ops._entry_point
+
+    def failing(src, name):
+        if name == "pm_matmul_f32_tf32x3":
+            return lambda *args: 1  # cudaErrorInvalidValue
+        return real(src, name)
+
+    monkeypatch.setattr(ops, "_entry_point", failing)
+    a, b = torch.randn(128, 64, device=cuda), torch.randn(64, 128, device=cuda)
+    before, routes = ops.matmul.launches, dict(ops.matmul.routes)
+    with pytest.raises(RuntimeError, match="tma_wgmma_tf32x3: cudaError 1"):
+        ops.matmul(a, b)
+    assert ops.matmul.launches == before and ops.matmul.routes == routes
+
+
+def test_tf32x3_kernel_refuses_a_schedule_without_both_waits(cuda):
+    a_hi, a_lo = ops.split_tf32(torch.randn(128, 64, device=cuda))
+    b_hi, b_lo = ops.split_tf32(torch.randn(64, 128, device=cuda), transpose=True)
+    out = torch.empty(128, 128, device=cuda)
+    fn = ops._entry_point(ops.TF32X3_SOURCE, "pm_matmul_f32_tf32x3")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (a_hi, a_lo, b_hi, b_lo, out)]
+    for stages, full, empty in ((3, 1, 0), (3, 0, 1), (4, 1, 1)):
+        assert fn(*ptrs, 128, 128, 64, stages, full, empty, stream) == 1
+
+
+def test_ffma_helper_runs_the_ffma_kernel_uncounted(cuda):
+    a, b = torch.randn(128, 64, device=cuda), torch.randn(64, 128, device=cuda)
+    before, routes = ops.matmul.launches, dict(ops.matmul.routes)
+    out = ops._ffma_matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.matmul.launches == before and ops.matmul.routes == routes
+    assert _limit_ratio(out, a.double() @ b.double(), 64) <= 1
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
