@@ -43,15 +43,23 @@ non-zero:
    prefill shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in
    bf16 and f32, the same with gemma3's 1024-token window, an unaligned
    193 / 201 non-causal shape at hd 32, the same lengths at hd 128 (causal
-   and not) and granite's hd 64: launch counts per route from the main run
-   (bf16 at hd 64 and 128 takes the TMA / wgmma kernel, other bf16 the
-   cp.async / mma.sync kernel, f32 FFMA), the largest row-relative error,
-   the same check's reading of two planted faults (a key edge off by one,
-   a 64-key tile dropped), which must exceed its limit, the one-hot probes
-   on the TMA route (exact), time, bound, plain and
-   ``scaled_dot_product_attention`` times; at the yi-6b bf16 prefill the
-   TMA kernel at ring depths 1, 2 and its default, the cp.async kernel
-   and SDPA are timed in turns;
+   and not) and granite's hd 64, both in bf16 and f32: launch counts per
+   route from the main run (at hd 64 and 128 bf16 takes the TMA / wgmma
+   kernel and f32 the 3xTF32 one, a K/V split pre-pass and TF32 wgmma
+   products; at hd 32 bf16 takes the cp.async / mma.sync kernel and f32
+   FFMA), the split's launches, the largest row-relative error, the same
+   check's reading of two planted faults (a key edge off by one, a 64-key
+   tile dropped), which must exceed its limit; on the 3xTF32 route also
+   the error against an f64 plain version as a share of the limit, and a
+   1xTF32 emulation that must read above it; the one-hot probes on both
+   TMA routes (exact); the split bit-equal to its plain version; every
+   route at a query offset (prefill continuation) against the plain
+   version, with the offset off by one as a planted fault; time, bound,
+   plain and ``scaled_dot_product_attention`` times; at the yi-6b
+   prefill the bf16 TMA kernel at ring depths 1, 2 and its default, the
+   cp.async kernel and SDPA are timed in turns, and so are the 3xTF32
+   route at every depth, the FFMA kernel and SDPA, with its other key
+   tile timed against its default;
 7. yi-6b at full width (32 layers, bf16, random weights from a seed)
    serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
    tokens each, through ``repro_torch.launch``'s step functions: one flash
@@ -82,6 +90,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+# a sleep kernel of this many clocks (~2 ms) holds the device while the host
+# enqueues the launches whose device times are read
+HOLD_CYCLES = 4_000_000
 # f32: CUDA cores (FFMA); tf32: the tensor cores, one TF32 product
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(K)
@@ -98,6 +109,7 @@ TF32X3_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_tf32x3.
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TMA_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash.cu"
+TF32X3_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash_tf32x3.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, dtype): yi-6b's prefill
@@ -106,7 +118,8 @@ FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
 # tests/test_kernels.py's unaligned 193 / 201 (at hd 32, and at hd 128
 # with GQA, where the TMA kernel zero-fills the ragged ends and masks the
 # stores), and granite-3-2b's hd 64 (32 heads, GQA 8); the first is the
-# shape the serving phase gives it
+# shape the serving phase gives it.  f32 at hd 64 and 128 takes the 3xTF32
+# route, at hd 32 FFMA
 FLASH_CASES = [
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "bf16"),
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "f32"),
@@ -116,11 +129,25 @@ FLASH_CASES = [
     ("unaligned 193/201", 1, 193, 201, 4, 4, 32, False, None, "f32"),
     ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, True, None, "bf16"),
     ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, False, None, "bf16"),
+    ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, True, None, "f32"),
+    ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, False, None, "f32"),
     ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "bf16"),
+    ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "f32"),
 ]
-# (B, Sq, Sk, H, KV, hd, keyword arguments): the one-hot probes on the TMA
-# route (repro_torch.kernels.flash_attention.probe), several tiles, ragged
-# ends, a window and V = I
+# (B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype): every route at a
+# query offset, the prefill continuation of the reference's
+# chunked_attention: the last 256 of yi-6b's 2048 positions (causal, and
+# with gemma3's window), and 193 rows after 208 at hd 32
+FLASH_Q_OFFSET_CASES = [
+    (1, 256, 2048, 32, 4, 128, True, None, 1792, "bf16"),
+    (1, 256, 2048, 32, 4, 128, True, None, 1792, "f32"),
+    (1, 256, 2048, 32, 4, 128, True, 1024, 1792, "f32"),
+    (1, 193, 401, 4, 4, 32, True, None, 208, "bf16"),
+    (1, 193, 401, 4, 4, 32, True, 100, 208, "f32"),
+]
+# (B, Sq, Sk, H, KV, hd, keyword arguments): the one-hot probes on both TMA
+# routes, bf16 and f32 (repro_torch.kernels.flash_attention.probe), several
+# tiles, ragged ends, a window and V = I
 FLASH_PROBES = [
     (2, 1024, 1024, 8, 2, 128, dict(causal=True)),
     (1, 193, 201, 4, 2, 128, dict(causal=False)),
@@ -851,15 +878,19 @@ def live_pairs(Sq, Sk, causal, window):
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt):
-    """(bound ms, what bounds it): each input read once and the output
-    written once over the memory rate; QK^T and PV on the live pairs (2
-    FLOP per multiply-add each) over the peak rate of the type."""
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt, route=None):
+    """(bound ms, what bounds it, FLOP): each input read once and the
+    output written once over the memory rate; QK^T and PV on the live pairs
+    (2 FLOP per multiply-add each) over the peak rate of the type, and on
+    the 3xTF32 route three TF32 products of each at the TF32 rate."""
 
     nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * elt
     flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    if route == "tma_wgmma_tf32x3":
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
@@ -952,8 +983,29 @@ def expected_flash_route(dt, hd):
     the operands here are fresh allocations, so 16-byte aligned."""
 
     if dt == "f32":
-        return "ffma"
+        return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
     return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
+
+
+def attention_f64(torch, q, k, v, causal, window):
+    """Plain attention in f64 over q (B, Sq, H, hd), k / v (B, Sk, KV, hd):
+    the yardstick the f32 routes' error is read against."""
+
+    keep = keep_mask(torch, q.shape[1], k.shape[1], causal, window, q.device)
+    H, hd = q.shape[2], q.shape[3]
+    k = k.double().repeat_interleave(H // k.shape[2], dim=2)
+    v = v.double().repeat_interleave(H // v.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k) * hd**-0.5
+    p = torch.softmax(s.masked_fill_(~keep, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def row_share_f64(out, ref64, limit=ROW_TOL["f32"]) -> float:
+    """The largest relative L2 error of one output row against an f64
+    reference, as a share of the f32 row limit (above 1: outside it)."""
+
+    d = (out.double() - ref64).norm(dim=-1)
+    return (d / ref64.norm(dim=-1).clamp_min(1e-300)).max().item() / limit
 
 
 def ptxas_lines(log, pattern=r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", key="hd{} D{}"):
@@ -974,10 +1026,113 @@ def ptxas_lines(log, pattern=r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", key="hd{
     return {k: "; ".join(v) for k, v in lines.items()}
 
 
+def _tf32x3_checks(torch, q, k, v, out, causal, window):
+    """The 3xTF32 route's error against an f64 plain version as a share of
+    the f32 row limit, beside the FFMA kernel's, the 3xTF32 emulation's and
+    a 1xTF32 emulation's (which must read above the limit), and the 1xTF32
+    emulation against the f32 plain version."""
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_tf32x3_ref
+
+    kw = dict(causal=causal, window=window)
+    ref64 = attention_f64(torch, q, k, v, causal, window)
+    shares = {"kernel": row_share_f64(out, ref64)}
+    ffma = ops._flash_cu(q, k, v, **kw)
+    shares["ffma"] = row_share_f64(ffma, ref64)
+    del ffma
+    for terms, name in ((3, "emulated_3xtf32"), (1, "emulated_1xtf32")):
+        emu = flash_attention_tf32x3_ref(q, k, v, terms=terms, **kw)
+        shares[name] = row_share_f64(emu, ref64)
+        del emu
+    del ref64
+    torch.cuda.empty_cache()
+    check(shares["kernel"] <= 1, f"flash 3xTF32: {shares['kernel']} of the limit against f64")
+    check(shares["ffma"] <= 1, f"flash FFMA kernel: {shares['ffma']} of the limit against f64")
+    check(
+        shares["emulated_1xtf32"] > 1,
+        f"flash: the 1xTF32 emulation reads {shares['emulated_1xtf32']} of the "
+        "limit against f64: the check cannot see one TF32 product",
+    )
+    return shares
+
+
+def _split_entry(torch, ops, k, v, launches):
+    """The K/V split pre-pass at the yi-6b f32 prefill's k and v, and at a
+    KV-cache slice with a ragged Sk: bit-equal to its plain version, its
+    time against its byte bound."""
+
+    from repro_torch.kernels.flash_attention.ref import split_kv_tf32_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cache = torch.randn(2, 640, 8, 128, device="cuda", generator=gen)
+    err = 0.0
+    for kk, vv in ((k, v), (cache[:, :201, :4], cache[:, :201, 4:]),
+                   (cache[:, :333, :2, :64], cache[:, :333, 2:4, 64:])):
+        got, want = ops.split_kv_tf32(kk, vv), split_kv_tf32_ref(kk, vv)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"split_kv_tf32 {tuple(kk.shape)}: not bit-equal to its plain version")
+            err = max(err, (g - w).abs().max().item())
+        del got, want
+    del cache
+    B, Sk, KV, hd = k.shape
+    sk8 = -(-Sk // 8) * 8
+    nbytes = (2 * B * Sk * KV * hd + 2 * B * KV * Sk * hd + 2 * B * KV * hd * sk8) * 4
+    return {
+        "name": f"split_kv_tf32[yi-6b prefill f32: k, v {B}x{Sk}x{KV}x{hd}]",
+        "route": "cuda",
+        "kernel_route": "tma_wgmma_tf32x3 (K/V split pre-pass)",
+        "source": TF32X3_FLASH_SOURCE,
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": launches,
+        "max_abs_err": err,
+        "bit_equal": True,
+        "ms": _time_back_to_back_ms(torch, lambda: ops.split_kv_tf32(k, v), 101),
+        "plain_ms": _time_back_to_back_ms(torch, lambda: split_kv_tf32_ref(k, v), 21),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,  # k, v read; four outputs written
+        "bound_by": "bytes",
+        "library_ms": None,
+        "reps": 101,
+        "timed_back_to_back": ["ms", "plain_ms"],
+    }
+
+
+def _q_offset_checks(torch, ops):
+    """Every route at a query offset against the plain version, with the
+    offset off by one as a planted fault that must read above the limit."""
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    readings = []
+    for B, Sq, Sk, H, KV, hd, causal, window, q_offset, dt in FLASH_Q_OFFSET_CASES:
+        q, k, v = (
+            torch.randn(shape, device="cuda", generator=gen).to(dtypes[dt])
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))
+        )
+        kw = dict(causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, q_offset=q_offset, **kw)
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), q_offset=q_offset, **kw)
+        fault = flash_attention_bshd_ref(q.float(), k.float(), v.float(), q_offset=q_offset + 1, **kw)
+        row = {"route": ops._route_of(q, k, v), "dtype": dt, "q_offset": q_offset,
+               "shape": (B, Sq, Sk, H, KV, hd, causal, window),
+               "max_row_rel_err": row_rel_err(out, ref),
+               "planted_offset_plus_one": row_rel_err(out, fault)}
+        check(row["max_row_rel_err"] <= ROW_TOL[dt], f"flash q_offset {row}: outside the limit")
+        check(row["planted_offset_plus_one"] > ROW_TOL[dt], f"flash q_offset {row}: the fault reads inside the limit")
+        readings.append(row)
+    routes = {r["route"] for r in readings}
+    check(routes == set(ops.flash_attention.routes), f"flash q_offset: routes {routes} checked")
+    return readings
+
+
 def flash_phase(torch):
     """The kernels against their plain version at every listed shape;
-    returns the numbers of each shape keyed by case, and the launches of
-    each route in the main run."""
+    returns the numbers of each shape keyed by case, the launches of each
+    route in the main run, and the split pre-pass's kernels-line entry."""
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
@@ -997,6 +1152,7 @@ def flash_phase(torch):
     # the main path: every count set to 0 just before, read just after
     ops.flash_attention.launches = 0
     ops.flash_attention.routes = dict.fromkeys(ops.flash_attention.routes, 0)
+    ops.split_kv_tf32.launches = 0
     outs, routes = {}, {}
     for case in FLASH_CASES:
         q, k, v = inputs[case]
@@ -1006,12 +1162,18 @@ def flash_phase(torch):
         routes[case] = took[0] if len(took) == 1 else took
     torch.cuda.synchronize()
     total, by_route = ops.flash_attention.launches, dict(ops.flash_attention.routes)
+    splits = ops.split_kv_tf32.launches
     check(total == len(FLASH_CASES), f"flash: {total} launches in the main run, expected {len(FLASH_CASES)}")
     for case in FLASH_CASES:
         want = expected_flash_route(case[9], case[6])
         check(routes[case] == want, f"flash {case}: took route {routes[case]}, expected {want}")
     check(sum(by_route.values()) == total, f"flash: routes {by_route} do not sum to {total}")
-    emit("flash routes in the main run: " + json.dumps(by_route))
+    check(all(n > 0 for n in by_route.values()), f"flash: a route took no launch: {by_route}")
+    check(
+        splits == by_route["tma_wgmma_tf32x3"],
+        f"flash: {splits} split launches for {by_route['tma_wgmma_tf32x3']} 3xTF32 launches",
+    )
+    emit("flash routes in the main run: " + json.dumps(by_route) + f", split_kv_tf32 launches {splits}")
 
     checks = {}
     for case in FLASH_CASES:
@@ -1033,56 +1195,82 @@ def flash_phase(torch):
                 f"flash {case}: planted fault {name!r} reads {reading}, inside "
                 f"the limit {ROW_TOL[dt]}: the check cannot see it",
             )
-        checks[case] = (err, rel, faults)
+        shares = None
+        if routes[case] == "tma_wgmma_tf32x3":
+            shares = _tf32x3_checks(torch, q, k, v, out, causal, window)
+        checks[case] = (err, rel, faults, shares)
         del out
     torch.cuda.empty_cache()
 
-    # the one-hot probes on the TMA route: each row's output is one v row
+    # the one-hot probes on both TMA routes: each row's output is one v row
     # (or, with V = I, the one-hot P) bit for bit
-    for B, Sq, Sk, H, KV, hd, kw in FLASH_PROBES:
-        q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=SEED, **kw)
-        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q, k, v))
-        mask = {n: x for n, x in kw.items() if n != "identity_v"}
-        check(ops._route_of(q, k, v) == "tma_wgmma", f"flash probe {kw}: not on the TMA route")
-        out = ops.flash_attention(q, k, v, **mask).float().cpu()
-        differ = int((out != torch.from_numpy(expected)).sum())
-        check(differ == 0, f"flash probe {(B, Sq, Sk, H, KV, hd, kw)}: {differ} values differ")
-    emit(f"flash one-hot probes (bf16, TMA route): {len(FLASH_PROBES)} exact")
+    for dt, route in (("bf16", "tma_wgmma"), ("f32", "tma_wgmma_tf32x3")):
+        for B, Sq, Sk, H, KV, hd, kw in FLASH_PROBES:
+            q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=SEED, **kw)
+            q, k, v = (torch.from_numpy(a).to("cuda", dtypes[dt]) for a in (q, k, v))
+            mask = {n: x for n, x in kw.items() if n != "identity_v"}
+            check(ops._route_of(q, k, v) == route, f"flash probe {kw}: not on the {route} route")
+            out = ops.flash_attention(q, k, v, **mask).float().cpu()
+            differ = int((out != torch.from_numpy(expected)).sum())
+            check(differ == 0, f"flash probe {(B, Sq, Sk, H, KV, hd, kw)} ({route}): {differ} values differ")
+        emit(f"flash one-hot probes ({dt}, {route} route): {len(FLASH_PROBES)} exact")
+
+    yi_f32 = next(c for c in FLASH_CASES if c[0] == "yi-6b prefill" and c[9] == "f32")
+    split_entry = _split_entry(torch, ops, inputs[yi_f32][1], inputs[yi_f32][2], splits)
+    emit("flash split: " + json.dumps(split_entry))
+    emit("flash q_offset: " + json.dumps(_q_offset_checks(torch, ops)))
 
     ptxas = ptxas_lines(_build.BUILD_LOG.get(Path(TMA_FLASH_SOURCE).name, ""))
+    ptxas_tf32 = ptxas_lines(_build.BUILD_LOG.get(Path(TF32X3_FLASH_SOURCE).name, ""),
+                             r"flash_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)E", "hd{} BK{} D{}")
     rows = {}
     for case in FLASH_CASES:
         label, B, Sq, Sk, H, KV, hd, causal, window, dt = case
         q, k, v = inputs[case]
         kw = dict(causal=causal, window=window)
-        err, rel, faults = checks[case]
+        err, rel, faults, shares = checks[case]
         bound_ms, bound_by, flops = flash_bound(
-            B, Sq, Sk, H, KV, hd, causal, window, dt, q.element_size()
+            B, Sq, Sk, H, KV, hd, causal, window, dt, q.element_size(), routes[case]
         )
         reps = 21 if flops > 1e10 else 101
         library = lambda: _sdpa(torch, q, k, v, causal, window)  # noqa: E731
         extra = {}
-        if routes[case] == "tma_wgmma":
-            # the TMA kernel at each ring depth, flash_attention.cu's
-            # cp.async kernel on the same tensors and SDPA, in turns (one
-            # launch each a round)
-            cp_async = lambda: ops._cp_async_flash(q, k, v, **kw)  # noqa: E731
-            default = ops.default_depth(hd)
-            depths = (1, 2, default) if label == "yi-6b prefill" else (default,)
+        if routes[case] in ("tma_wgmma", "tma_wgmma_tf32x3"):
+            # the TMA kernel at each ring depth, flash_attention.cu's kernel
+            # of the same dtype (cp.async / mma.sync, or FFMA) on the same
+            # tensors and SDPA, in turns (one launch each a round)
+            tf32 = routes[case] == "tma_wgmma_tf32x3"
+            if tf32:
+                old, old_key = (lambda: ops._flash_cu(q, k, v, **kw)), "ffma_ms"
+                default = ops.tf32x3_default_depth(hd)
+            else:
+                old, old_key = (lambda: ops._flash_cu(q, k, v, **kw)), "cp_async_mma_ms"
+                default = ops.default_depth(hd)
+            if label != "yi-6b prefill":
+                depths = (default,)
+            else:
+                depths = range(1, default + 1) if tf32 else (1, 2, default)
             by_depth = {}
             for d in depths:
                 kernel = lambda d=d: ops.flash_attention(q, k, v, depth=d, **kw)  # noqa: E731
-                ms_d, cp_ms, lib_ms = _time_turns_ms(torch, [kernel, cp_async, library], reps)
-                by_depth[d] = {"ms": ms_d, "cp_async_mma_ms": cp_ms, "library_ms": lib_ms,
-                               "tflops": flops / ms_d / 1e9,
-                               "ptxas": ptxas.get(f"hd{hd} D{d}")}
+                ms_d, old_ms, lib_ms = _time_turns_ms(torch, [kernel, old, library], reps)
+                by_depth[d] = {"ms": ms_d, old_key: old_ms, "library_ms": lib_ms,
+                               "tflops": flops / ms_d / 1e9}
+                if tf32:
+                    by_depth[d]["ptxas"] = ptxas_tf32.get(f"hd{hd} BK{ops.TF32X3_BK[hd]} D{d}")
+                else:
+                    by_depth[d]["ptxas"] = ptxas.get(f"hd{hd} D{d}")
             ms, library_ms = by_depth[default]["ms"], by_depth[default]["library_ms"]
             # the kernel alone, back to back: what the turns' neighbours
             # (a 1.4 ms masked SDPA in the window case) do to its clock
             ms_alone = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
-            extra = {"depth": default, "cp_async_mma_ms": by_depth[default]["cp_async_mma_ms"],
+            extra = {"depth": default, old_key: by_depth[default][old_key],
                      "ms_alone": ms_alone, "by_depth": by_depth,
-                     "timed_in_turns": ["ms", "cp_async_mma_ms", "library_ms"]}
+                     "timed_in_turns": ["ms", old_key, "library_ms"]}
+            if tf32:
+                extra["bound_rate"] = "3xTF32: 3 x 4 hd FLOP a live pair at 495 TFLOP/s"
+                extra["f64_limit_share"] = shares
+                extra["host_path"] = _host_path(torch, ops, q, k, v, causal, window, reps)
         else:
             ms, library_ms = _time_turns_ms(
                 torch, [lambda: ops.flash_attention(q, k, v, **kw), library], reps
@@ -1111,7 +1299,56 @@ def flash_phase(torch):
         emit("flash: " + json.dumps(row))
     del inputs, q, k, v
     torch.cuda.empty_cache()
-    return rows, by_route
+    return rows, by_route, split_entry
+
+
+def _host_path(torch, ops, q, k, v, causal, window, reps):
+    """Where one call of the 3xTF32 route spends its time, beside the FFMA
+    kernel's: the host's time to enqueue each call (``perf_counter``, the
+    device idle before it; ``launch``: the route's one ctypes call alone)
+    and the device time of the split alone, of the route's two launches
+    and of the FFMA kernel (CUDA events around each, enqueued while a sleep
+    kernel holds the device, so the host's gaps do not show in them).
+    Medians of ``reps`` rounds, after two."""
+
+    kw = dict(causal=causal, window=window)
+    sched = ops._tma_schedule(q.shape[-1], None, "tma_wgmma_tf32x3")
+    o = torch.empty_like(q)
+    host = {"route_call": [], "ffma_call": [], "launch": []}
+    device = {"split": [], "split_and_product": [], "ffma": [], "held": []}
+    for _ in range(reps + 2):
+        for name, fn in (("route_call", lambda: ops.flash_attention(q, k, v, **kw)),
+                         ("ffma_call", lambda: ops._flash_cu(q, k, v, **kw))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        torch.cuda._sleep(HOLD_CYCLES)
+        ev[1].record()
+        ops.split_kv_tf32(k, v)
+        ev[2].record()
+        t0 = time.perf_counter()
+        ops._launch_tf32x3(q, k, v, o, causal, window, 0, sched)
+        host["launch"].append((time.perf_counter() - t0) * 1e3)
+        ev[3].record()
+        ops._flash_cu(q, k, v, **kw)
+        ev[4].record()
+        ev[4].synchronize()
+        for i, name in enumerate(("held", "split", "split_and_product", "ffma")):
+            device[name].append(ev[i].elapsed_time(ev[i + 1]))
+    med = {f"host_{n}_ms": statistics.median(t[2:]) for n, t in host.items()}
+    med |= {f"device_{n}_ms": statistics.median(t[2:]) for n, t in device.items()}
+    # the sleep must outlast the host's enqueue of the launches behind it,
+    # or a host gap shows in the device times
+    check(
+        med["device_held_ms"] > 2 * (med["host_route_call_ms"] + med["host_ffma_call_ms"]),
+        f"flash host path: the sleep ({med['device_held_ms']} ms) does not hold the device "
+        "while the host enqueues",
+    )
+    return med
 
 
 # ---------------------------------------------------------------------- #
@@ -1336,13 +1573,16 @@ def serve_phase(torch):
 def flash_entries(rows, serve_launches, phase_launches):
     """The kernels-line entries of the flash kernels, one per route taken:
     ``tma_wgmma`` at the shape the serving phase gives it (its launches are
-    the serving run's), ``cp_async_mma`` at the unaligned hd-32 case and
-    ``ffma`` at the f32 prefill (their launches are phase 6's main run's)."""
+    the serving run's), ``tma_wgmma_tf32x3`` at the f32 prefill, and
+    ``cp_async_mma`` and ``ffma`` at the unaligned hd-32 case (their
+    launches are phase 6's main run's)."""
 
     picks = [
         ("tma_wgmma", ("yi-6b prefill", "bf16"), serve_launches, TMA_FLASH_SOURCE),
         ("cp_async_mma", ("unaligned 193/201", "bf16"), phase_launches["cp_async_mma"], FLASH_SOURCE),
-        ("ffma", ("yi-6b prefill", "f32"), phase_launches["ffma"], FLASH_SOURCE),
+        ("tma_wgmma_tf32x3", ("yi-6b prefill", "f32"), phase_launches["tma_wgmma_tf32x3"],
+         TF32X3_FLASH_SOURCE),
+        ("ffma", ("unaligned 193/201", "f32"), phase_launches["ffma"], FLASH_SOURCE),
     ]
     entries = []
     for route, (label, dt), launches, source in picks:
@@ -1367,7 +1607,8 @@ def flash_entries(rows, serve_launches, phase_launches):
             "reps": row["reps"],
             "tflops": row["tflops"],
         }
-        for key in ("depth", "cp_async_mma_ms", "timed_in_turns"):
+        for key in ("depth", "cp_async_mma_ms", "ffma_ms", "timed_in_turns", "bound_rate",
+                    "f64_limit_share"):
             if key in row:
                 entry[key] = row[key]
         entries.append(entry)
@@ -1417,7 +1658,7 @@ def main() -> int:
             ):
                 emit(f"  ptxas {kernel}: {line.strip()}")
         if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
-                    Path(TF32X3_SOURCE).name):
+                    Path(TF32X3_SOURCE).name, Path(TF32X3_FLASH_SOURCE).name):
             # setmaxnreg must be honoured and the accumulators a consumer
             # thread holds must stay in registers
             check("C7508" not in log, f"{name}: ptxas ignored setmaxnreg (C7508)")
@@ -1431,9 +1672,10 @@ def main() -> int:
     operator_phase()
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
-    flash_rows, flash_phase_launches = flash_phase(torch)  # phase 6
+    flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
     flash_launches = serve_phase(torch)  # phase 7
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
+    entries.append(split_entry)
 
     emit(json.dumps({"kernels": entries}))  # phase 8
     emit(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

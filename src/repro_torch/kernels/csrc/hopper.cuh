@@ -125,6 +125,24 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return d;
 }
 
+// The same for a 64-byte-swizzled operand (rows of 64 bytes; the swizzle
+// repeats every 512 bytes, so a tile's base must be 512-byte aligned).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(2) << 62;  // layout type 2: 64-byte swizzle
+  return d;
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads by
+// the async proxy (wgmma operands, TMA); each writing thread runs it before
+// the barrier that hands the data to the warpgroup issuing the wgmma.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -270,6 +288,121 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// The TF32 shapes of the f32 flash attention (tma_wgmma_flash_tf32x3.cu).
+// wgmma_m64n{16,32,64}k8_tf32_ss: D[64 x N] (+)= A[64 x 8] B[8 x N], both
+// K-major in shared memory, as wgmma_m64n128k8_tf32_ss.
+//
+// wgmma_m64n{64,128}k8_tf32_rs: D[64 x N] (+)= A[64 x 8] B[8 x N], A from
+// registers and B K-major in shared memory (.tf32 has no transpose bit, so
+// a B that is stored N-major has to be transposed before it lands).  A's
+// four registers hold TF32 values in f32 words: a[0] row r = 16 warp +
+// lane / 4, column lane % 4; a[1] row r + 8, the same column; a[2] and
+// a[3] the same rows, column lane % 4 + 4.  That is NOT the accumulator's
+// layout (a thread holds columns 2 (lane % 4) and the next): an f32
+// accumulator d[4j .. 4j+3] taken as a = {d[4j], d[4j+2], d[4j+1],
+// d[4j+3]} puts accumulator column 2t at k-position t and 2t + 1 at t + 4,
+// so B's eight k rows have to hold the columns (0, 2, 4, 6, 1, 3, 5, 7).
+// scale_d = 0 overwrites D, 1 accumulates.
+
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // x rounded to TF32 (10 fraction bits), to nearest with ties away from
 // zero, as an f32 word.  The mask clears the 13 low bits in case the
 // conversion leaves them unspecified.
@@ -359,16 +492,17 @@ static inline int encode_f32_2d(CUtensorMap* map, const void* base,
                    ld, box_rows, box_cols);
 }
 
-// The tensor map of a 4-D bf16 tensor with dims (innermost first) and
+// The tensor map of a 4-D tensor of `type` with dims (innermost first) and
 // byte strides of the three outer dims (the innermost is contiguous), read
-// in boxes of box[0..3] elements with 128-byte swizzle (box[0] * 2 <= 128).
-// TMA requires a 16-byte aligned base and strides that are multiples of 16
-// bytes; a box may reach past a dim's end, which arrives as zeros.
-// Returns 0, or the CUresult of the encoding (-1 without the function).
-static inline int encode_bf16_4d(CUtensorMap* map, const void* base,
-                                 const uint64_t dims[4],
-                                 const uint64_t strides[3],
-                                 const uint32_t box[4]) {
+// in boxes of box[0..3] elements with the given swizzle (box[0] times the
+// element size at most the swizzle's width).  TMA requires a 16-byte
+// aligned base and strides that are multiples of 16 bytes; a box may reach
+// past a dim's end, which arrives as zeros.  Returns 0, or the CUresult of
+// the encoding (-1 without the function).
+static inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, const uint64_t dims[4],
+                            const uint64_t strides[3], const uint32_t box[4],
+                            CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
@@ -376,10 +510,19 @@ static inline int encode_bf16_4d(CUtensorMap* map, const void* base,
   const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return static_cast<int>(
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d,
-         st, bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      fn(map, type, 4, const_cast<void*>(base), d, st, bx, elem_strides,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A 4-D bf16 tensor in boxes of 128-byte rows (box[0] <= 64).
+static inline int encode_bf16_4d(CUtensorMap* map, const void* base,
+                                 const uint64_t dims[4],
+                                 const uint64_t strides[3],
+                                 const uint32_t box[4]) {
+  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides,
+                   box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

@@ -46,7 +46,8 @@
 // them by pl.when: a Q tile's loop starts at the first K tile that reaches
 // into the sliding window and ends at the last one the causal frontier
 // reaches.  The per-element mask (causal, window, keys past Sk) runs only on
-// the tiles that need it.  Causal positions start at 0 for q and k alike.
+// the tiles that need it.  Query row i sits at position q_offset + i (the
+// prefill continuation of the reference's chunked_attention), key j at j.
 // Ragged Sq and Sk are masked here: rows past the end are zero-filled by
 // cp.async's src-size operand and outputs past Sq are not stored.  The KV
 // head of query head h is h / (H / KV); nothing is repeated or copied.
@@ -75,7 +76,8 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int causal;
-  int window;  // <= 0: none; else keys k > q - window
+  int window;    // <= 0: none; else keys k > q - window
+  int q_offset;  // the position of query row 0
   float scale;
 };
 
@@ -123,10 +125,10 @@ struct KeyRange {
 
 template <int BK>
 __device__ __forceinline__ KeyRange key_range(const Params& p, int q0) {
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int q_last = p.q_offset + min(q0 + BQ, p.Sq) - 1;  // a position
   int k_lo = 0, k_hi = p.Sk;
   if (p.causal) k_hi = min(k_hi, q_last + 1);
-  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  if (p.window > 0) k_lo = max(0, p.q_offset + q0 - p.window + 1);
   KeyRange kr;
   kr.kt_lo = k_lo / BK;
   kr.kt_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : kr.kt_lo;
@@ -137,12 +139,15 @@ template <int BK>
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0,
                                                 int kt) {
   const int k0 = kt * BK, k_last = k0 + BK - 1;
-  const int q_last = q0 + BQ - 1;
-  return k_last >= p.Sk || (p.causal && k_last > q0) ||
-         (p.window > 0 && k0 <= q_last - p.window);
+  const int qp0 = p.q_offset + q0, qp_last = qp0 + BQ - 1;  // positions
+  return k_last >= p.Sk || (p.causal && k_last > qp0) ||
+         (p.window > 0 && k0 <= qp_last - p.window);
 }
 
-__device__ __forceinline__ bool live(const Params& p, int qp, int kp) {
+// whether key kp is live for query row qr (a row of q, at position
+// q_offset + qr)
+__device__ __forceinline__ bool live(const Params& p, int qr, int kp) {
+  const int qp = p.q_offset + qr;
   return kp < p.Sk && (!p.causal || qp >= kp) &&
          (p.window <= 0 || kp > qp - p.window);
 }
@@ -286,9 +291,9 @@ __global__ void __launch_bounds__(BF_THREADS)
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * p.scale;
         if (masked) {
-          const int qp = row0 + (e / 2) * 8;
+          const int qr = row0 + (e / 2) * 8;
           const int kp = kt * BF_BK + j * 8 + 2 * t + (e % 2);
-          if (!live(p, qp, kp)) x = NEG_INF;
+          if (!live(p, qr, kp)) x = NEG_INF;
         }
         s[j][e] = x;
       }
@@ -460,12 +465,12 @@ __global__ void __launch_bounds__(F_THREADS)
     const bool masked = tile_needs_mask<F_BK>(p, q0, kt);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qr = q0 + ty + 16 * i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float x = s[i][j] * p.scale;
-        if (masked && !live(p, qp, kt * F_BK + tx + 16 * j)) x = NEG_INF;
+        if (masked && !live(p, qr, kt * F_BK + tx + 16 * j)) x = NEG_INF;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -545,10 +550,11 @@ int launch_hd(int dtype, const Params& p, void* stream) {
 
 // dtype: 0 float32, 1 bfloat16.  dims: B, H, KV, Sq, Sk, hd.  strides: the
 // batch, sequence and head strides (elements) of q, k, v and o in turn.
+// q_offset: the position of query row 0.
 extern "C" int fa_forward(int dtype, const void* q, const void* k,
                           const void* v, void* o, const long long* dims,
                           const long long* strides, int causal, int window,
-                          float scale, void* stream) {
+                          int q_offset, float scale, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -566,9 +572,12 @@ extern "C" int fa_forward(int dtype, const void* q, const void* k,
   p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale = scale;
   if (p.B <= 0 || p.H <= 0 || p.KV <= 0 || p.H % p.KV || p.Sq <= 0 ||
       p.Sk <= 0 || (p.Sq + BQ - 1) / BQ > 65535 ||
+      q_offset < -0x3fffffff || q_offset > 0x3fffffff ||
+      dims[3] > 0x3fffffffLL || dims[4] > 0x3fffffffLL ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {

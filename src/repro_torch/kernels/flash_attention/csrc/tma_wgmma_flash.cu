@@ -102,6 +102,9 @@
 // (transpose bit set), LBO = one box (the next 64 hd columns), SBO 1024
 // (the next 8 keys), a k16 step 16 rows = 2048 bytes further.
 //
+// Masks are on query positions q_offset + i (the prefill continuation of
+// the reference's chunked_attention) and key positions j.
+//
 // Epilogue: O / max(l, 1e-30) in registers, converted to bf16, stored by
 // stride in 16-byte pieces with rows past Sq masked.
 //
@@ -153,6 +156,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;  // output strides in elements
   int causal;
   int window;                  // <= 0: none; else keys k > q - window
+  int q_offset;                // the position of query row 0
   float scale_log2;            // hd**-0.5 * log2(e)
 };
 
@@ -172,10 +176,10 @@ __device__ __forceinline__ Item item_of(const Params& p, int w) {
   it.h = bh % p.H;
   it.kvh = it.h / (p.H / p.KV);
   it.q0 = (p.n_qt - 1 - w / heads) * BQ;
-  const int q_last = min(it.q0 + BQ, p.Sq) - 1;
+  const int q_last = p.q_offset + min(it.q0 + BQ, p.Sq) - 1;  // a position
   int k_lo = 0, k_hi = p.Sk;
   if (p.causal) k_hi = min(k_hi, q_last + 1);
-  if (p.window > 0) k_lo = max(0, it.q0 - p.window + 1);
+  if (p.window > 0) k_lo = max(0, p.q_offset + it.q0 - p.window + 1);
   it.kt_lo = k_lo / BK;
   it.kt_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : it.kt_lo;
   return it;
@@ -353,7 +357,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int i = 0; i < BK / 2; ++i) sc[i] *= p.scale_log2;
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
-          const int qp = row0 + 8 * rr;
+          const int qp = p.q_offset + row0 + 8 * rr;
           const int hi = (p.causal ? min(p.Sk, qp + 1) : p.Sk) - k0;
           const int lo = (p.window > 0 ? qp - p.window + 1 : 0) - k0;
 #pragma unroll
@@ -435,8 +439,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     for (int w = blockIdx.x; w < p.n_items; w += gridDim.x) {
       const Item it = item_of(p, w);
-      wq0 = it.q0 + 64 * c;
-      row0 = wq0 + 16 * warp + lane / 4;
+      row0 = it.q0 + 64 * c + 16 * warp + lane / 4;
+      wq0 = p.q_offset + it.q0 + 64 * c;  // the warpgroup's first position
       const int wq_last = wq0 + 63;
       // whether tile kt crosses the live-key edge of any of this
       // warpgroup's rows: the causal diagonal, the window's far edge or
@@ -593,22 +597,24 @@ int launch_stages(int stages, const CUtensorMap& mq, const CUtensorMap& mk,
 // dims: B, H, KV, Sq, Sk, hd.  maps: for q, k and v in turn, the tensor
 // map as ops.tensor_map computes it: 4 dims (hd, heads, S, B), 3 byte
 // strides (heads, S, B) and the 4-element box.  o_strides: the batch,
-// sequence and head strides (elements) of o.  `full` and `empty` are the
-// plan's two waits; the kernel needs both.  Returns the cudaError_t of the
+// sequence and head strides (elements) of o.  q_offset: the position of
+// query row 0.  `full` and `empty` are the plan's two waits; the kernel
+// needs both.  Returns the cudaError_t of the
 // launch, or -1000 - r when a tensor map could not be encoded (r: the
 // CUresult, -1 without cuTensorMapEncodeTiled).
 extern "C" int fa_forward_tma(const void* q, const void* k, const void* v,
                               void* o, const long long* dims,
                               const long long* maps,
                               const long long* o_strides, int causal,
-                              int window, float scale_log2, int stages,
-                              int full, int empty, void* stream) {
+                              int window, int q_offset, float scale_log2,
+                              int stages, int full, int empty, void* stream) {
   const long long B = dims[0], H = dims[1], KV = dims[2], Sq = dims[3],
                   Sk = dims[4], hd = dims[5];
   if (!full || !empty || B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 ||
       Sk <= 0 || (hd != 64 && hd != 128) || stages < 1 ||
       stages > MAX_STAGES || B * H * ((Sq + BQ - 1) / BQ) > 0x7fffffffLL ||
-      Sq > 0x7fffffffLL || Sk > 0x7fffffffLL ||
+      Sq > 0x3fffffffLL || Sk > 0x3fffffffLL || q_offset < -0x3fffffff ||
+      q_offset > 0x3fffffff ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || o_strides[0] % 8 ||
       o_strides[1] % 8 || o_strides[2] % 8)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -647,6 +653,7 @@ extern "C" int fa_forward_tma(const void* q, const void* k, const void* v,
   p.o_sh = o_strides[2];
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale_log2 = scale_log2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch_stages<128>(stages, tm[0], tm[1], tm[2], o, p, st);

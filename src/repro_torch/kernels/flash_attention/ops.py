@@ -6,22 +6,28 @@ The layout is the reference wrapper's: q ``(B, Sq, H, hd)``, k and v
 three by stride and index the KV head as ``h // (H / KV)``, so the wrapper
 makes no transpose, repeat or padded copy.
 
-A CUDA call takes one of three kernels, by a rule on the operands
+A CUDA call takes one of four kernels, by a rule on the operands
 (:func:`route`), never as a fallback:
 
-    tma_wgmma     bf16, hd 64 or 128, that TMA can describe:
-                  ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
-                  producer warpgroup, wgmma QKᵀ and PV on two consumer
-                  warpgroups)
-    cp_async_mma  other bf16 (hd 16 and 32): ``csrc/flash_attention.cu``'s
-                  cp.async ring and mma.sync
-    ffma          f32: ``csrc/flash_attention.cu``'s FFMA kernel
+    tma_wgmma         bf16, hd 64 or 128, that TMA can describe:
+                      ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
+                      producer warpgroup, wgmma QKᵀ and PV on two consumer
+                      warpgroups)
+    cp_async_mma      other bf16 (hd 16 and 32): ``csrc/flash_attention.cu``'s
+                      cp.async ring and mma.sync
+    tma_wgmma_tf32x3  f32, hd 64 or 128, that TMA can describe:
+                      ``csrc/tma_wgmma_flash_tf32x3.cu``, a K/V split
+                      pre-pass (:func:`split_kv_tf32`) and both products as
+                      three TF32 wgmma products each, on the bf16 TMA
+                      kernel's plan
+    ffma              other f32 (hd 16 and 32, or strides TMA cannot
+                      describe): ``csrc/flash_attention.cu``'s FFMA kernel
 
 Each kernel's K/V ring depth and its waits come from the K-loop plan that
 the synchronization compiler derives, as the pipelined matmul's do:
 :func:`~repro_torch.kernels.pipelined_matmul.ops.hopper_schedule` (a
 producer warpgroup issues and loads, consumer warpgroups compute; its two
-retained dependences are the full and empty mbarriers) for the TMA kernel,
+retained dependences are the full and empty mbarriers) for the TMA kernels,
 :func:`~repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
 ``RING_DEPTH`` for ``flash_attention.cu``.  The wrapper raises on a plan
 whose retained dependences a kernel has no wait for.
@@ -35,18 +41,23 @@ import math
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
-from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bshd_ref,
+    split_kv_tf32_ref,
+)
 from repro_torch.kernels.pipelined_matmul.ops import (
     CP_ASYNC_MMA,
     FFMA,
     SMEM_PER_BLOCK,
     TMA_WGMMA,
+    TMA_WGMMA_TF32X3,
     hopper_schedule,
     kernel_schedule,
 )
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash.cu"
+TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash_tf32x3.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # flash_attention.cu: the instantiated HD values
 RING_DEPTH = 2  # flash_attention.cu: STAGES
 KERNEL_WAITS = ("issue", "arrival")  # flash_attention.cu: ISSUE(i) and the arrival wait
@@ -78,6 +89,31 @@ def default_depth(hd: int) -> int:
     return min(MAX_STAGES, (SMEM_PER_BLOCK - tma_smem_bytes(hd, 0)) // stage)
 
 
+# tma_wgmma_flash_tf32x3.cu: the same 128-row Q tiles, in f32 as two
+# buffers (hi and lo, split in shared memory), loaded as boxes of 32 hd
+# columns (128 bytes); a stage holds K hi / lo and Vᵀ hi / lo of BK keys,
+# the tile with the deeper ring at each hd: BK 16 at hd 128 (D <= 3; 32
+# keys would fit D = 1 only), BK 32 at hd 64 (D <= 4)
+TF32X3_BOX = 32
+TF32X3_BK = {128: 16, 64: 32}
+
+
+def tf32x3_smem_bytes(hd: int, depth: int) -> int:
+    """Dynamic shared memory of the 3xTF32 kernel at ``hd`` with a ring of
+    ``depth`` stages of ``TF32X3_BK[hd]`` keys: Q hi and lo, the stages,
+    alignment and barriers."""
+
+    return 2 * TMA_BQ * hd * 4 + depth * 4 * TF32X3_BK[hd] * hd * 4 + TMA_SMEM_EXTRA
+
+
+def tf32x3_default_depth(hd: int) -> int:
+    """The deepest ring the budget takes, at most ``MAX_STAGES``: 3 at hd
+    128 (128 KB of Q hi / lo and 32 KB a stage), 4 at hd 64."""
+
+    stage = 4 * TF32X3_BK[hd] * hd * 4
+    return min(MAX_STAGES, (SMEM_PER_BLOCK - tf32x3_smem_bytes(hd, 0)) // stage)
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorMap:
     """A 4-D TMA tensor map of one ``(B, S, heads, hd)`` operand, innermost
@@ -94,8 +130,9 @@ class TensorMap:
 def tensor_map(shape: Sequence[int], stride: Sequence[int], rows: int,
                elt: int = 2) -> TensorMap:
     """The tensor map of an operand of ``shape`` ``(B, S, heads, hd)`` and
-    element strides ``stride``, read in boxes of 64 hd columns by ``rows``
-    positions of one head of one batch.  A 4-D map, not a flattened 2-D
+    element strides ``stride`` (``elt`` bytes an element), read in boxes of
+    128 bytes of hd columns (64 in bf16, 32 in f32) by ``rows`` positions
+    of one head of one batch.  A 4-D map, not a flattened 2-D
     one, is what keeps a box at a ragged end of S inside its own batch:
     TMA zero-fills past S instead of reading the next batch's rows."""
 
@@ -104,7 +141,7 @@ def tensor_map(shape: Sequence[int], stride: Sequence[int], rows: int,
     return TensorMap(
         dims=(hd, heads, S, B),
         strides=(sh * elt, ss * elt, sb * elt),
-        box=(TMA_BOX, 1, rows, 1),
+        box=(128 // elt, 1, rows, 1),
     )
 
 
@@ -114,23 +151,24 @@ def route(dtype, hd: int, strides: Sequence[Sequence[int]],
     the (batch, sequence, head) element strides of q, k and v and their
     base addresses.
 
-    TMA needs 16-byte aligned bases and strides that are positive multiples
-    of 16 bytes; the TMA kernel is instantiated at hd 64 and 128.  Such
-    bf16 operands take it whatever Sq and Sk are (ragged ends are
-    zero-filled and masked); other bf16 operands take the cp.async kernel;
-    f32 takes FFMA."""
+    TMA (and the f32 route's split pass, which reads k and v 16 bytes at a
+    time) needs 16-byte aligned bases and strides that are positive
+    multiples of 16 bytes; both TMA kernels are instantiated at hd 64 and
+    128.  Such operands take the TMA kernel of their dtype whatever Sq and
+    Sk are (ragged ends are zero-filled and masked); other bf16 operands
+    take the cp.async kernel, other f32 operands FFMA."""
 
     import torch
 
-    if dtype == torch.float32:
-        return FFMA
-    if (
+    elt = 4 if dtype == torch.float32 else 2
+    tma = (
         hd in TMA_HEAD_DIMS
-        and all(s > 0 and (2 * s) % 16 == 0 for st in strides for s in st[:3])
+        and all(s > 0 and (elt * s) % 16 == 0 for st in strides for s in st[:3])
         and all(a % 16 == 0 for a in addresses)
-    ):
-        return TMA_WGMMA
-    return CP_ASYNC_MMA
+    )
+    if dtype == torch.float32:
+        return TMA_WGMMA_TF32X3 if tma else FFMA
+    return TMA_WGMMA if tma else CP_ASYNC_MMA
 
 
 def _check_schedule() -> None:
@@ -146,21 +184,26 @@ def _check_schedule() -> None:
         )
 
 
-def _tma_schedule(hd: int, depth: Optional[int]):
-    """The K-loop plan of the TMA kernel at ``depth`` (default: the deepest
-    ring that fits), or ``NotImplementedError`` for a plan without both of
-    its mbarriers or a ring that does not fit."""
+def _tma_schedule(hd: int, depth: Optional[int], path: str = TMA_WGMMA):
+    """The K-loop plan of a TMA kernel (``path``: ``tma_wgmma`` or
+    ``tma_wgmma_tf32x3``) at ``depth`` (default: the deepest ring that
+    fits), or ``NotImplementedError`` for a plan without both of its
+    mbarriers or a ring that does not fit."""
 
-    depth = default_depth(hd) if depth is None else depth
-    if not 1 <= depth <= MAX_STAGES or tma_smem_bytes(hd, depth) > SMEM_PER_BLOCK:
+    if path == TMA_WGMMA:
+        fits, smem = default_depth(hd), tma_smem_bytes
+    else:
+        fits, smem = tf32x3_default_depth(hd), tf32x3_smem_bytes
+    depth = fits if depth is None else depth
+    if not 1 <= depth <= MAX_STAGES or smem(hd, depth) > SMEM_PER_BLOCK:
         raise NotImplementedError(
-            f"flash attention (tma_wgmma): ring depth {depth} at hd={hd} "
-            f"(1..{default_depth(hd)} stages fit in {SMEM_PER_BLOCK} bytes)"
+            f"flash attention ({path}): ring depth {depth} at hd={hd} "
+            f"(1..{fits} stages fit in {SMEM_PER_BLOCK} bytes)"
         )
     sched = hopper_schedule(depth)
     if not (sched.full and sched.empty):
         raise NotImplementedError(
-            f"flash attention (tma_wgmma): the Hopper K-loop plan at depth "
+            f"flash attention ({path}): the Hopper K-loop plan at depth "
             f"{depth} asks for waits {sched.waits}; the kernel needs the full "
             "and the empty mbarrier"
         )
@@ -170,7 +213,8 @@ def _tma_schedule(hd: int, depth: Optional[int]):
 @functools.lru_cache(maxsize=None)
 def _entry_point():
     """``fa_forward(dtype, q, k, v, o, dims[6], strides[12], causal, window,
-    scale, stream) -> cudaError_t``, built and loaded on first use."""
+    q_offset, scale, stream) -> cudaError_t``, built and loaded on first
+    use."""
 
     import ctypes
 
@@ -182,7 +226,7 @@ def _entry_point():
         [ctypes.c_int]
         + [ctypes.c_void_p] * 4
         + [ctypes.POINTER(ctypes.c_longlong)] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_float]
         + [ctypes.c_void_p]
     )
     return fn
@@ -191,7 +235,8 @@ def _entry_point():
 @functools.lru_cache(maxsize=None)
 def _tma_entry_point():
     """``fa_forward_tma(q, k, v, o, dims[6], maps[33], o_strides[3], causal,
-    window, scale_log2, stages, full, empty, stream) -> cudaError_t``."""
+    window, q_offset, scale_log2, stages, full, empty, stream) ->
+    cudaError_t``."""
 
     import ctypes
 
@@ -202,10 +247,37 @@ def _tma_entry_point():
     fn.argtypes = (
         [ctypes.c_void_p] * 4
         + [ctypes.POINTER(ctypes.c_longlong)] * 3
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_float]
         + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
     )
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32x3_entry_point(name: str):
+    """The two launchers of ``tma_wgmma_flash_tf32x3.cu``:
+    ``fa_split_kv_tf32(k, v, ws, dims[4], kv_strides[6], stream)`` (the
+    pre-pass alone) and ``fa_forward_tf32x3(q, k, v, ws, o, dims[6],
+    q_map[11], kv_strides[6], o_strides[3], causal, window, q_offset,
+    scale_log2, stages, full, empty, stream)`` (the pre-pass and the
+    product), each returning a ``cudaError_t``."""
+
+    import ctypes
+
+    from repro_torch.kernels._build import load
+
+    fn = getattr(load(TF32X3_SOURCE), name)
+    fn.restype = ctypes.c_int
+    arrays = [ctypes.POINTER(ctypes.c_longlong)]
+    if name == "fa_split_kv_tf32":
+        fn.argtypes = [ctypes.c_void_p] * 3 + arrays * 2 + [ctypes.c_void_p]
+    else:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + arrays * 4
+            + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p]
+        )
     return fn
 
 
@@ -227,7 +299,7 @@ def _check(rc: int, path: str, q, k, depth) -> None:
     raise RuntimeError(f"flash attention launch failed ({path}): cudaError {rc} ({shape})")
 
 
-def _launch(q, k, v, o, causal: bool, window: Optional[int]) -> None:
+def _launch(q, k, v, o, causal: bool, window: Optional[int], q_offset: int) -> None:
     """``flash_attention.cu`` (bf16 mma.sync, f32 FFMA)."""
 
     import ctypes
@@ -244,13 +316,14 @@ def _launch(q, k, v, o, causal: bool, window: Optional[int]) -> None:
         0 if q.dtype == torch.float32 else 1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dims, strides, int(causal), 0 if window is None else int(window),
-        hd**-0.5,
+        int(q_offset), hd**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(rc, FFMA if q.dtype == torch.float32 else CP_ASYNC_MMA, q, k, RING_DEPTH)
 
 
-def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], sched) -> None:
+def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
+                sched) -> None:
     """``tma_wgmma_flash.cu``, with the tensor maps of :func:`tensor_map` and
     the plan's two waits as its flags."""
 
@@ -272,14 +345,142 @@ def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], sched) -> None:
     rc = _tma_entry_point()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dims, maps, o_strides, int(causal), 0 if window is None else int(window),
-        hd**-0.5 * math.log2(math.e),
+        int(q_offset), hd**-0.5 * math.log2(math.e),
         sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(rc, TMA_WGMMA, q, k, sched.depth)
 
 
-def _check_kernel_call(q, k, v, window) -> None:
+def _split_workspace(k):
+    """One allocation for the pre-pass's four outputs, one after the other
+    as ``tma_wgmma_flash_tf32x3.cu`` lays them (each a multiple of 256
+    bytes, so 16-byte aligned), and its views ``(k_hi, k_lo, vt_hi,
+    vt_lo)``."""
+
+    import torch
+
+    B, Sk, KV, hd = k.shape
+    sk8 = -(-Sk // 8) * 8
+    n_k, n_v = B * KV * Sk * hd, B * KV * hd * sk8
+    ws = torch.empty(2 * (n_k + n_v), dtype=k.dtype, device=k.device)
+    k_hi, k_lo, vt_hi, vt_lo = ws.split((n_k, n_k, n_v, n_v))
+    return ws, (
+        k_hi.view(B, KV, Sk, hd), k_lo.view(B, KV, Sk, hd),
+        vt_hi.view(B, KV, hd, sk8), vt_lo.view(B, KV, hd, sk8),
+    )
+
+
+def _kv_strides(k, v):
+    import ctypes
+
+    return (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
+
+
+def split_kv_tf32(k, v):
+    """``(k_hi, k_lo, vt_hi, vt_lo)``: the 3xTF32 route's pre-pass over k
+    and v ``(B, Sk, KV, hd)`` f32, read by their strides.  ``k_*`` are
+    ``(B, KV, Sk, hd)``, ``vt_*`` ``(B, KV, hd, Sk8)`` (Sk8: Sk rounded up
+    to 8, zero-filled) with the keys of each group of 8 in
+    :data:`ref.KEY_ORDER`; hi = rna_tf32(x), lo = rna_tf32(x - hi).  CPU
+    tensors take :func:`ref.split_kv_tf32_ref`; CUDA tensors (hd 64 or
+    128, 16-byte aligned bases and strides) launch the kernel or raise.
+    The route launches the pass inside its own call
+    (:func:`_launch_tf32x3`); this is the pass alone."""
+
+    import ctypes
+
+    import torch
+
+    if k.dtype != torch.float32 or v.dtype != torch.float32 or k.shape != v.shape:
+        raise TypeError(
+            f"split_kv_tf32 takes float32 k and v of one shape; got {k.dtype} "
+            f"{tuple(k.shape)}, {v.dtype} {tuple(v.shape)}"
+        )
+    if k.device.type == "cpu" and v.device.type == "cpu":
+        return split_kv_tf32_ref(k, v)
+    B, Sk, KV, hd = k.shape
+    if not (k.device == v.device and k.device.type == "cuda") or route(
+        k.dtype, hd, [k.stride(), v.stride()], [k.data_ptr(), v.data_ptr()]
+    ) != TMA_WGMMA_TF32X3:
+        raise ValueError(
+            f"split_kv_tf32: k {tuple(k.shape)} strides {k.stride()}, v strides "
+            f"{v.stride()} on {k.device} / {v.device}: it reads hd 64 or 128, "
+            "16 bytes at a time from 16-byte aligned CUDA tensors"
+        )
+    ws, parts = _split_workspace(k)
+    if k.numel() == 0:
+        return parts
+    rc = _tf32x3_entry_point("fa_split_kv_tf32")(
+        k.data_ptr(), v.data_ptr(), ws.data_ptr(),
+        (ctypes.c_longlong * 4)(B, Sk, KV, hd), _kv_strides(k, v),
+        torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"split_kv_tf32 launch failed on route {TMA_WGMMA_TF32X3}: "
+            f"cudaError {rc} (B={B}, Sk={Sk}, KV={KV}, hd={hd})"
+        )
+    split_kv_tf32.launches += 1
+    return parts
+
+
+split_kv_tf32.launches = 0
+
+
+def _launch_tf32x3(q, k, v, o, causal: bool, window: Optional[int],
+                   q_offset: int, sched) -> None:
+    """``tma_wgmma_flash_tf32x3.cu``'s one host call: the pre-pass of k and
+    v into a workspace, then the product, with Q's tensor map and the
+    plan's two waits as its flags.  Both launches are counted: the
+    product's by :func:`flash_attention`, the pre-pass's here."""
+
+    import ctypes
+
+    import torch
+
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    ws, _ = _split_workspace(k)
+    rc = _tf32x3_entry_point("fa_forward_tf32x3")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(), o.data_ptr(),
+        (ctypes.c_longlong * 6)(B, H, KV, Sq, Sk, hd),
+        (ctypes.c_longlong * 11)(*tensor_map(q.shape, q.stride(), TMA_BQ, 4).flat()),
+        _kv_strides(k, v),
+        (ctypes.c_longlong * 3)(*o.stride()[:3]),
+        int(causal), 0 if window is None else int(window), int(q_offset),
+        hd**-0.5 * math.log2(math.e),
+        sched.depth, int(sched.full), int(sched.empty),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(rc, TMA_WGMMA_TF32X3, q, k, sched.depth)
+    split_kv_tf32.launches += 1
+
+
+def _check_live_keys(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                     q_offset: int) -> None:
+    """Raise unless every query row keeps a live key.  A kernel gives a
+    row with none 0 (or the mean of the key tiles it visited), where the
+    plain version and the reference give the mean of all keys.  Row i sits
+    at position p = q_offset + i and keeps keys j < Sk with j <= p (causal)
+    and j > p - window: some key is left for all rows iff q_offset >= 0
+    (causal) and the last row's p <= Sk + window - 2 (window)."""
+
+    if Sq == 0 or Sk == 0:
+        return
+    if causal and q_offset < 0:
+        raise NotImplementedError(
+            f"flash attention kernel: causal with q_offset={q_offset} < 0 "
+            "leaves the first query rows no key"
+        )
+    if window is not None and q_offset + Sq - 1 > Sk + window - 2:
+        raise NotImplementedError(
+            f"flash attention kernel: window={window} with q_offset={q_offset}, "
+            f"Sq={Sq}, Sk={Sk} leaves the last query rows no key"
+        )
+
+
+def _check_kernel_call(q, k, v, window, q_offset: int = 0, causal: bool = True) -> None:
     """Raise for a CUDA call outside the kernel's contract, naming the
     argument."""
 
@@ -302,6 +503,12 @@ def _check_kernel_call(q, k, v, window) -> None:
         )
     if window is not None and window < 1:
         raise NotImplementedError(f"flash attention kernel: window={window} < 1")
+    if not -(2**30) < q_offset < 2**30 or max(q.shape[1], k.shape[1]) >= 2**30:
+        raise NotImplementedError(
+            f"flash attention kernel: q_offset={q_offset}, Sq={q.shape[1]}, "
+            f"Sk={k.shape[1]} (the kernels index positions below 2**30)"
+        )
+    _check_live_keys(q.shape[1], k.shape[1], causal, window, q_offset)
     step = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or any(s % step for s in t.stride()[:3]) or (
@@ -321,18 +528,19 @@ def _route_of(q, k, v) -> str:
     )
 
 
-def _cp_async_flash(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """``flash_attention.cu``'s cp.async / mma.sync kernel on bf16 operands
-    that :func:`route` sends to the TMA kernel, to time the two side by
-    side; not counted in the launch counts and no route of
-    :func:`flash_attention`."""
+def _flash_cu(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0):
+    """``flash_attention.cu``'s kernel of the operands' dtype (cp.async /
+    mma.sync for bf16, FFMA for f32) on operands that :func:`route` sends
+    to a TMA kernel, to check and time the two side by side; not counted in
+    the launch counts and no route of :func:`flash_attention`."""
 
     import torch
 
-    _check_kernel_call(q, k, v, window)
+    _check_kernel_call(q, k, v, window, q_offset, causal)
     _check_schedule()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, o, causal, window)
+    _launch(q, k, v, o, causal, window, q_offset)
     return o
 
 
@@ -344,18 +552,22 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     depth: Optional[int] = None,
+    q_offset: int = 0,
 ):
     """Softmax attention ``softmax(q kᵀ · hd**-0.5 + mask) v`` with f32
     softmax state, over q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)``.
 
     ``causal`` masks keys after the query position, ``window`` keys at or
-    before ``q_pos - window``; positions start at 0 for q and k alike.
-    ``depth`` is the K/V ring depth of the TMA route (default: the deepest
-    ring that fits, :func:`default_depth`); the other routes have one depth,
-    ``RING_DEPTH``.  The reference wrapper's ``blk_q`` / ``blk_k`` have no
-    counterpart: the Hopper kernels' tiles are their own.  A CPU tensor
-    takes the plain version; a CUDA tensor takes its route's kernel or
-    raises.
+    before ``q_pos - window``; query i sits at position ``q_offset + i``
+    (the prefill continuation of the reference's ``chunked_attention``),
+    key j at j.  On a CUDA tensor every query row must keep at least one
+    key (:func:`_check_live_keys` raises otherwise).  ``depth`` is
+    the K/V ring depth of the TMA routes (default: the deepest ring that
+    fits, :func:`default_depth` / :func:`tf32x3_default_depth`); the other
+    routes have one depth, ``RING_DEPTH``.  The reference wrapper's
+    ``blk_q`` / ``blk_k`` have no counterpart: the Hopper kernels' tiles
+    are their own.  A CPU tensor takes the plain version; a CUDA tensor
+    takes its route's kernel or raises.
     """
 
     import torch
@@ -385,17 +597,19 @@ def flash_attention(
     path = sched = None
     if q.dtype in (torch.float32, torch.bfloat16):
         path = _route_of(q, k, v)
-        if path == TMA_WGMMA:
-            sched = _tma_schedule(hd, depth)
+        if path in (TMA_WGMMA, TMA_WGMMA_TF32X3):
+            sched = _tma_schedule(hd, depth, path)
         elif depth not in (None, RING_DEPTH):
             raise NotImplementedError(
                 f"flash attention ({path}): ring depth {depth} (this route "
                 f"has one depth, {RING_DEPTH})"
             )
     if on_cpu:
-        return flash_attention_bshd_ref(q, k, v, causal=causal, window=window)
-    _check_kernel_call(q, k, v, window)
-    if path != TMA_WGMMA:
+        return flash_attention_bshd_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset
+        )
+    _check_kernel_call(q, k, v, window, q_offset, causal)
+    if sched is None:
         _check_schedule()
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
@@ -403,13 +617,15 @@ def flash_attention(
     if k.shape[1] == 0:
         return o.zero_()
     if path == TMA_WGMMA:
-        _launch_tma(q, k, v, o, causal, window, sched)
+        _launch_tma(q, k, v, o, causal, window, q_offset, sched)
+    elif path == TMA_WGMMA_TF32X3:
+        _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched)
     else:
-        _launch(q, k, v, o, causal, window)
+        _launch(q, k, v, o, causal, window, q_offset)
     flash_attention.launches += 1
     flash_attention.routes[path] += 1
     return o
 
 
 flash_attention.launches = 0
-flash_attention.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, FFMA: 0}
+flash_attention.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0}

@@ -1,12 +1,37 @@
-"""Plain PyTorch version of the flash-attention kernel (the reference's
-``flash_attention_ref``): quadratic softmax attention over ``(BH, S, hd)``
-in f32, cast back to the input dtype."""
+"""Plain PyTorch versions of the flash-attention kernels: the reference's
+``flash_attention_ref`` (quadratic softmax attention over ``(BH, S, hd)``
+in f32, cast back to the input dtype), its 3xTF32 emulation, and the
+3xTF32 route's K / V split."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 NEG_INF = -1e30
+
+# Vᵀ's keys in each group of 8, as the split writes them: k-position p of an
+# 8-key step of the PV product holds key KEY_ORDER[p].  The f32 accumulator
+# of S gives a thread keys (2t, 2t + 1) of each group (t = lane % 4); the
+# tf32 A fragment of wgmma m64nNk8 reads k-positions (t, t + 4); so the
+# accumulator taken as it stands puts key 2t at position t and 2t + 1 at
+# t + 4, which is this order.
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _keep(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int, device):
+    """The (Sq, Sk) mask of the keys each query keeps; query i sits at
+    position ``q_offset + i``."""
+
+    import torch
+
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
 
 
 def flash_attention_ref(
@@ -16,29 +41,23 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    q_offset: int = 0,
 ):
     import torch
 
     hd = q.shape[-1]
     s = torch.einsum("bqk,bsk->bqs", q.float(), k.float())
     s = s * hd**-0.5
-    Sq, Sk = q.shape[1], k.shape[1]
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos >= k_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _keep(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqs,bsk->bqk", p, v.float()).to(q.dtype)
 
 
-def flash_attention_bshd_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """The same function over the wrapper's layout: q ``(B, Sq, H, hd)``,
-    k/v ``(B, Sk, KV, hd)`` with GQA, as the reference's ``ops.py`` folds
-    it (KV heads repeated, heads folded into the leading dimension)."""
+def _fold(q, k, v):
+    """q ``(B, Sq, H, hd)`` and GQA k, v ``(B, Sk, KV, hd)`` as the
+    reference's ``ops.py`` folds them: KV heads repeated, heads folded into
+    the leading dimension."""
 
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -48,5 +67,87 @@ def flash_attention_bshd_ref(q, k, v, *, causal: bool = True, window: Optional[i
     qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
     kf = k.transpose(1, 2).reshape(B * H, k.shape[1], hd)
     vf = v.transpose(1, 2).reshape(B * H, v.shape[1], hd)
-    of = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    return qf, kf, vf
+
+
+def flash_attention_bshd_ref(
+    q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0
+):
+    """The same function over the wrapper's layout: q ``(B, Sq, H, hd)``,
+    k/v ``(B, Sk, KV, hd)`` with GQA."""
+
+    B, Sq, H, hd = q.shape
+    of = flash_attention_ref(
+        *_fold(q, k, v), causal=causal, window=window, q_offset=q_offset
+    )
     return of.reshape(B, H, Sq, hd).transpose(1, 2)
+
+
+def flash_attention_tf32x3_ref(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    terms: int = 3,
+):
+    """An emulation of the 3xTF32 route over the wrapper's layout (f32 in
+    and out): every operand split as ``hi = rna_tf32(x)``, ``lo =
+    rna_tf32(x - hi)``, S = (Q_lo K_hiᵀ + Q_hi K_loᵀ) + Q_hi K_hiᵀ and PV =
+    (P_lo V_hi + P_hi V_lo) + P_hi V_hi, each product of TF32 values (exact
+    in f32) summed in f32, and the softmax in f32 between them.  ``terms=1``
+    keeps only hi·hi: one TF32 product, as TF32 matmuls compute."""
+
+    import torch
+
+    from repro_torch.kernels.pipelined_matmul.ref import rna_tf32_ref
+
+    if terms not in (1, 3):
+        raise ValueError(f"terms={terms}: 3 (3xTF32) or 1 (TF32)")
+    B, Sq, H, hd = q.shape
+
+    def split(x):
+        hi = rna_tf32_ref(x)
+        return hi, rna_tf32_ref(x - hi)
+
+    def product(a, b):  # a (n, i, j) @ b (n, j, k) in the split terms
+        a_hi, a_lo = split(a.contiguous())
+        b_hi, b_lo = split(b.contiguous())
+        out = torch.bmm(a_hi, b_hi)
+        if terms == 3:
+            out = (torch.bmm(a_lo, b_hi) + torch.bmm(a_hi, b_lo)) + out
+        return out
+
+    qf, kf, vf = (t.float() for t in _fold(q, k, v))
+    s = product(qf, kf.transpose(1, 2)) * hd**-0.5
+    mask = _keep(Sq, k.shape[1], causal, window, q_offset, q.device)
+    p = torch.softmax(torch.where(mask[None], s, NEG_INF), dim=-1)
+    of = product(p, vf)
+    return of.reshape(B, H, Sq, hd).transpose(1, 2)
+
+
+def split_kv_tf32_ref(k, v):
+    """``(k_hi, k_lo, vt_hi, vt_lo)`` of f32 k, v ``(B, Sk, KV, hd)``, as
+    the 3xTF32 route's pre-pass writes them: ``k_*`` ``(B, KV, Sk, hd)``;
+    ``vt_*`` ``(B, KV, hd, Sk8)``, Vᵀ with Sk rounded up to 8 by zero keys
+    and the keys of each group of 8 in :data:`KEY_ORDER`; hi =
+    rna_tf32(x), lo = rna_tf32(x - hi)."""
+
+    import torch
+
+    from repro_torch.kernels.pipelined_matmul.ref import rna_tf32_ref
+
+    B, Sk, KV, hd = k.shape
+    sk8 = -(-Sk // 8) * 8
+    kt = k.permute(0, 2, 1, 3).contiguous()
+    vt = torch.zeros(B, KV, hd, sk8, dtype=v.dtype, device=v.device)
+    vt[..., :Sk] = v.permute(0, 2, 3, 1)
+    order = torch.tensor(KEY_ORDER, device=v.device)
+    vt = vt.reshape(B, KV, hd, sk8 // 8, 8)[..., order].reshape(B, KV, hd, sk8)
+    out = []
+    for x in (kt, vt):
+        hi = rna_tf32_ref(x)
+        out += [hi, rna_tf32_ref(x - hi)]
+    return tuple(out)

@@ -143,14 +143,9 @@ def chunked_attention(
         return chunked_attention_plain(
             q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset
         )
-    if q_offset != 0:
-        raise NotImplementedError(
-            f"chunked_attention on {q.device}: q_offset={q_offset} (the flash "
-            "kernel's query positions start at 0)"
-        )
     from repro_torch.kernels.flash_attention import ops
 
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def attention_reference(

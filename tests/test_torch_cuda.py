@@ -21,7 +21,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import program_from_reference, store_from_reference
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.probe import one_hot_probe
-from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bshd_ref,
+    flash_attention_tf32x3_ref,
+    split_kv_tf32_ref,
+)
 from repro_torch.kernels.pipelined_matmul import ops, schedule
 from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
 from repro_torch.launch import serve_lm
@@ -393,7 +397,7 @@ FLASH_CASES = [
 
 def _flash_route(dtype, hd):
     if dtype == torch.float32:
-        return "ffma"
+        return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
     return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
 
 
@@ -521,8 +525,214 @@ def test_flash_tma_kernel_refuses_a_schedule_without_both_waits(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     for full, empty in ((1, 0), (0, 1)):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dims, maps,
-                o_strides, 1, 0, 0.18, 2, full, empty, stream)
+                o_strides, 1, 0, 0, 0.18, 2, full, empty, stream)
         assert rc == 1  # cudaErrorInvalidValue
+
+
+# ---------------------------------------------------------------------- #
+# Flash attention in f32 on the tensor cores: the 3xTF32 route
+# ---------------------------------------------------------------------- #
+
+def _row_share_f64(out, q, k, v, **kw):
+    """The largest relative L2 error of one output row against an f64
+    plain version, as a share of the f32 row limit."""
+
+    ref = flash_attention_bshd_ref(q.double(), k.double(), v.double(), **kw)
+    d = (out.double() - ref).norm(dim=-1)
+    return (d / ref.norm(dim=-1).clamp_min(1e-300)).max().item() / ROW_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tf32x3_kernel_at_every_depth_on_cuda(cuda, hd):
+    """Every ring depth that fits, causal over several tiles and with a
+    window; within the f32 limit of the plain version and of f64."""
+
+    q, k, v = _flash_inputs(cuda, 2, 520, 520, 4, 2, hd, torch.float32, seed=hd)
+    for window in (None, 200):
+        kw = dict(causal=True, window=window)
+        ref = flash_attention_bshd_ref(q, k, v, **kw)
+        for depth in range(1, flash_ops.tf32x3_default_depth(hd) + 1):
+            splits = flash_ops.split_kv_tf32.launches
+            out, took = _flash_counted(q, k, v, depth=depth, **kw)
+            assert took == "tma_wgmma_tf32x3"
+            assert flash_ops.split_kv_tf32.launches == splits + 1
+            assert _row_err(out, ref) <= ROW_TOL[torch.float32], (depth, window)
+            assert _row_share_f64(out, q, k, v, **kw) <= 0.25, (depth, window)
+
+
+def test_flash_tf32x3_error_against_f64_and_a_one_tf32_emulation_on_cuda(cuda):
+    """At a yi-6b head shape the route reads at most a quarter of the f32
+    limit against f64; one TF32 product of each pair reads above it."""
+
+    q, k, v = _flash_inputs(cuda, 1, 1024, 1024, 8, 2, 128, torch.float32, seed=5)
+    out, took = _flash_counted(q, k, v, causal=True)
+    assert took == "tma_wgmma_tf32x3"
+    assert _row_share_f64(out, q, k, v, causal=True) <= 0.25
+    one = flash_attention_tf32x3_ref(q, k, v, causal=True, terms=1)
+    assert _row_share_f64(one, q, k, v, causal=True) > 1
+
+
+@pytest.mark.parametrize(
+    "shape,kw",
+    [
+        ((2, 520, 520, 4, 2), dict(causal=True)),
+        ((1, 193, 201, 4, 2), dict(causal=False)),
+        ((1, 300, 300, 4, 1), dict(causal=True, window=130)),
+        ((2, 520, 520, 4, 2), dict(causal=True, identity_v=True)),
+        ((1, 193, 201, 4, 4), dict(causal=False, identity_v=True)),
+    ],
+    ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"],
+)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tf32x3_one_hot_probes_are_exact_on_cuda(cuda, hd, shape, kw):
+    """The probes' values are exact in TF32 (lo = 0), so each row returns
+    its v row (with V = I the one-hot P) bit for bit: a wrong key order in
+    Vᵀ, A fragment or descriptor moves the one 1 of a row."""
+
+    B, Sq, Sk, H, KV = shape
+    q, k, v, expected = one_hot_probe(B, Sq, Sk, H, KV, hd, seed=hd, **kw)
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in (q, k, v))
+    kw = {n: x for n, x in kw.items() if n != "identity_v"}
+    out, took = _flash_counted(q, k, v, **kw)
+    assert took == "tma_wgmma_tf32x3"
+    assert torch.equal(out.cpu(), torch.from_numpy(expected))
+
+
+@pytest.mark.parametrize(
+    "B,Sk,KV,hd,view",
+    [(4, 2048, 4, 128, False), (2, 201, 2, 128, True), (1, 5, 3, 64, False), (2, 333, 2, 64, True)],
+    ids=["yi6b", "cache_slice_ragged", "short", "cache_slice_hd64"],
+)
+def test_split_kv_kernel_is_bit_equal_to_its_plain_version_on_cuda(cuda, B, Sk, KV, hd, view):
+    gen = torch.Generator(device=cuda).manual_seed(Sk)
+    if view:  # the first Sk positions of a cache holding k and v side by side
+        cache = torch.randn(B, 640, 2 * KV, hd, device=cuda, generator=gen)
+        k, v = cache[:, :Sk, :KV], cache[:, :Sk, KV:]
+    else:
+        k = torch.randn(B, Sk, KV, hd, device=cuda, generator=gen)
+        v = torch.randn(B, Sk, KV, hd, device=cuda, generator=gen)
+        # a tie, a negative zero, the top of the range and a subnormal
+        k.view(-1)[:4] = torch.tensor([1 + 2.0**-11, -0.0, 3e38, 1e-38], device=cuda)
+    before = flash_ops.split_kv_tf32.launches
+    got = flash_ops.split_kv_tf32(k, v)
+    torch.cuda.synchronize()
+    assert flash_ops.split_kv_tf32.launches == before + 1
+    for g, w in zip(got, split_kv_tf32_ref(k, v)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_flash_tf32x3_reads_kv_cache_slices_and_head_views_on_cuda(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cache_k = torch.randn(2, 640, 2, 128, device=cuda, generator=gen)
+    cache_v = torch.randn(2, 640, 2, 128, device=cuda, generator=gen)
+    qkv = torch.randn(2, 201, 8, 128, device=cuda, generator=gen)
+    q, k, v = qkv[:, :, :4], cache_k[:, :201], cache_v[:, :201]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    out, took = _flash_counted(q, k, v, causal=True)
+    assert took == "tma_wgmma_tf32x3"
+    ref = flash_attention_bshd_ref(q, k, v, causal=True)
+    assert _row_err(out, ref) <= ROW_TOL[torch.float32]
+
+
+def test_flash_tf32x3_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
+    """A failing product launch raises, naming the route and the shape; the
+    FFMA kernel is never tried."""
+
+    real = flash_ops._tf32x3_entry_point
+
+    def failing(name):
+        if name == "fa_forward_tf32x3":
+            return lambda *args: 1  # cudaErrorInvalidValue
+        return real(name)
+
+    monkeypatch.setattr(flash_ops, "_tf32x3_entry_point", failing)
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 2, 128, torch.float32)
+    before, routes = flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes)
+    with pytest.raises(RuntimeError, match=r"tma_wgmma_tf32x3.*cudaError 1.*Sk=64, H=2, KV=2, hd=128"):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.flash_attention.launches == before
+    assert flash_ops.flash_attention.routes == routes
+
+
+def test_flash_tf32x3_kernel_refuses_a_schedule_without_both_waits(cuda):
+    """The host entry refuses a plan without both waits, or a ring it has
+    no instantiation for, before either of its launches."""
+
+    import ctypes
+
+    q, k, v = _flash_inputs(cuda, 1, 128, 128, 2, 2, 64, torch.float32)
+    ws, parts = flash_ops._split_workspace(k)
+    ws.fill_(7.0)
+    o = torch.empty_like(q)
+    fn = flash_ops._tf32x3_entry_point("fa_forward_tf32x3")
+    dims = (ctypes.c_longlong * 6)(1, 2, 2, 128, 128, 64)
+    qmap = (ctypes.c_longlong * 11)(*flash_ops.tensor_map(q.shape, q.stride(), 128, 4).flat())
+    o_strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, ws, o)]
+    for stages, full, empty in ((2, 1, 0), (2, 0, 1), (5, 1, 1), (0, 1, 1)):
+        rc = fn(*ptrs, dims, qmap, flash_ops._kv_strides(k, v), o_strides, 1, 0, 0, 0.18,
+                stages, full, empty, stream)
+        assert rc == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert bool((ws == 7.0).all())  # the pre-pass did not run either
+
+
+@pytest.mark.parametrize(
+    "dtype,hd",
+    [(torch.bfloat16, 128), (torch.bfloat16, 32), (torch.float32, 128), (torch.float32, 32)],
+    ids=["tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"],
+)
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_q_offset_matches_plain_version_on_every_route_on_cuda(cuda, dtype, hd, window):
+    """Query i at position q_offset + i: the last 200 rows of 700 positions
+    against the plain version with the same offset; the offset off by one
+    reads above the limit."""
+
+    q, k, v = _flash_inputs(cuda, 2, 200, 700, 4, 2, hd, dtype, seed=hd)
+    out, took = _flash_counted(q, k, v, causal=True, window=window, q_offset=500)
+    assert took == _flash_route(dtype, hd)
+    kw = dict(causal=True, window=window)
+    ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), q_offset=500, **kw)
+    assert _row_err(out, ref) <= ROW_TOL[dtype]
+    fault = flash_attention_bshd_ref(q.float(), k.float(), v.float(), q_offset=501, **kw)
+    assert _row_err(out, fault) > ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["ffma", "cp_async_mma"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_cu_kernel_at_the_tma_head_dims_on_cuda(cuda, hd, dtype):
+    """flash_attention.cu's kernels, which the routes send only hd 16 / 32
+    or strides TMA cannot describe, still hold at hd 64 and 128: the
+    timing baseline of the TMA routes, uncounted; and a broadcast (zero
+    stride) batch takes them there through the wrapper."""
+
+    q, k, v = _flash_inputs(cuda, 2, 300, 333, 4, 2, hd, dtype, seed=hd + 1)
+    for kw in (dict(causal=True), dict(causal=False, window=100), dict(causal=True, q_offset=33)):
+        before, routes = flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes)
+        out = flash_ops._flash_cu(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_ops.flash_attention.launches == before
+        assert flash_ops.flash_attention.routes == routes
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
+        assert _row_err(out, ref) <= ROW_TOL[dtype], kw
+    kb, vb = k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1)
+    out, took = _flash_counted(q, kb, vb, causal=True)
+    assert took == ("ffma" if dtype == torch.float32 else "cp_async_mma")
+    ref = flash_attention_bshd_ref(q.float(), kb.float(), vb.float(), causal=True)
+    assert _row_err(out, ref) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float32, 128), (torch.float32, 32)],
+                         ids=["tma_wgmma", "tma_wgmma_tf32x3", "ffma"])
+def test_flash_row_without_keys_raises_before_any_launch_on_cuda(cuda, dtype, hd):
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 2, hd, dtype)
+    before, splits = flash_ops.flash_attention.launches, flash_ops.split_kv_tf32.launches
+    with pytest.raises(NotImplementedError, match="no key"):
+        flash_ops.flash_attention(q, k, v, causal=True, q_offset=-1)
+    with pytest.raises(NotImplementedError, match="no key"):
+        flash_ops.flash_attention(q, k, v, causal=False, window=8, q_offset=72)
+    assert (flash_ops.flash_attention.launches, flash_ops.split_kv_tf32.launches) == (before, splits)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -544,12 +754,16 @@ def test_chunked_attention_on_cuda_is_the_kernel(cuda):
     assert flash_ops.flash_attention.launches == before + 1
     ref = attention.chunked_attention_plain(q, k, v, causal=True, window=16)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        attention.chunked_attention(q, k, v, q_offset=8)
+    # a prefill continuation: 48 queries after 16 positions of cache
+    qc = q[:, 16:]
+    out = attention.chunked_attention(qc, k, v, causal=True, window=16, q_offset=16)
+    assert flash_ops.flash_attention.launches == before + 2
+    ref = attention.chunked_attention_plain(qc, k, v, causal=True, window=16, q_offset=16)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
     q8, k8, v8 = _flash_inputs(cuda, 1, 16, 16, 2, 2, 8, torch.float32)
     with pytest.raises(NotImplementedError, match="hd=8"):
         attention.chunked_attention(q8, k8, v8)
-    assert flash_ops.flash_attention.launches == before + 1
+    assert flash_ops.flash_attention.launches == before + 2
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "gemma3_27b"])

@@ -212,7 +212,7 @@ def _strides(shape):
         (torch.bfloat16, 128, [_strides((1, 64, 2, 128))] * 3, (0, 2, 0), "cp_async_mma"),  # k offset
         (torch.bfloat16, 128, [_strides((1, 64, 2, 128)), (0, 256, 128), (0, 256, 128)],
          (0, 0, 0), "cp_async_mma"),                                           # broadcast batch
-        (torch.float32, 128, [_strides((4, 2048, 32, 128))] * 3, (0, 0, 0), "ffma"),
+        (torch.float32, 128, [_strides((4, 2048, 32, 128))] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),
         (torch.float32, 32, [_strides((1, 193, 4, 32))] * 3, (4, 0, 0), "ffma"),
     ],
     ids=["yi6b", "hd64", "cache_slices", "hd32", "hd16", "odd_strides", "k_offset",
@@ -233,7 +233,8 @@ def test_route_of_views_follows_strides_and_base_addresses():
     aligned = flat[8:8 + 64 * 2 * 128].view(1, 64, 2, 128)  # 16 bytes in
     assert ops._route_of(aligned, aligned, aligned) == "tma_wgmma"
     assert ops._route_of(aligned, shifted, aligned) == "cp_async_mma"
-    assert ops._route_of(q.float(), k.float(), k.float()) == "ffma"
+    assert ops._route_of(q.float(), k.float(), k.float()) == "tma_wgmma_tf32x3"
+    assert ops._route_of(*(t[..., :32].float() for t in (q, k, k))) == "ffma"
 
 
 @pytest.mark.parametrize("hd,depth", [(64, 4), (128, 3)])
@@ -297,7 +298,8 @@ def test_tma_route_refuses_a_schedule_without_both_waits(monkeypatch, waits):
     q = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="full and the empty"):
         ops.flash_attention(q, q, q)  # the plan is read on the CPU too
-    ops.flash_attention(q.float(), q.float(), q.float())  # ffma: not this plan
+    small = torch.zeros(1, 16, 2, 32)
+    ops.flash_attention(small, small, small)  # ffma: not this plan
 
 
 def test_tma_route_takes_its_waits_from_the_kloop_plan(monkeypatch):
@@ -339,7 +341,9 @@ def test_tma_route_refuses_a_ring_that_does_not_fit():
 
 
 def test_routes_are_counted_beside_launches():
-    assert set(ops.flash_attention.routes) == {"tma_wgmma", "cp_async_mma", "ffma"}
+    assert set(ops.flash_attention.routes) == {
+        "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
+    }
     (_, tq), (_, tk), (_, tv) = _inputs(8, (1, 16, 2, 64), (1, 16, 2, 64), "bfloat16")
     before = dict(ops.flash_attention.routes)
     ops.flash_attention(tq, tk, tv)

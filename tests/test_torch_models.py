@@ -19,6 +19,7 @@ from repro.models import layers as jlayers
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import tensor_from_numpy
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 
@@ -180,10 +181,25 @@ def test_attention_reference(window):
     _close(out, ref)
 
 
-def test_chunked_attention_off_the_cpu_raises_for_q_offset():
-    q = torch.empty(1, 8, 2, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="q_offset=3"):
-        tattn.chunked_attention(q, q, q, q_offset=3)
+@pytest.mark.parametrize(
+    "causal,window,q_offset",
+    [(True, None, 16), (True, 24, 16), (True, 30, 40), (False, 24, 8), (False, None, 16)],
+    ids=["causal", "causal_window", "causal_window_far", "window", "full"],
+)
+@pytest.mark.parametrize("hd", [64, 32])
+def test_flash_attention_takes_q_offset_as_the_reference(causal, window, q_offset, hd):
+    """The flash wrapper's ``q_offset`` (query i at position q_offset + i,
+    on every CUDA route and in its plain version) against the reference's
+    chunked_attention and quadratic oracle with the same offset; every row
+    keeps at least one key."""
+
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(14, 2, 40, 56, 4, 2, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash_ops.flash_attention(tq, tk, tv, **kw)
+    assert out.shape == tq.shape
+    _close(out, jattn.chunked_attention(jq, jk, jv, chunk=16, **kw))
+    _close(out, jattn.attention_reference(jq, jk, jv, **kw))
+    _close(tattn.chunked_attention(tq, tk, tv, chunk=16, **kw), out)
 
 
 @pytest.mark.parametrize(
