@@ -11,13 +11,28 @@ non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build every CUDA source of the port with ``nvcc`` for ``sm_90a``;
 3. the synchronization compiler's main path, ``plan → compile("torch",
-   device="cuda") → run``, on the program corpus under every elimination
+   device="cuda") → run``, its level loop run eagerly on a case's first
+   run and replayed as one captured CUDA graph per prepared case from its
+   second (captured then), on the program corpus under every elimination
    method (``deps="inspect"``/``"speculate"`` for the non-affine ones) and
    at the benchmark sizes — Alg. 6 at 1025, the 64×16 chunked recurrence,
    the 96×192 skew that runs the width ladder — every store bit-equal to
-   ``run_sequential``, with levels and warm ms per run; then each
-   division-family operator and ``**`` with a Python-number operand, every
-   cell checked bit-equal;
+   ``run_sequential``; at the benchmark sizes the first runs of fresh
+   artifacts with and without the capture policy in turns, the second run
+   and the capture's one-time cost in it, and the captured replay and the eager sweep in
+   turns (warm ms, device busy and idle share of each); then each
+   division-family operator and
+   ``**`` with a Python-number operand, every cell checked bit-equal
+   (``**`` stays eager by rule, counted as eager sweeps);
+3b. the plan service (``PlanService``, four workers) over one mix — the
+   reference soak's three structures and the three benchmark sizes: a cold
+   epoch of two rounds (each case eager, then captured), then a warm epoch
+   of at least ``SERVICE_WARM_S`` seconds and ``SERVICE_MIN_ROUNDS``
+   rounds (no capture; requests/s, latency p50 / p99 per tenant and over
+   all requests, with their sample counts); then four epochs of one-off
+   bounds (no bounds seen twice), with and without the capture policy in
+   turns (no capture either way); every store bit-equal, and a planted
+   fault (a replay that skips loading its store) read as diverged;
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
    the Hopper K-loop plan (a producer warpgroup issues and loads, consumer
@@ -173,6 +188,10 @@ MATMUL_DEPTHS = (1, 2, 4)  # 4: the bf16 TMA route's default, ops.HOPPER_STAGES
 TF32X3_DEPTHS = (1, 2, 3)  # 3: the 3xTF32 route's default and deepest
 SEED = 0
 WARM_RUNS = 11
+SERVICE_WARM_S = 10.0  # the warm epoch's least length in seconds ...
+SERVICE_MIN_ROUNDS = 300  # ... and least number of rounds of the mix
+SERVICE_IN_FLIGHT = 32  # requests outstanding at once (8 per worker)
+SERVICE_ONE_OFF = 20  # one-off bounds per soak structure an epoch
 
 
 class SmokeFailure(RuntimeError):
@@ -280,68 +299,151 @@ def _profiled_run(torch, fn):
     return (busy_us / 1e3 if busy_us > 0 else None), wall_ms, len(device)
 
 
+def graph_counts():
+    """(captures, replays, eager sweeps) of the level loop on the card."""
+
+    from repro_torch.obs import metrics
+
+    return tuple(
+        metrics.counter(f"torch.{name}").value
+        for name in ("graph_captures", "graph_replays", "eager_sweeps")
+    )
+
+
+def count_delta(before):
+    return dict(zip(("captures", "replays", "eager_sweeps"),
+                    (b - a for a, b in zip(before, graph_counts()))))
+
+
+def _timed_run(torch, exe, init):
+    """Host ms and CUDA-event ms of one ``Executable.run`` (the events bound
+    the enqueue and the sweep; the host clock also holds the read-back)."""
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = exe.run(store=init)
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
 def level_loop_phase(torch):
+    from repro_torch.compile import clear_compile_cache
     from repro_torch.core import get_backend, plan, run_sequential
+    from repro_torch.obs import trace
 
     small, sized = corpus()
     runs = 0
+    before = graph_counts()
     for name, prog, modes in small:
         init = prog.initial_store()
         expect = run_sequential(prog, init)
         for deps in modes:
             for method in ("none", "isd", "pattern", "both"):
                 p = plan(prog, method=method, deps=deps)
-                out = p.compile("torch", device="cuda").run(store=init)
-                naive = get_backend("torch").differential(
-                    p.naive_sync, store=init, device="cuda"
-                )
+                exe = p.compile("torch", device="cuda")
                 label = f"{name}/{method}/deps={deps}"
-                check(out == expect, f"level loop: {label} optimized diverged")
-                check(naive == expect, f"level loop: {label} naive diverged")
-                runs += 2
-    emit(f"level loop corpus: {runs} runs on cuda, all bit-equal to run_sequential")
+                # twice each: a case's first run is eager, its second is
+                # captured and replayed
+                for _ in range(2):
+                    out = exe.run(store=init)
+                    naive = get_backend("torch").differential(
+                        p.naive_sync, store=init, device="cuda"
+                    )
+                    check(out == expect, f"level loop: {label} optimized diverged")
+                    check(naive == expect, f"level loop: {label} naive diverged")
+                    runs += 2
+    counts = count_delta(before)
+    check(counts["captures"] > 0, "level loop corpus: nothing was captured")
+    check(
+        counts["replays"] + counts["eager_sweeps"] >= runs,
+        f"level loop corpus: {counts} for {runs} runs",
+    )
+    emit(
+        f"level loop corpus: {runs} runs on cuda, each case eager then "
+        f"captured ({json.dumps(counts)}), all bit-equal to run_sequential"
+    )
 
     for name, prog, knobs in sized:
         init = prog.initial_store()
         expect = run_sequential(prog, init)
-        exe = plan(prog, method="isd").compile("torch", device="cuda", **knobs)
-        t0 = time.perf_counter()
-        out = exe.run(store=init)
-        cold_ms = (time.perf_counter() - t0) * 1e3
-        check(out == expect, f"level loop: {name} diverged from run_sequential")
+        # first runs of fresh artifacts (tables and one eager sweep), under
+        # the capture policy (A) and held eager by ``_capture = False`` (B),
+        # in turns A B B A; then the last A's second run, which captures
+        # and replays once
+        before = graph_counts()
+        cold = {"cold_ms": [], "cold_eager_ms": []}
+        for policy in (True, False, False, True):
+            clear_compile_cache()
+            exe = plan(prog, method="isd").compile("torch", device="cuda", **knobs)
+            exe.compiled._capture = policy
+            out, ms, _ = _timed_run(torch, exe, init)
+            del exe.compiled._capture
+            check(out == expect, f"level loop: {name} first run diverged")
+            cold["cold_ms" if policy else "cold_eager_ms"].append(ms)
+        check(count_delta(before) == {"captures": 0, "replays": 0, "eager_sweeps": 4},
+              f"level loop: {name}'s first runs were not eager sweeps")
+        trace.clear()
+        trace.enable()
+        try:
+            out, cold["second_ms"], _ = _timed_run(torch, exe, init)
+        finally:
+            trace.disable()
+        check(out == expect, f"level loop: {name} second run diverged")
+        capture_ms = [
+            e["dur"] / 1e3 for e in trace.events() if e["name"] == "torch.capture"
+        ]
+        check(count_delta(before)["captures"] == 1 and len(capture_ms) == 1,
+              f"level loop: {name} was not captured once, on its second run")
         case = next(reversed(exe.compiled._cases.values()))  # this run's
-        host, device = [], []
+        # the captured replay and the eager sweep (``_capture = False``) of
+        # the same case, in turns
+        timings = {"captured": ([], []), "eager": ([], [])}
         for _ in range(WARM_RUNS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            out = exe.run(store=init)
-            end.record()
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3)
-            device.append(start.elapsed_time(end))
-        check(out == expect, f"level loop: {name} warm run diverged")
-        busy_ms, wall_ms, _ = _profiled_run(torch, lambda: exe.run(store=init))
+            for sweep in ("captured", "eager"):
+                exe.compiled._capture = sweep == "captured"
+                out, host_ms, event_ms = _timed_run(torch, exe, init)
+                check(out == expect, f"level loop: {name} {sweep} warm run diverged")
+                timings[sweep][0].append(host_ms)
+                timings[sweep][1].append(event_ms)
         row = {
             "name": name,
             "levels": case.n_levels,
             "group_steps": len(case._steps),
             "segments": [s[0] for s in case.static.segments or ()],
-            "cold_ms": cold_ms,
+            **cold,
+            "capture_ms": capture_ms[0],
             "warm_runs": WARM_RUNS,
-            "warm_ms_median_events": statistics.median(device),
-            "warm_ms_median_host": statistics.median(host),
-            "warm_ms_min_host": min(host),
-            "warm_ms_max_host": max(host),
-            "profiled_wall_ms": wall_ms,
-            "profiled_device_busy_ms": busy_ms,
-            "device_idle_share": (
-                1.0 - busy_ms / wall_ms if busy_ms is not None else None
-            ),
-            "bit_equal": True,
         }
+        for sweep, (host, device) in timings.items():
+            exe.compiled._capture = sweep == "captured"
+            busy_ms, wall_ms, events = _profiled_run(
+                torch, lambda: exe.run(store=init)
+            )
+            row[sweep] = {
+                "warm_ms_median_host": statistics.median(host),
+                "warm_ms_min_host": min(host),
+                "warm_ms_max_host": max(host),
+                "warm_ms_median_events": statistics.median(device),
+                "profiled_wall_ms": wall_ms,
+                "profiled_device_busy_ms": busy_ms,
+                "profiled_device_events": events,
+                "device_idle_share": (
+                    1.0 - busy_ms / wall_ms if busy_ms is not None else None
+                ),
+            }
+        del exe.compiled._capture
+        counts = count_delta(before)
+        check(
+            counts == {"captures": 1, "replays": 2 + WARM_RUNS,
+                       "eager_sweeps": 5 + WARM_RUNS},
+            f"level loop: {name} sweeps {counts}",
+        )
+        row["sweeps"] = counts
+        row["bit_equal"] = True
         emit("level loop: " + json.dumps(row))
 
 
@@ -349,7 +451,9 @@ def operator_phase():
     """Each division-family operator and ``**`` with a Python-number
     operand, on 4096 lanes of one statement, bit-equal to
     ``run_sequential`` on the card (``**`` through the port's host ``pow``,
-    counted by ``torch.host_pow_lanes``)."""
+    counted by ``torch.host_pow_lanes``).  A ``**`` statement keeps its
+    case eager by rule (an eager sweep each run, no capture); every other
+    operator's case runs eagerly once, then is captured and replayed."""
 
     from repro_torch.core import ArrayRef, LoopProgram, Statement, plan, run_sequential
     from repro_torch.obs import metrics
@@ -363,7 +467,7 @@ def operator_phase():
         "x**0.5": (lambda x: abs(x) ** 0.5, True),
         "1.3**x": (lambda x: 1.3 ** x, True),
     }
-    report, warm_ms = {}, {}
+    report, warm_ms, sweeps = {}, {}, {}
     for name, (fn, exact) in ops.items():
         prog = LoopProgram(
             statements=(
@@ -378,6 +482,7 @@ def operator_phase():
         }
         expect = run_sequential(prog, init)["a"]
         exe = plan(prog).compile("torch", device="cuda")
+        before = graph_counts()
         lanes = metrics.counter("torch.host_pow_lanes").value
         out = exe.run(store=init)["a"]
         differ = sum(1 for cell, v in expect.items() if out[cell] != v)
@@ -392,6 +497,13 @@ def operator_phase():
             exe.run(store=init)
             host.append((time.perf_counter() - t0) * 1e3)
         warm_ms[name] = statistics.median(host)
+        sweeps[name] = count_delta(before)
+        want = (
+            {"captures": 0, "replays": 0, "eager_sweeps": 1 + WARM_RUNS}
+            if "**" in name
+            else {"captures": 1, "replays": WARM_RUNS, "eager_sweeps": 1}
+        )
+        check(sweeps[name] == want, f"operator {name}: sweeps {sweeps[name]}, expected {want}")
     emit(
         "operators on cuda, cells differing from run_sequential of "
         f"{len(expect)} (every op checked): {json.dumps(report)}"
@@ -399,6 +511,202 @@ def operator_phase():
     emit(
         "operators on cuda, warm run ms (median of 11, host clock; each ** "
         f"runs Python's pow on 4096 lanes on the host): {json.dumps(warm_ms)}"
+    )
+    emit(f"operators on cuda, sweeps (** stays eager by rule): {json.dumps(sweeps)}")
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3b: the plan service
+# ---------------------------------------------------------------------- #
+
+def _doall(n):
+    """The reference soak's dependence-free chain (tests/test_serve.py)."""
+
+    from repro_torch.core import ArrayRef, LoopProgram, Statement
+
+    return LoopProgram(
+        statements=(
+            Statement("A", ArrayRef("a", 0), (ArrayRef("b", 0),)),
+            Statement("B", ArrayRef("c", 0), (ArrayRef("a", 0),)),
+        ),
+        bounds=((0, n),),
+    )
+
+
+def service_mix():
+    """(tenant, program, PlanOptions) of one service round: the reference
+    soak's three structures at its bounds (tests/test_serve.py: decode
+    12 / 13, scan 3 x 4 / 5, the doall chain 16 / 17) and the three
+    benchmark-size programs of phase 3 under their knobs."""
+
+    from repro_torch.core import PlanOptions
+    from repro_torch.serve import decode_program, scan_program
+
+    mix = [
+        ("decode", decode_program(12), None),
+        ("decode", decode_program(13), None),
+        ("scan", scan_program(3, 4), None),
+        ("scan", scan_program(3, 5), None),
+        ("doall", _doall(16), None),
+        ("doall", _doall(17), None),
+    ]
+    _, sized = corpus()
+    for name, prog, knobs in sized:
+        mix.append((name, prog, PlanOptions(method="isd", **knobs)))
+    return mix
+
+
+def one_off_mix(turn):
+    """The soak's three structures at ``SERVICE_ONE_OFF`` bounds each that
+    no other turn (nor the mix) uses: traffic whose bounds never repeat."""
+
+    from repro_torch.serve import decode_program, scan_program
+
+    mix = []
+    for k in range(SERVICE_ONE_OFF):
+        n = 24 + 4 * k + turn
+        mix += [("decode", decode_program(n), None),
+                ("scan", scan_program(3, n), None),
+                ("doall", _doall(n), None)]
+    return mix
+
+
+def _percentile(values, q):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, max(0, math.ceil(q * len(ordered)) - 1))]
+
+
+def _service_epoch(svc, mix, expect, label, *, rounds, least_s=0.0):
+    """Submit the mix round after round, at most ``SERVICE_IN_FLIGHT``
+    requests outstanding, until ``rounds`` rounds and ``least_s`` seconds
+    have passed; every store is held against ``expect``.  Returns the
+    epoch's row: requests/s over its window, and the latency p50 / p99 of
+    each tenant and of all requests (``serve.latency_ms``: from dequeue to
+    result), each with its sample count."""
+
+    import collections
+
+    pending = collections.deque()
+    latency = collections.defaultdict(list)
+
+    def settle():
+        i, fut = pending.popleft()
+        res = fut.result(timeout=600)
+        check(res.store == expect[i],
+              f"service {label}: {mix[i][0]} diverged from run_sequential")
+        latency[res.tenant].append(res.latency_ms)
+
+    before = graph_counts()
+    t0 = time.perf_counter()
+    done = 0
+    while done < rounds or time.perf_counter() - t0 < least_s:
+        for i, (tenant, prog, options) in enumerate(mix):
+            if len(pending) >= SERVICE_IN_FLIGHT:
+                settle()
+            pending.append((i, svc.submit(prog, options, tenant=tenant, run=True)))
+        done += 1
+    while pending:
+        settle()
+    svc.drain(timeout=600)
+    wall_s = time.perf_counter() - t0
+    every = [ms for v in latency.values() for ms in v]
+
+    def spread(v):
+        return {"n": len(v), "p50": _percentile(v, 0.5), "p99": _percentile(v, 0.99)}
+
+    return {
+        "epoch": label,
+        "rounds": done,
+        "requests": len(every),
+        "requests_per_s": len(every) / wall_s,
+        "wall_s": wall_s,
+        "latency_ms": {"all": spread(every),
+                       **{t: spread(v) for t, v in sorted(latency.items())}},
+        "sweeps": count_delta(before),
+        "bit_equal": True,
+    }
+
+
+def service_phase(torch):
+    """``PlanService`` on the card with four workers.  A cold epoch of two
+    rounds (each case's first run eager, its second captured); a warm epoch
+    of at least ``SERVICE_WARM_S`` seconds and ``SERVICE_MIN_ROUNDS``
+    rounds, which captures nothing; four epochs of one-off bounds, the
+    capture policy and the eager sweep in turns, which capture nothing.
+    Every store bit-equal to ``run_sequential``.  A planted fault (one
+    replay that skips loading its store) must read as diverged."""
+
+    from repro_torch import obs
+    from repro_torch.compile.lowering import CompiledProgram
+    from repro_torch.core import run_sequential
+    from repro_torch.serve import PlanService, ServiceOptions
+
+    mix = service_mix()
+    expect = [run_sequential(prog, prog.initial_store()) for _, prog, _ in mix]
+    obs.reset_all()  # a cold service: the first epoch plans and captures
+    with PlanService(ServiceOptions(backend="torch", device="cuda", workers=4)) as svc:
+        torch.cuda.synchronize()
+        cold = _service_epoch(svc, mix, expect, "cold", rounds=2)
+        emit("service: " + json.dumps(cold))
+        check(cold["sweeps"] == {"captures": len(mix), "replays": len(mix),
+                                 "eager_sweeps": len(mix)},
+              f"service: cold epoch sweeps {cold['sweeps']}")
+        warm = _service_epoch(svc, mix, expect, "warm",
+                              rounds=SERVICE_MIN_ROUNDS, least_s=SERVICE_WARM_S)
+        emit("service: " + json.dumps(warm))
+        check(warm["sweeps"] == {"captures": 0, "replays": warm["requests"],
+                                 "eager_sweeps": 0},
+              f"service: warm epoch sweeps {warm['sweeps']}")
+
+        # one-off bounds: no case runs twice, so nothing is captured; the
+        # capture policy (A) and an eager sweep held by the class switch
+        # (B) in turns A B B A, each on bounds of its own
+        rates = {"policy": [], "eager": []}
+        for turn, policy in enumerate(("policy", "eager", "eager", "policy")):
+            once = one_off_mix(turn)
+            want = [run_sequential(p, p.initial_store()) for _, p, _ in once]
+            CompiledProgram._capture = policy == "policy"
+            try:
+                row = _service_epoch(svc, once, want, f"one-off {policy}", rounds=1)
+            finally:
+                CompiledProgram._capture = True
+            check(row["sweeps"] == {"captures": 0, "replays": 0,
+                                    "eager_sweeps": len(once)},
+                  f"service: one-off bounds swept {row['sweeps']}")
+            rates[policy].append(row["requests_per_s"])
+            emit("service: " + json.dumps(row))
+        emit("service one-off bounds, requests/s in turns A B B A: "
+             + json.dumps(rates))
+
+        # planted fault: replay one captured case without loading this run's
+        # store — it must come out diverged from this store's oracle
+        tenant, prog, options = mix[0]
+        other = {
+            a: {c: v * 1.5 - 0.25 for c, v in cells.items()}
+            for a, cells in prog.initial_store().items()
+        }
+        want = run_sequential(prog, other)
+        # twice, so the case is captured even if the one-off bounds evicted
+        # it from its artifact's case LRU
+        for _ in range(2):
+            res = svc.submit(prog, options, tenant=tenant, run=True).result()
+            check(res.store == expect[0], "service: decode diverged before the fault")
+        compiled = res.executable.compiled
+        compiled._refill = False
+        try:
+            stale = svc.submit(prog, options, tenant=tenant, store=other).result().store
+        finally:
+            del compiled._refill
+        check(stale != want, "service: a replay without its store read as bit-equal")
+        fresh = svc.submit(prog, options, tenant=tenant, store=other).result().store
+        check(fresh == want, "service: the replay after the planted fault diverged")
+        stats = svc.stats()
+    emit(
+        "service planted fault (replay without loading the store): diverged, "
+        "caught; " + json.dumps(
+            {k: stats[k] for k in ("captures", "replays", "eager_sweeps",
+                                   "bucket_hits", "bucket_misses", "completed")}
+        )
     )
 
 
@@ -1670,6 +1978,7 @@ def main() -> int:
 
     level_loop_phase(torch)  # phase 3
     operator_phase()
+    service_phase(torch)  # phase 3b
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6

@@ -1,5 +1,5 @@
 """PyTorch lowering of a wavefront schedule: the ``"torch"`` backend's level
-loop, run eagerly on one device.
+loop on one device, captured as one CUDA graph per prepared case.
 
 The reference package compiles the level loop into one jitted XLA
 computation.  This module keeps that lowering's *host half* unchanged —
@@ -20,10 +20,20 @@ half* is new:
     row, lane cap) steps: wave segments walk their per-statement cursors,
     recurrence bands run their chunk loop with the width-ladder lane caps.
     Only active groups launch; there is no per-level ``cond``;
-  * each step is an eager gather / compute / scatter, so every IEEE op
-    rounds on its own, as the sequential oracle does.  The out-of-box and
-    uninitialized-read flags stay on the device and are read once, after
-    the sweep, raising the reference's ``KeyError`` messages.
+  * each step is a gather / compute / scatter of single PyTorch ops, so
+    every IEEE op rounds on its own, as the sequential oracle does.  The
+    out-of-box and uninitialized-read flags stay on the device and are read
+    once, after the sweep, raising the reference's ``KeyError`` messages;
+  * on CUDA a prepared case's first run is an eager sweep; its second
+    records the whole launch list once as a ``torch.cuda.CUDAGraph`` over
+    static store / coverage buffers, and every run from then on replays it
+    by one host call — the port's counterpart of the reference's jit trace
+    (:meth:`CompiledProgram.execute`).  Bounds that run once so pay nothing
+    for the capture, which on an H100 took from a few ms (69 group steps)
+    to about a second (Alg. 6 at 1025, 2049 group steps), up to several
+    eager sweeps of the same case (PERF.md).  The graph is per case, not per
+    bucket: the launch list depends on each bounds' level count and segment
+    scalars.  On the CPU the sweep stays eager.
 
 The device is a per-call choice, never part of the structural key: one
 artifact serves every device, and the device joins the per-bounds case key
@@ -37,6 +47,7 @@ import contextvars
 import dataclasses
 import functools
 import hashlib
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,6 +162,13 @@ def current_device():
 _LIVE: "contextvars.ContextVar[Optional[object]]" = contextvars.ContextVar(
     "repro_torch_live_lanes", default=None
 )
+# The warm-up sweep's mark (a one-element list, None outside a warm-up):
+# _lane_pow sets it when a statement reaches host_pow.  Per sweep and per
+# thread, unlike the process-wide torch.host_pow_lanes counter, which other
+# worker threads move too.
+_POW_MARK: "contextvars.ContextVar[Optional[List[bool]]]" = (
+    contextvars.ContextVar("repro_torch_pow_mark", default=None)
+)
 
 
 class _LaneFailure(Exception):
@@ -185,11 +203,28 @@ def _unwrap(v):
     return v.x if isinstance(v, _StrictLane) else v
 
 
-@functools.lru_cache(maxsize=1024)
-def _device_scalar(value: float, device):
-    import torch
+# Python-number divisors as device tensors, one per (bits, device), made
+# once and never dropped: a captured graph reads them by address, so evicting
+# one would leave the graph reading freed memory, and re-creating one under a
+# later capture would be an illegal host-to-device copy.  The set is bounded
+# by the divisors in the programs' compute fns.  The first tensor stored wins
+# under the lock and is the one every caller gets, so two threads that miss
+# together cannot leave a graph holding the loser's address.  The key is the
+# value's bits (``float.hex``), so -0.0 is not 0.0 and NaN finds itself.
+_SCALARS: Dict[Tuple[str, object], object] = {}
+_SCALARS_LOCK = threading.Lock()
 
-    return torch.tensor(value, dtype=torch.float64, device=device)
+
+def _device_scalar(value: float, device):
+    key = (float(value).hex(), device)
+    t = _SCALARS.get(key)
+    if t is None:
+        import torch
+
+        built = torch.tensor(value, dtype=torch.float64, device=device)
+        with _SCALARS_LOCK:
+            t = _SCALARS.setdefault(key, built)
+    return t
 
 
 def _arith(v):
@@ -310,6 +345,9 @@ def host_pow(base, exp, live=None):
 
 
 def _lane_pow(base, exp):
+    mark = _POW_MARK.get()
+    if mark is not None:
+        mark[0] = True
     a, b = _arith(_unwrap(base)), _arith(_unwrap(exp))
     try:
         return _StrictLane(host_pow(a, b, _LIVE.get()))
@@ -407,6 +445,54 @@ class PreparedCase:
     bucket: Tuple = ()                          # trace-identity key (host view)
     _device_tables: Optional[Tuple] = None      # device copies, moved once
     _steps: Optional[Tuple] = None              # host-expanded launch list
+    # CUDA: None before the first run, _WARMED after it (the second run
+    # captures), then the captured sweep, or the reason the case stays eager
+    _sweep: Optional[object] = None
+    # serializes the fill / replay / read-back of the static buffers, which
+    # every run of this case shares
+    _sweep_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
+
+
+@dataclasses.dataclass
+class _CapturedSweep:
+    """A case's level sweep recorded as one CUDA graph: the static store
+    and coverage buffers it reads and writes, and its two device flags."""
+
+    graph: object                   # torch.cuda.CUDAGraph
+    store: Dict[str, object]
+    coverage: Dict[str, object]
+    bad: object                     # (out-of-box, hole) bool device tensor
+
+
+# a case whose first (eager) run found nothing that a capture forbids
+_WARMED = "warmed"
+
+# one capture at a time in the process, on one stream per device that
+# nothing else enqueues on (see _capture_stream)
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: Dict[object, object] = {}
+
+
+def _capture_stream(device):
+    """The device's capture stream (caller holds ``_CAPTURE_LOCK``).
+
+    ``torch.cuda.Stream()`` hands out the pool's streams round robin, and
+    torch.cuda.graph's default capture stream is one of them: another
+    worker's warm-up side stream could be the capturing stream itself, and
+    its work and waits there invalidate the capture.  The capture stream is
+    therefore taken once from the high-priority pool, which the warm-ups
+    (default priority) never draw from."""
+
+    import torch
+
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(
+            device, priority=-1
+        )
+    return stream
 
 
 _OOB_MSG = (
@@ -547,11 +633,15 @@ class CompiledProgram:
                 )
             token = _LIVE.set(live)
             try:
-                out = torch.as_tensor(
-                    _unwrap(stmt.compute(*(_StrictLane(r) for r in reads))),
-                    dtype=torch.float64,
-                    device=device,
-                )
+                out = _unwrap(stmt.compute(*(_StrictLane(r) for r in reads)))
+                if isinstance(out, (int, float)):
+                    # a constant: a fill kernel, where as_tensor would copy
+                    # from the host (illegal inside a graph capture)
+                    return torch.full(
+                        (width,), float(out), dtype=torch.float64,
+                        device=device,
+                    )
+                out = torch.as_tensor(out, dtype=torch.float64, device=device)
                 if out.shape == (width,):
                     return out
                 if out.ndim == 0:
@@ -1207,65 +1297,69 @@ class CompiledProgram:
         if ss.guard is None:
             tgt = row(t["wtgt"])
         else:
+            # masked_fill takes the trash index as a kernel argument, where
+            # torch.where would copy a Python scalar to the device
             trash = store[ss.write].shape[0] - 1
-            tgt = torch.where(mask, row(t["widx"]), trash)
+            tgt = row(t["widx"]).masked_fill(~mask, trash)
         store[ss.write][tgt] = vals
         if ss.cov_write:
             coverage[ss.write][tgt] = True
 
-    def execute(self, case: PreparedCase, dense: _DenseStore) -> WavefrontStats:
-        """Run the artifact on ``dense`` (mutated in place with the result)
-        on the device of the enclosing :func:`device_scope`."""
+    def _sweep_steps(self, case: PreparedCase, store, coverage, device):
+        """Enqueue the case's whole launch list on ``store`` / ``coverage``
+        (flat device tensors, updated in place) and return its flags as one
+        (out-of-box, hole) bool device tensor; nothing here waits for the
+        device, so a graph capture records it as it stands."""
 
         import torch
 
-        device = current_device()
-        with self._lock:
-            new_bucket = case.bucket not in self._buckets
-            if new_bucket:
-                self._buckets.add(case.bucket)
-        _metrics.counter(
-            "torch.bucket_misses" if new_bucket else "torch.bucket_hits"
-        ).inc()
-
-        with _trace.span("torch.to_device"):
-            if case._device_tables is None:
-                # conversion is idempotent, so a concurrent duplicate would
-                # cost only a wasted copy; the lock keeps assignment clean
-                steps = self._level_steps(case)
-                tables = self._to_device(case, device)
-                with self._lock:
-                    if case._device_tables is None:
-                        case._steps = steps
-                        case._device_tables = tables
-            store = {}
-            for a in case.arrays:
-                flat = np.zeros(case.padded_sizes[a], dtype=np.float64)
-                flat[: case.flat_sizes[a]] = dense.data[a].ravel()
-                store[a] = torch.from_numpy(flat).to(device)
-            coverage = {}
-            for a in case.sparse:
-                cov = np.zeros(case.padded_sizes[a], dtype=bool)
-                cov[: case.flat_sizes[a]] = dense.mask[a].ravel()
-                coverage[a] = torch.from_numpy(cov).to(device)
-        with _trace.span("torch.execute", levels=case.n_levels):
-            flags: Tuple[List, List] = ([], [])
-            tables = case._device_tables
-            stmts = case.static.stmts
-            for k, c, cap in case._steps:
-                self._group_step(
-                    k, stmts[k], tables[k], c, cap, store, coverage, flags,
-                    device,
+        flags: Tuple[List, List] = ([], [])
+        tables = case._device_tables
+        stmts = case.static.stmts
+        for k, c, cap in case._steps:
+            self._group_step(
+                k, stmts[k], tables[k], c, cap, store, coverage, flags, device,
+            )
+        return torch.stack(
+            [
+                torch.stack(f).any() if f else torch.zeros(
+                    (), dtype=torch.bool, device=device
                 )
-            # the one host read of the flags, after the whole sweep
-            bad = torch.stack(
-                [
-                    torch.stack(f).any() if f else torch.zeros(
-                        (), dtype=torch.bool, device=device
-                    )
-                    for f in flags
-                ]
-            ).cpu()
+                for f in flags
+            ]
+        )
+
+    @staticmethod
+    def _host_buffers(case: PreparedCase, dense: _DenseStore):
+        """The flat host images of the store and coverage (trash cell and
+        pow2 padding included) that the device buffers are loaded from."""
+
+        store = {}
+        for a in case.arrays:
+            flat = np.zeros(case.padded_sizes[a], dtype=np.float64)
+            flat[: case.flat_sizes[a]] = dense.data[a].ravel()
+            store[a] = flat
+        coverage = {}
+        for a in case.sparse:
+            cov = np.zeros(case.padded_sizes[a], dtype=bool)
+            cov[: case.flat_sizes[a]] = dense.mask[a].ravel()
+            coverage[a] = cov
+        return store, coverage
+
+    def _device_buffers(self, case: PreparedCase, dense: _DenseStore, device):
+        import torch
+
+        store, coverage = self._host_buffers(case, dense)
+        return (
+            {a: torch.from_numpy(x).to(device) for a, x in store.items()},
+            {a: torch.from_numpy(x).to(device) for a, x in coverage.items()},
+        )
+
+    @staticmethod
+    def _read_back(case: PreparedCase, store, coverage, bad):
+        """The store and coverage on the host, after the flags (``bad``,
+        already read to the host) raise the reference's ``KeyError``."""
+
         if bad[0]:
             raise KeyError(_OOB_MSG)
         if bad[1]:
@@ -1283,6 +1377,155 @@ class CompiledProgram:
                 )
                 for a in case.sparse
             }
+        return out_np, cov_np
+
+    # Private switches, set only by chip_smoke.py: ``_capture = False`` runs
+    # the CUDA sweep eagerly (to time it beside the replay); ``_refill =
+    # False`` replays without loading this run's store (a planted fault).
+    _capture = True
+    _refill = True
+
+    def _eager(self, case: PreparedCase, dense: _DenseStore, device):
+        with _trace.span("torch.to_device"):
+            store, coverage = self._device_buffers(case, dense, device)
+        with _trace.span("torch.execute", levels=case.n_levels):
+            # the one host read of the flags, after the whole sweep
+            bad = self._sweep_steps(case, store, coverage, device).cpu()
+        return self._read_back(case, store, coverage, bad)
+
+    def _warm_up(self, case: PreparedCase, dense: _DenseStore, device):
+        """First run of ``case`` on CUDA: an eager sweep whose result is this
+        run's, and which decides whether the case can be captured (on its
+        second run).  Caller holds ``case._sweep_lock``."""
+
+        import torch
+
+        store, coverage = self._device_buffers(case, dense, device)
+        # Hazard: warm before capturing.  _device_scalar creates its tensors
+        # lazily with a host-to-device copy, which is illegal under capture;
+        # this sweep creates every one the launch list needs, on a side
+        # stream as torch.cuda.graph's documentation prescribes.
+        mark = [False]
+        token = _POW_MARK.set(mark)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(side), _trace.span(
+                "torch.execute", levels=case.n_levels, warm_up=True
+            ):
+                bad = self._sweep_steps(case, store, coverage, device)
+        finally:
+            _POW_MARK.reset(token)
+        torch.cuda.current_stream(device).wait_stream(side)
+        if mark[0]:
+            # Hazard: ``**`` cannot be captured — host_pow copies lanes to
+            # the host mid-sweep.  Decided from the warm-up's mark, never by
+            # catching a failed capture.
+            reason = "host_pow: a statement's ** runs Python's pow on the host"
+            with _trace.span("torch.capture", eager=reason):
+                pass
+        else:
+            reason = _WARMED
+        case._sweep = reason
+        _metrics.counter("torch.eager_sweeps").inc()
+        return self._read_back(case, store, coverage, bad.cpu())
+
+    def _record(self, case: PreparedCase, dense: _DenseStore, device):
+        """Second run of ``case`` on CUDA: record its launch list as one
+        graph over static buffers (the caller then replays it).  Caller
+        holds ``case._sweep_lock``."""
+
+        import torch
+
+        store, coverage = self._device_buffers(case, dense, device)
+        # Hazard: capture from worker threads.  thread_local confines the
+        # capture's ban on unsafe CUDA calls to this thread, so other
+        # workers' sweeps and replays go on; _CAPTURE_LOCK keeps captures
+        # one at a time.  Any capture error raises.
+        with _CAPTURE_LOCK, _trace.span(
+            "torch.capture", steps=len(case._steps)
+        ), torch.cuda.device(device):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(
+                graph,
+                stream=_capture_stream(device),
+                capture_error_mode="thread_local",
+            ):
+                bad = self._sweep_steps(case, store, coverage, device)
+        _metrics.counter("torch.graph_captures").inc()
+        case._sweep = _CapturedSweep(graph, store, coverage, bad)
+
+    def _replayed(self, case: PreparedCase, dense: _DenseStore, device):
+        """Run ``case`` on CUDA: eagerly on its first run, through its graph
+        from the second (captured then), eagerly for good when the first
+        run found it cannot be captured."""
+
+        import torch
+
+        # Hazard: the static buffers are shared by every run of the case,
+        # so fill, replay and read-back hold its lock; other cases replay
+        # concurrently.
+        with case._sweep_lock:
+            if case._sweep is None:
+                return self._warm_up(case, dense, device)
+            if case._sweep is _WARMED:
+                self._record(case, dense, device)
+            sweep = case._sweep
+            if isinstance(sweep, _CapturedSweep):
+                with _trace.span("torch.to_device"):
+                    if self._refill:
+                        # Hazard: stale inputs.  The replay reads this run's
+                        # store only because it is loaded here, outside the
+                        # graph, before every replay.
+                        store, coverage = self._host_buffers(case, dense)
+                        for a, x in store.items():
+                            sweep.store[a].copy_(torch.from_numpy(x))
+                        for a, x in coverage.items():
+                            sweep.coverage[a].copy_(torch.from_numpy(x))
+                with _trace.span(
+                    "torch.execute", levels=case.n_levels, replay=True
+                ):
+                    sweep.graph.replay()
+                    bad = sweep.bad.cpu()
+                _metrics.counter("torch.graph_replays").inc()
+                return self._read_back(
+                    case, sweep.store, sweep.coverage, bad
+                )
+        _metrics.counter("torch.eager_sweeps").inc()
+        return self._eager(case, dense, device)
+
+    def execute(self, case: PreparedCase, dense: _DenseStore) -> WavefrontStats:
+        """Run the artifact on ``dense`` (mutated in place with the result)
+        on the device of the enclosing :func:`device_scope`: on CUDA eagerly
+        on a case's first run and by replaying its captured graph from the
+        second, on the CPU eagerly."""
+
+        device = current_device()
+        with self._lock:
+            new_bucket = case.bucket not in self._buckets
+            if new_bucket:
+                self._buckets.add(case.bucket)
+        _metrics.counter(
+            "torch.bucket_misses" if new_bucket else "torch.bucket_hits"
+        ).inc()
+
+        if case._device_tables is None:
+            with _trace.span("torch.to_device", tables=True):
+                # conversion is idempotent, so a concurrent duplicate would
+                # cost only a wasted copy; the lock keeps assignment clean
+                steps = self._level_steps(case)
+                tables = self._to_device(case, device)
+                with self._lock:
+                    if case._device_tables is None:
+                        case._steps = steps
+                        case._device_tables = tables
+        if device.type != "cuda":
+            out_np, cov_np = self._eager(case, dense, device)
+        elif self._capture:
+            out_np, cov_np = self._replayed(case, dense, device)
+        else:
+            _metrics.counter("torch.eager_sweeps").inc()
+            out_np, cov_np = self._eager(case, dense, device)
         dense.data.update(out_np)
         dense.mask.update(cov_np)
         sched = case.schedule

@@ -499,3 +499,37 @@ def test_structural_cache_is_bounded():
             )
             run_torch(_sync(prog), cache=cache, compare=False)
     assert len(cache) <= 4
+
+
+def test_device_scalar_keeps_the_first_tensor_stored_across_threads(
+    monkeypatch,
+):
+    """Eight threads miss on one divisor together (each builds its tensor
+    only once all eight are building): every caller gets the one tensor the
+    cache keeps, as a captured graph reading it by address needs."""
+
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.compile import lowering
+
+    cpu = torch.device("cpu")
+    value = 2.0009765625  # a divisor no other test uses
+    barrier = threading.Barrier(8)
+    build = torch.tensor
+
+    def racing_build(*args, **kwargs):
+        barrier.wait(timeout=30)
+        return build(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", racing_build)
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(lambda _: lowering._device_scalar(value, cpu), range(8)))
+    monkeypatch.undo()
+    assert all(t is got[0] for t in got)
+    assert lowering._device_scalar(value, cpu) is got[0]
+    # the key is the value's bits: -0.0 keeps its sign, NaN finds itself
+    assert not torch.signbit(lowering._device_scalar(0.0, cpu))
+    assert torch.signbit(lowering._device_scalar(-0.0, cpu))
+    nan = lowering._device_scalar(float("nan"), cpu)
+    assert lowering._device_scalar(float("nan"), cpu) is nan

@@ -9,6 +9,9 @@ port's plain PyTorch versions (for the LM path, the same model run on the
 CPU).
 """
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -792,3 +795,337 @@ def test_smoke_size_serving_on_cuda_goes_through_the_kernel(cuda, arch):
         on_cuda.prefill_logits.cpu(), on_cpu.prefill_logits, atol=1e-4, rtol=1e-4
     )
     assert on_cuda.tokens.shape == on_cpu.tokens.shape
+
+
+# ---------------------------------------------------------------------- #
+# The level loop captured as one CUDA graph per prepared case
+# ---------------------------------------------------------------------- #
+
+def _counts():
+    from repro_torch.obs import metrics
+
+    return tuple(
+        metrics.counter(f"torch.{name}").value
+        for name in ("graph_captures", "graph_replays", "eager_sweeps")
+    )
+
+
+def _eager_run(exe, store):
+    """The same artifact with its sweep run eagerly on the card."""
+
+    exe.compiled._capture = False
+    try:
+        return exe.run(store=store)
+    finally:
+        del exe.compiled._capture
+
+
+def _wide_recurrence():
+    return tc.LoopProgram(
+        statements=(
+            tc.Statement(
+                "S1",
+                tc.ArrayRef("a", (0, 0)),
+                (tc.ArrayRef("a", (0, -1)), tc.ArrayRef("a", (-1, 1))),
+            ),
+        ),
+        bounds=((0, 96), (0, 192)),
+    )
+
+
+def _skew_recurrence(ni, nj):
+    return tc.LoopProgram(
+        statements=(
+            tc.Statement("S1", tc.ArrayRef("a", (0, 0)), (tc.ArrayRef("a", (-1, 1)),)),
+        ),
+        bounds=((0, ni), (0, nj)),
+    )
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_captured_sweep_bit_equal_to_eager_and_oracle_over_corpus(cuda, method):
+    for deps in DEPS_MODES:
+        for name, ref_prog in ALL_PROGRAMS:
+            init = store_from_reference(ref_prog.initial_store())
+            expect = ref_core.run_sequential(ref_prog, init)
+            exe = tc.plan(
+                program_from_reference(ref_prog), method=method, deps=deps
+            ).compile("torch", device=cuda)
+            before = _counts()
+            first = exe.run(store=init)
+            again = exe.run(store=init)
+            after = _counts()
+            eager = _eager_run(exe, init)
+            label = f"{name}/{method}/deps={deps}"
+            assert first == again == eager == expect, label
+            # the first run is an eager sweep, the second a replay after its
+            # capture (or, for a case that cannot be captured, eager again)
+            assert after[1] - before[1] + after[2] - before[2] >= 2, label
+
+
+@pytest.mark.parametrize(
+    "name,make,knobs",
+    [
+        ("paper_alg6_1025", lambda: tc.paper_alg6(1025), {}),
+        ("skew_recurrence_64x16_chunk", lambda: _skew_recurrence(64, 16),
+         {"scc_policy": "chunk"}),
+        ("wide_skew_96x192_skew", _wide_recurrence, {"scc_policy": "skew"}),
+    ],
+)
+def test_captured_sweep_at_the_benchmark_sizes(cuda, name, make, knobs):
+    prog = make()
+    init = prog.initial_store()
+    expect = tc.run_sequential(prog, init)
+    exe = tc.plan(prog, method="isd").compile("torch", device=cuda, **knobs)
+    before = _counts()
+    assert exe.run(store=init) == expect
+    # bounds that run once pay no capture: the first run is eager
+    assert _counts() == (before[0], before[1], before[2] + 1)
+    assert exe.run(store=init) == expect  # captured, then replayed
+    assert exe.run(store=init) == expect
+    assert _counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert _eager_run(exe, init) == expect
+
+
+def test_each_initial_store_of_one_case_matches_its_own_oracle(cuda):
+    prog = tc.paper_alg6(64)
+    exe = tc.plan(prog, method="isd").compile("torch", device=cuda)
+    first = prog.initial_store()
+    second = {
+        a: {c: v * 1.5 - 0.25 for c, v in cells.items()}
+        for a, cells in first.items()
+    }
+    before, cases = _counts(), exe.compiled.prepared_cases
+    for store in (first, second, first, second):
+        assert exe.run(store=store) == tc.run_sequential(prog, store)
+    # one case, one graph: an eager first run, then three replays, the
+    # first of them right after the capture
+    assert exe.compiled.prepared_cases == min(cases + 1, exe.compiled.MAX_CASES)
+    assert _counts() == (before[0] + 1, before[1] + 3, before[2] + 1)
+
+
+def test_soak_on_cuda_with_four_workers_captures_nothing_after_warmup(cuda):
+    from repro_torch import obs
+    from repro_torch.serve import (
+        PlanService,
+        ServiceOptions,
+        decode_program,
+        scan_program,
+    )
+
+    def doall(n):
+        return tc.LoopProgram(
+            statements=(
+                tc.Statement("A", tc.ArrayRef("a", 0), (tc.ArrayRef("b", 0),)),
+                tc.Statement("B", tc.ArrayRef("c", 0), (tc.ArrayRef("a", 0),)),
+            ),
+            bounds=((0, n),),
+        )
+
+    mix = [
+        (tenant, make(b))
+        for tenant, make, bounds in (
+            ("decode", decode_program, (12, 13)),
+            ("scan", lambda h: scan_program(3, h), (4, 5)),
+            ("doall", doall, (16, 17)),
+        )
+        for b in bounds
+    ]
+    obs.reset_all()
+    with PlanService(ServiceOptions(workers=4, device="cuda")) as svc:
+        # warm-up: each case's first run is eager, its second captures
+        for _ in range(2):
+            for tenant, prog in mix:
+                svc.submit(prog, tenant=tenant, run=True)
+        warm = svc.drain(timeout=300)
+        assert warm["captures"] == len(mix)
+        assert warm["eager_sweeps"] == len(mix)
+        futures = [
+            (prog, svc.submit(prog, tenant=tenant, run=True))
+            for _ in range(10)
+            for tenant, prog in mix
+        ]
+        for prog, fut in futures:
+            assert fut.result(timeout=300).store == tc.run_sequential(
+                prog, prog.initial_store()
+            )
+        stats = svc.drain(timeout=300)
+    assert stats["captures"] == warm["captures"]
+    assert stats["replays"] - warm["replays"] == len(futures)
+    assert stats["eager_sweeps"] == warm["eager_sweeps"]
+
+
+def test_concurrent_first_runs_capture_cleanly_from_many_workers(cuda):
+    """More cold cases than the stream pool has streams, each run three
+    times by eight workers at once: each capture (a case's second run)
+    runs beside other workers' warm-up sweeps, replays and host copies, and
+    none may disturb it (with torch.cuda.graph's default capture stream, a
+    warm-up on the same pool stream invalidated the capture)."""
+
+    import sys
+
+    from repro_torch import obs
+    from repro_torch.serve import (
+        PlanService,
+        ServiceOptions,
+        decode_program,
+        scan_program,
+    )
+
+    # 41 cases, none evicted (at most MAX_CASES = 32 of one structure);
+    # the three large ones hold the capture lock for a few hundred ms each
+    # while the other workers warm up
+    progs = (
+        [tc.paper_alg6(n) for n in (1025, 1000, 900)]
+        + [decode_program(n) for n in range(6, 36)]
+        + [scan_program(3, h) for h in range(4, 12)]
+    )
+    obs.reset_all()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with PlanService(
+            ServiceOptions(workers=8, max_queue_depth=128, device="cuda")
+        ) as svc:
+            futures = [
+                (prog, svc.submit(prog, tenant=f"t{i % 3}", run=True))
+                for i, prog in enumerate(progs * 3)
+            ]
+            for prog, fut in futures:
+                assert fut.result(timeout=300).store == tc.run_sequential(
+                    prog, prog.initial_store()
+                )
+            stats = svc.drain(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert stats["captures"] == len(progs)  # one graph per case
+    assert stats["replays"] == 2 * len(progs)
+    assert stats["eager_sweeps"] == len(progs)  # the first runs
+
+
+def test_capture_stream_is_never_a_warm_up_stream(cuda):
+    from repro_torch.compile.lowering import _CAPTURE_LOCK, _capture_stream
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    with _CAPTURE_LOCK:
+        capture = _capture_stream(device)
+        assert _capture_stream(device) is capture  # one a device
+    # twice round the default-priority pool the warm-ups draw from
+    pool = {torch.cuda.Stream(device).cuda_stream for _ in range(64)}
+    assert capture.cuda_stream not in pool
+
+
+def test_pow_program_runs_eager_by_rule_and_is_not_captured(cuda):
+    from repro_torch.obs import trace
+
+    prog = tc.LoopProgram(
+        statements=(
+            tc.Statement(
+                "S1", tc.ArrayRef("a", 0), (tc.ArrayRef("b", 0),),
+                compute=lambda x: abs(x) ** 0.5 + 1.0,
+            ),
+        ),
+        bounds=((0, 300),),
+    )
+    init = prog.initial_store()
+    exe = tc.plan(prog).compile("torch", device=cuda)
+    before = _counts()
+    trace.clear()
+    trace.enable()
+    try:
+        assert exe.run(store=init) == tc.run_sequential(prog, init)
+    finally:
+        trace.disable()
+    assert _counts() == (before[0], before[1], before[2] + 1)
+    spans = [e for e in trace.events() if e["name"] == "torch.capture"]
+    assert len(spans) == 1 and "host_pow" in spans[0]["args"]["eager"]
+    assert exe.run(store=init) == tc.run_sequential(prog, init)
+    assert _counts() == (before[0], before[1], before[2] + 2)
+
+
+def test_replay_raises_out_of_box_and_hole_flags(cuda):
+    # a guarded write past the store's box: the flag is the guard's
+    oob = tc.LoopProgram(
+        statements=(
+            tc.Statement("S1", tc.ArrayRef("a", 6), (), guard=tc.ArrayRef("p", 0)),
+        ),
+        bounds=((0, 4),),
+    )
+    exe = tc.plan(oob).compile("torch", device=cuda)
+    a = {(i,): 0.0 for i in range(8)}
+    quiet = {"a": dict(a), "p": {(i,): 0.0 for i in range(4)}}
+    for _ in range(2):  # eager, then captured
+        assert exe.run(store=quiet) == tc.run_sequential(oob, quiet)
+    replays = _counts()[1]
+    with pytest.raises(KeyError, match="initialized store"):
+        exe.run(store={"a": dict(a), "p": {(i,): 1.0 for i in range(4)}})
+    assert _counts()[1] == replays + 1  # raised from the replay
+
+    # a guarded read of a cell the store does not hold
+    hole = tc.LoopProgram(
+        statements=(
+            tc.Statement(
+                "S1", tc.ArrayRef("a", 0), (tc.ArrayRef("b", 0),),
+                guard=tc.ArrayRef("p", 0),
+            ),
+        ),
+        bounds=((0, 6),),
+    )
+    exe = tc.plan(hole).compile("torch", device=cuda)
+    b = {(i,): float(i) for i in range(6) if i != 4}
+    a = {(i,): 0.0 for i in range(6)}
+    quiet = {"a": dict(a), "b": dict(b),
+             "p": {(i,): float(i != 4) for i in range(6)}}
+    for _ in range(2):
+        assert exe.run(store=quiet) == tc.run_sequential(hole, quiet)
+    replays = _counts()[1]
+    with pytest.raises(KeyError, match="uninitialized cell"):
+        exe.run(store={"a": dict(a), "b": dict(b),
+                       "p": {(i,): 1.0 for i in range(6)}})
+    assert _counts()[1] == replays + 1
+
+
+def test_threads_first_touching_one_constant_beside_captures(cuda):
+    """Eight cases divide by one constant no other test uses: their first
+    runs touch it at once, and their captures follow while other workers
+    still run.  Every graph must read the one tensor the scalar cache keeps,
+    so replays after the allocator has handed memory out again still match
+    the oracle."""
+
+    from repro_torch.compile import lowering
+
+    d = 3.0517578125
+    progs = [
+        tc.LoopProgram(
+            statements=(
+                tc.Statement(
+                    "S1", tc.ArrayRef("a", 0), (tc.ArrayRef("b", 0),),
+                    compute=lambda x: x / d,
+                ),
+            ),
+            bounds=((0, n),),
+        )
+        for n in range(40, 48)
+    ]
+    exes = [tc.plan(p).compile("torch", device=cuda) for p in progs]
+    barrier = threading.Barrier(len(progs))
+    before = _counts()
+
+    def runs(i):
+        init = progs[i].initial_store()
+        expect = tc.run_sequential(progs[i], init)
+        barrier.wait(timeout=60)
+        for _ in range(3):  # eager, captured, replayed
+            assert exes[i].run(store=init) == expect
+
+    with ThreadPoolExecutor(len(progs)) as pool:
+        list(pool.map(runs, range(len(progs))))
+    assert _counts()[0] == before[0] + len(progs)
+    device = torch.device("cuda", torch.cuda.current_device())
+    kept = lowering._device_scalar(d, device)
+    assert kept is lowering._device_scalar(d, device)
+    churn = [torch.full((1 << 18,), 7.0, device=cuda) for _ in range(16)]
+    del churn
+    for prog, exe in zip(progs, exes):
+        init = prog.initial_store()
+        assert exe.run(store=init) == tc.run_sequential(prog, init)

@@ -32,6 +32,10 @@ VERBATIM = [
     *sorted(
         str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py")
     ),
+    "serve/__init__.py",
+    "serve/options.py",
+    "serve/service.py",
+    "serve/waves.py",
 ]
 
 # The copies that differ beyond the rename, and why.
@@ -42,6 +46,26 @@ DIFFERING = {
     ),
     "kernels/pipelined_matmul/schedule.py": (
         'compile_kloop compiles "torch" and takes the device'
+    ),
+    "serve/options.py": (
+        'the default backend is "torch" (the port registers no "xla"); a '
+        'device knob, default "cuda", validated at construction for the '
+        '"torch" backend, the one that takes it; '
+        "warm_profile=True is refused (the port's calibration has no "
+        "warm(), ROADMAP Queue 1 item 5)"
+    ),
+    "serve/service.py": (
+        "requests compile with the options' device on the torch backend; "
+        "no warm() at "
+        "construction; stats() reads the port's torch.bucket_hits|misses "
+        "and reports captures / replays / eager_sweeps from "
+        "torch.graph_captures|replays / torch.eager_sweeps, captures in "
+        "the place of the reference's traces (xla.traces has no "
+        "counterpart)"
+    ),
+    "serve/waves.py": (
+        "_timed_compile compiles for the default service's backend and "
+        'device instead of "xla"'
     ),
 }
 
@@ -120,6 +144,14 @@ for prog, deps in ((paper_alg6(16), None), (gather_scatter(8), "speculate")):
     ).run(store=init)
     assert out == run_sequential(prog, init)
 compile_kloop(2, 16, device="cpu")
+
+# the plan service on the "torch" backend
+from repro_torch.serve import PlanService, ServiceOptions, decode_program
+
+with PlanService(ServiceOptions(device="cpu")) as svc:
+    prog = decode_program(6)
+    res = svc.submit(prog, run=True).result()
+    assert res.store == run_sequential(prog, prog.initial_store())
 a = torch.ones(5, 3)
 assert torch.equal(matmul(a, torch.ones(3, 2)), torch.full((5, 2), 3.0))
 
