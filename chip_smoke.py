@@ -84,6 +84,20 @@ non-zero:
    version on the wave's own activations, with the same planted fault;
    prefill and decode times, tokens/s, peak memory and the idle share of
    one decode wave;
+7b. granite-3-2b trained at full width and depth (40 layers, 2.636 B
+   parameters, bf16, remat "full", random weights from a seed) for 8
+   steps of 4 x 2048 tokens through ``repro_torch.runtime.train_loop``:
+   each loss, step ms (median of steps 3-8), tokens/s, model TFLOP/s
+   beside the bf16 peak, peak memory, the AdamW update alone, the idle
+   share of one profiled step; train-mode attention is the plain version
+   under autograd (``attention.train_plain_calls``), so no flash launch;
+   losses finite and falling, peak memory above 30e9 bytes (the state
+   alone is 31.6e9).  Then one ``make_train_step`` at full width with 2
+   layers in f32 on the card against the same step on the CPU, with two
+   planted faults that must read above the limits (one leaf's grad x
+   1.01, the causal mask dropped); and at 1 layer, 6 straight steps
+   against 3 + restore + 3, and a ``WorkerFailure`` at step 4 with
+   ``ckpt_every=2``, under deterministic algorithms;
 8. one JSON line listing every kernel with its numbers;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -94,6 +108,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -186,6 +201,39 @@ SERVE_LOGIT_RTOL = 5e-2  # relative L2 error of the kernel's logits vs plain
 MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 264, 136), (300, 257, 130)]
 MATMUL_DEPTHS = (1, 2, 4)  # 4: the bf16 TMA route's default, ops.HOPPER_STAGES
 TF32X3_DEPTHS = (1, 2, 3)  # 3: the 3xTF32 route's default and deepest
+# the training phase: granite-3-2b (src/repro/configs/granite_3_2b.py: 40
+# layers, d_model 2048, 32 heads GQA 8, hd 64, d_ff 8192, vocab 49155) at
+# full width and depth, bf16, remat "full", 4 x 2048 tokens a step, AdamW
+# at the reference's default learning rate with a 2-step warmup
+TRAIN_ARCH = "granite_3_2b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 2
+# device parity: full width, 2 layers, f32 (TF32 off), one sequence of 128
+# tokens.  Limits: loss and grad norm relative; the largest relative L2
+# error of a leaf's mu / nu; and, as tests/test_torch_train.py holds a
+# train step, the largest change of a param's update in units of the
+# step's lr: 1e-3 where the reference's gradient is at least CLEAR_GRAD
+# (100 eps), 2 anywhere.  A first Adam step moves an element by
+# lr * g / (|g| + eps): where |g| is near eps (1e-8) the devices' rounding
+# of g moves it by up to 2 lr, so one such element decides a relative L2
+# reading over the update of a small leaf; the moments, linear in g, hold
+# those elements instead
+PARITY_LAYERS = 2
+PARITY_SEQ = 128
+CLEAR_GRAD = 1e-6
+TRAIN_PARITY_TOL = {
+    "loss": 1e-5, "grad_norm": 1e-4, "update": 1e-3, "update_any": 2.0, "mu": 1e-4, "nu": 1e-4,
+}
+# resume and recovery: full width, 1 layer, bf16, 2 x 512 tokens a step,
+# deterministic algorithms: the losses after a restore as the straight run's
+RESUME_LAYERS = 1
+RESUME_BATCH = 2
+RESUME_SEQ = 512
+RESUME_RTOL = 1e-6
+
 SEED = 0
 WARM_RUNS = 11
 SERVICE_WARM_S = 10.0  # the warm epoch's least length in seconds ...
@@ -1878,6 +1926,402 @@ def serve_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# Phase 7b: granite-3-2b training, the training slice's main path
+# ---------------------------------------------------------------------- #
+
+def _flash_count():
+    from repro_torch.kernels.flash_attention import ops
+
+    return ops.flash_attention.launches
+
+
+def _plain_count():
+    from repro_torch.obs import metrics
+
+    return metrics.counter("attention.train_plain_calls").value
+
+
+def _clock(torch, marks):
+    """A failure injector that fails nothing: it stamps the host clock at
+    the start of each step (the loop reads each step's loss, so a step
+    starts after the device finished the last one)."""
+
+    def stamp(step):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    return stamp
+
+
+def _step_readings(p0, got, ref, b1):
+    """Parity readings of one train step's result ``got`` against ``ref``,
+    both (params, opt state, metrics) from the params ``p0``: relative
+    errors of the loss and grad norm; the largest change of an element's
+    update (params after minus ``p0``) in units of the reference's lr,
+    where the reference's gradient (``mu / (1 - b1)`` after one step) is at
+    least ``CLEAR_GRAD`` and anywhere; and the largest relative L2 error of
+    a leaf's mu and nu.  Beside them, unchecked: the largest relative L2
+    error of a leaf's whole update, the leaf each reading comes from, and
+    the elements whose gradient is below ``CLEAR_GRAD``."""
+
+    from repro_torch import tree as tree_lib
+
+    import torch
+
+    (pa, sa, ma), (pb, sb, mb) = got, ref
+    dev = tree_lib.leaves(pa)[0].device
+    lr = float(mb["lr"])
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    def f64(t):
+        # on the device of ``got`` (the card), where either side lies
+        return t.to(dev, torch.float64)
+
+    worst, where = {}, {}
+
+    def note(key, value, path):
+        if value >= worst.get(key, 0.0):
+            worst[key], where[key] = value, "/".join(map(str, path))
+
+    unclear = 0
+    for (path, a), b, x, g in zip(
+        tree_lib.flatten_with_paths(pa), tree_lib.leaves(pb), tree_lib.leaves(p0),
+        tree_lib.leaves(sb.mu),
+    ):
+        x = f64(x)
+        da, db = f64(a) - x, f64(b) - x
+        err = (da - db).abs() / lr
+        clear = f64(g).abs() / (1 - b1) >= CLEAR_GRAD
+        unclear += int((~clear).sum())
+        note("update_any", err.max().item(), path)
+        note("update", err[clear].max().item() if clear.any() else 0.0, path)
+        note("update_rel_l2", ((da - db).norm() / max(db.norm().item(), 1e-30)).item(), path)
+    for key in ("mu", "nu"):
+        for (path, a), b in zip(
+            tree_lib.flatten_with_paths(getattr(sa, key)), tree_lib.leaves(getattr(sb, key))
+        ):
+            b = f64(b)
+            note(key, ((f64(a) - b).norm() / max(b.norm().item(), 1e-30)).item(), path)
+    readings = {"loss": rel(ma["loss"], mb["loss"]), "grad_norm": rel(ma["grad_norm"], mb["grad_norm"])}
+    readings.update({k: worst[k] for k in ("update", "update_any", "mu", "nu")})
+    readings["unchecked"] = {
+        "update_rel_l2": worst["update_rel_l2"],
+        "elements_below_clear_grad": unclear,
+        "worst_leaf": where,
+    }
+    return readings
+
+
+def _parity(torch, cfg):
+    """One ``make_train_step`` on the card against the same step on the CPU
+    from the same params and batch (f32, TF32 off), within
+    ``TRAIN_PARITY_TOL``; then the step on the card with a planted fault,
+    which must read above it: one leaf's grad scaled by 1.01 (through the
+    ``grad_compressor`` hook), and, apart, train-mode attention with the
+    causal mask dropped."""
+
+    from unittest import mock
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, DataState, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention, model_zoo
+    from repro_torch.optim.optimizer import AdamW
+
+    opt = AdamW(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=10)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # TF32 off, on both sides
+    try:
+        params = model_zoo.init(cfg, device="cuda", seed=SEED)
+        host = tree_lib.tree_map(lambda t: t.cpu(), params)
+        batch = make_batch(DataConfig(1, PARITY_SEQ, seed=SEED), cfg, DataState(SEED, 0))
+        cuda_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+        def on_cuda(**kw):
+            return make_train_step(cfg, opt, **kw)(params, opt.init(params), cuda_batch)
+
+        t0 = time.perf_counter()
+        ref = make_train_step(cfg, opt)(host, opt.init(host), cpu_batch)
+        cpu_s = time.perf_counter() - t0
+        sound = _step_readings(host, on_cuda(), ref, opt.b1)
+
+        def scaled_head(grads, opt_state):
+            grads["embed"]["head"] = grads["embed"]["head"] * 1.01
+            return grads, opt_state
+
+        plain = attention.chunked_attention_plain
+
+        def no_causal(q, k, v, *, causal=True, **kw):
+            return plain(q, k, v, causal=False, **kw)
+
+        grad_fault = _step_readings(host, on_cuda(grad_compressor=scaled_head), ref, opt.b1)
+        with mock.patch.object(attention, "chunked_attention_plain", no_causal):
+            mask_fault = _step_readings(host, on_cuda(), ref, opt.b1)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    del params
+    row = {
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "tokens": PARITY_SEQ,
+        "float32_matmul_precision": "highest",
+        "cpu_threads": torch.get_num_threads(),
+        "cpu_step_s": cpu_s,
+        "readings": sound,
+        "limits": TRAIN_PARITY_TOL,
+        "clear_grad": CLEAR_GRAD,
+        "planted_head_grad_x1_01": grad_fault,
+        "planted_causal_mask_dropped": mask_fault,
+    }
+    # the row first, so that a failed check leaves its readings behind
+    emit("train parity: " + json.dumps(row))
+    over = {k: sound[k] for k in TRAIN_PARITY_TOL if sound[k] > TRAIN_PARITY_TOL[k]}
+    check(not over, f"train parity: {over} above the limits {TRAIN_PARITY_TOL}")
+    for name, fault in (("head grad x 1.01", grad_fault), ("causal mask dropped", mask_fault)):
+        check(
+            any(fault[k] > TRAIN_PARITY_TOL[k] for k in TRAIN_PARITY_TOL),
+            f"train parity: the planted fault ({name}) reads {fault}, inside "
+            f"the limits {TRAIN_PARITY_TOL}: the check cannot see it",
+        )
+    return row
+
+
+def _resume_and_recovery(torch, cfg):
+    """At a cut depth: 6 straight steps against 3 steps, a restore and 3
+    more, and a ``WorkerFailure`` at step 4 with ``ckpt_every=2``, under
+    deterministic algorithms (the embedding's backward otherwise adds with
+    atomics), the losses after the restore within ``RESUME_RTOL``."""
+
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.runtime.fault_tolerance import WorkerFailure
+    from repro_torch.runtime.trainer import train_loop
+
+    dc = DataConfig(global_batch=RESUME_BATCH, seq_len=RESUME_SEQ, seed=SEED)
+    opt = AdamW(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=6)
+    kw = dict(opt=opt, seed=SEED, device="cuda")
+    fired = []
+
+    def fail_at_4(step):
+        if step == 4 and not fired:
+            fired.append(step)
+            raise WorkerFailure("w0")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            straight = train_loop(cfg, dc, total_steps=6, **kw)
+            t1 = time.perf_counter()
+            mgr = CheckpointManager(Path(d) / "resume", keep=1)
+            first = train_loop(cfg, dc, total_steps=3, ckpt=mgr, ckpt_every=3, **kw)
+            second = train_loop(cfg, dc, total_steps=6, ckpt=mgr, ckpt_every=3, **kw)
+            mgr.close()
+            t2 = time.perf_counter()
+            mgr = CheckpointManager(Path(d) / "recover", keep=1)
+            recovered = train_loop(cfg, dc, total_steps=6, ckpt=mgr, ckpt_every=2,
+                                   failure_injector=fail_at_4, **kw)
+            mgr.close()
+            t3 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resumed = first.losses + second.losses
+
+    def err(xs):
+        return max(abs(a - b) / abs(b) for a, b in zip(xs, straight.losses))
+
+    check(len(resumed) == 6 and second.final_step == 6, f"resume: {len(resumed)} steps")
+    # steps 0-3, the failure, then steps 4-5 from the step-4 snapshot
+    check(recovered.restarts == 1 and recovered.final_step == 6 and len(recovered.losses) == 6,
+          f"recovery: restarts {recovered.restarts}, final step {recovered.final_step}")
+    check(err(resumed) <= RESUME_RTOL, f"resume: losses differ by {err(resumed)}")
+    check(err(recovered.losses) <= RESUME_RTOL,
+          f"recovery: losses differ by {err(recovered.losses)}")
+    return {
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "tokens_per_step": RESUME_BATCH * RESUME_SEQ,
+        "straight_losses": straight.losses,
+        "resumed_losses": resumed,
+        "recovered_losses": recovered.losses,
+        "restarts": recovered.restarts,
+        "final_step": recovered.final_step,
+        "resume_max_rel_err": err(resumed),
+        "recovery_max_rel_err": err(recovered.losses),
+        "rtol": RESUME_RTOL,
+        "straight_s": t1 - t0,
+        "resume_s (2 checkpoints)": t2 - t1,
+        "recovery_s (3 checkpoints)": t3 - t2,
+    }
+
+
+def _train_attention_ms(torch, cfg):
+    """One layer's train-mode attention at the phase's shape, alone: the
+    plain version's forward under autograd and its backward, each the
+    median of 3 between CUDA events after a warm-up."""
+
+    from repro_torch.models.attention import chunked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def make(heads):
+        x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, heads, hd), generator=gen, device="cuda")
+        return x.to(torch.bfloat16).requires_grad_(True)
+
+    q, k, v = make(H), make(KV), make(KV)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    fwd, bwd = [], []
+    for _ in range(4):
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        mid.record()
+        torch.autograd.grad(out, (q, k, v), dout)
+        end.record()
+        end.synchronize()
+        fwd.append(start.elapsed_time(mid))
+        bwd.append(mid.elapsed_time(end))
+        del out
+    return statistics.median(fwd[1:]), statistics.median(bwd[1:])
+
+
+def train_phase(torch):
+    """granite-3-2b trained at full width and depth for ``TRAIN_STEPS``
+    steps through ``train_loop``; then the device parity check and the
+    resume / recovery checks at cut depths."""
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataState, make_batch
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.runtime.trainer import train_loop
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16", f"train: {cfg.remat} / {cfg.dtype}")
+    opt = AdamW(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    dc = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: the counts read just before and just after
+    flash0, plain0, matmul0 = _flash_count(), _plain_count(), matmul_ops.matmul.launches
+    marks = []
+    res = train_loop(cfg, dc, total_steps=TRAIN_STEPS, opt=opt, seed=SEED,
+                     failure_injector=_clock(torch, marks), device="cuda")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    flash = _flash_count() - flash0
+    plain_calls = _plain_count() - plain0
+    matmul_launches = matmul_ops.matmul.launches - matmul0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    params, opt_state = res.state["params"], res.state["opt"]
+    n_params = model_zoo.param_count(params)
+    flops_per_token = model_zoo.model_flops_per_token(params, cfg)
+    check(res.final_step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+          f"train: {res.final_step} steps, {len(losses)} losses")
+    check(all(math.isfinite(l) for l in losses), f"train: a loss is not finite: {losses}")
+    check(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+          f"train: the loss did not fall: {losses}")
+    check(peak > 30e9, f"train: peak memory {peak} bytes: the 31.6e9-byte state was not held")
+    check(flash == 0, f"train: {flash} flash launches in training (the kernel has no backward)")
+    check(matmul_launches == 0, f"train: {matmul_launches} pipelined-matmul launches")
+    # remat "full": each layer's attention once forward, once recomputed
+    check(plain_calls == 2 * cfg.num_layers * TRAIN_STEPS,
+          f"train: {plain_calls} plain attention calls, expected "
+          f"{2 * cfg.num_layers * TRAIN_STEPS}")
+
+    # the update alone, on the trained state (grads of the params' dtypes)
+    grads = tree_lib.tree_map(lambda p: torch.full_like(p, 1e-4), params)
+    update_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = opt.update(grads, opt_state, params)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    del grads
+
+    # one more step under the profiler for the device's idle share
+    batch = {
+        k: torch.from_numpy(v).cuda()
+        for k, v in make_batch(dc, cfg, DataState(SEED, TRAIN_STEPS)).items()
+    }
+    step_fn = make_train_step(cfg, opt)
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+
+    busy_ms, prof_wall_ms, n_events = _profiled_run(torch, one_step)
+    del params, opt_state, res, batch
+    torch.cuda.empty_cache()
+
+    attn_fwd_ms, attn_bwd_ms = _train_attention_ms(torch, cfg)
+    torch.cuda.empty_cache()
+
+    timed = step_ms[2:]
+    step_s = statistics.median(timed) / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = {
+        "cell": "granite3_2b_train_4x2048",
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "remat": cfg.remat,
+        "params": n_params,
+        "global_batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ,
+        "lr": TRAIN_LR,
+        "warmup_steps": TRAIN_WARMUP,
+        "steps": TRAIN_STEPS,
+        "losses": losses,
+        "step_ms": step_ms,
+        "step_ms_median_steps_3_to_8": statistics.median(timed),
+        "tokens_per_s": tokens / step_s,
+        "model_flops_per_token": flops_per_token,
+        "model_tflops": flops_per_token * tokens / step_s / 1e12,
+        "bf16_peak_tflops": PEAK_FLOPS["bf16"] / 1e12,
+        "model_flops_share_of_bf16_peak": flops_per_token * tokens / step_s / PEAK_FLOPS["bf16"],
+        "peak_memory_bytes": peak,
+        "adamw_update_ms": update_ms,
+        "profiled_step_wall_ms": prof_wall_ms,
+        "profiled_step_device_busy_ms": busy_ms,
+        "step_idle_share": (
+            1.0 - busy_ms / statistics.median(timed) if busy_ms is not None else None
+        ),
+        "profiled_step_device_events": n_events,
+        "attention_layer_forward_ms": attn_fwd_ms,
+        "attention_layer_backward_ms": attn_bwd_ms,
+        # remat "full": each layer's attention runs forward twice a step
+        "attention_ms_per_step_estimate": cfg.num_layers * (2 * attn_fwd_ms + attn_bwd_ms),
+        "attention_train_plain_calls": plain_calls,
+        "flash_launches": flash,
+        "pipelined_matmul_launches": matmul_launches,
+    }
+    emit("train: " + json.dumps(row))
+    _parity(torch, cfg.scaled(num_layers=PARITY_LAYERS, dtype="float32"))
+    resume = _resume_and_recovery(torch, cfg.scaled(num_layers=RESUME_LAYERS))
+    emit("train resume: " + json.dumps(resume))
+    emit(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def flash_entries(rows, serve_launches, phase_launches):
     """The kernels-line entries of the flash kernels, one per route taken:
     ``tma_wgmma`` at the shape the serving phase gives it (its launches are
@@ -1935,6 +2379,9 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # deterministic cuBLAS for phase 7b's resume check; on Hopper PyTorch's
+    # default workspace is this size already, so no earlier phase changes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1983,6 +2430,7 @@ def main() -> int:
     entries = matmul_phase(torch)  # phase 5
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
     flash_launches = serve_phase(torch)  # phase 7
+    train_phase(torch)  # phase 7b
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
     entries.append(split_entry)
 

@@ -4,8 +4,10 @@
 this package's IR classes, field by field, with the compute callables
 passed through unchanged; :func:`store_from_reference` copies a store.
 :func:`params_from_jax` turns a reference parameter tree (NumPy arrays)
-into the port's decoder parameters, and :func:`cache_to_jax_layout` lays
-the port's KV cache out as the reference's.  All read attributes and
+into the port's decoder parameters, :func:`opt_state_from_jax` and
+:func:`snapshot_from_jax` carry an optimizer state and a training
+checkpoint across the same way, and :func:`cache_to_jax_layout` lays the
+port's KV cache out as the reference's.  All read attributes and
 arrays only (duck typing) and import nothing of the reference package, so
 the port stays importable without it.  Matmul operands need no converter:
 they are NumPy arrays on both sides (``torch.from_numpy``).
@@ -100,6 +102,43 @@ def params_from_jax(cfg, tree, *, device="cuda") -> dict:
         "rem": _map(tree.get("rem", {}), conv),
         "final_norm": _map(tree["final_norm"], conv),
     }
+
+
+def opt_state_from_jax(cfg, state, *, device="cuda"):
+    """The port's ``AdamWState`` for a reference one: the step as an int32
+    tensor, ``mu`` and ``nu`` unstacked like the params."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.optim.optimizer import AdamWState
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+        mu=params_from_jax(cfg, state.mu, device=device),
+        nu=params_from_jax(cfg, state.nu, device=device),
+    )
+
+
+def snapshot_from_jax(cfg, snap, *, device="cuda"):
+    """The port's ``Snapshot`` for a reference training checkpoint
+    (``repro.checkpoint.manager.Snapshot`` of ``{"params", "opt"}``, as its
+    ``train_loop`` saves them): the step, the converted tree and the data
+    stream's ``DataState``, so the port resumes where the reference left
+    off."""
+
+    from repro_torch.checkpoint.manager import Snapshot
+    from repro_torch.data.pipeline import DataState
+
+    ds = snap.data_state
+    return Snapshot(
+        step=int(snap.step),
+        tree={
+            "params": params_from_jax(cfg, snap.tree["params"], device=device),
+            "opt": opt_state_from_jax(cfg, snap.tree["opt"], device=device),
+        },
+        data_state=DataState(seed=ds.seed, step=ds.step) if ds is not None else None,
+    )
 
 
 def cache_to_jax_layout(cfg, cache) -> dict:

@@ -1,1 +1,1 @@
-"""Step functions and drivers of the port's LM serving path."""
+"""Step functions and entry points of the port's LM serving and training paths."""

@@ -3,7 +3,9 @@ against a KV cache (bf16 or int8), as the reference's ``models/attention.py``.
 
 ``chunked_attention`` is the prefill / train-mode attention.  On a CPU
 tensor it runs the plain version, the reference's streaming log-sum-exp
-over KV chunks (:func:`chunked_attention_plain`).  On a CUDA tensor it is
+over KV chunks (:func:`chunked_attention_plain`), and so does every call
+that needs a gradient (the kernel has no backward; the reference trains
+through its jnp version too).  Otherwise, on a CUDA tensor, it is
 the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), the
 reference Pallas kernel's counterpart; a call outside the kernel's contract
@@ -24,8 +26,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, normal  # noqa: F401
+from repro_torch.obs import metrics
 
 NEG_INF = -1e30
+TRAIN_PLAIN_CALLS = metrics.counter("attention.train_plain_calls")
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -134,11 +138,19 @@ def chunked_attention(
 
     q (B,Sq,H,hd); k,v (B,Sk,KV,hd).  ``window`` enables sliding-window
     masking (keys within [pos-window+1, pos]).  ``q_offset`` positions the
-    query block inside the key space (prefill continuation).  CPU tensors
-    take :func:`chunked_attention_plain`; CUDA tensors the flash kernel,
-    whose tiles replace ``chunk``.
+    query block inside the key space (prefill continuation).  A call whose
+    inputs require grad (grad enabled) takes :func:`chunked_attention_plain`
+    under autograd on any device, counted in ``attention.train_plain_calls``;
+    otherwise CPU tensors take the plain version and CUDA tensors the flash
+    kernel, whose tiles replace ``chunk``.
     """
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward (nor has the reference's Pallas kernel)
+        TRAIN_PLAIN_CALLS.inc()
+        return chunked_attention_plain(
+            q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset
+        )
     if q.device.type == "cpu":
         return chunked_attention_plain(
             q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset

@@ -4,7 +4,11 @@ family raises ``NotImplementedError``.
 
 ``batch`` dict contract:
   tokens (B,S) int              — text tokens
+  labels (B,S) int              — next-token targets (train)
   patch_embeds (B,P,d)          — vision frontend stub (llava)
+
+``loss_fn`` is the training objective (mean NLL + MoE aux), ``prefill`` /
+``decode_step`` the serving path.
 
 Every entry point runs on the device its tensors lie on; :func:`init` and
 :func:`init_cache` take the device, ``"cuda"`` unless the caller passes
@@ -17,9 +21,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.compile.lowering import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.models.layers import softmax_cross_entropy
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _decoder_only(cfg: ModelConfig) -> None:
@@ -45,6 +53,23 @@ def forward_logits(
     return transformer.forward(
         params, batch["tokens"], cfg, prefix_embeds=batch.get("patch_embeds")
     )
+
+
+def loss_fn(
+    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"nll", "aux"}): the mean next-token NLL in f32 over the text
+    positions (``loss_mask`` weights them when given) plus the weighted MoE
+    aux loss (zero here)."""
+
+    logits, aux = forward_logits(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and cfg.num_patches:
+        # loss over text positions only (patch prefix produces no targets)
+        logits = logits[:, cfg.num_patches :, :]
+    nll = softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
+    loss = nll + AUX_LOSS_WEIGHT * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
@@ -73,16 +98,21 @@ def decode_step(
     return transformer.decode_step(params, tokens, cfg, cache, cache_len)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(params: dict) -> int:
-    return sum(x.numel() for x in _leaves(params))
+    return sum(x.numel() for x in tree_lib.leaves(params))
+
+
+def active_param_count(params: dict, cfg: ModelConfig) -> int:
+    """Parameters touched per token: all of them in a dense model."""
+
+    if cfg.has_moe:
+        raise NotImplementedError(
+            "the MoE MLP is not ported yet (ROADMAP Queue 1 item 9)"
+        )
+    return param_count(params)
+
+
+def model_flops_per_token(params: dict, cfg: ModelConfig) -> float:
+    """6·N(active) per token (the reference's MODEL_FLOPS convention)."""
+
+    return 6.0 * active_param_count(params, cfg)

@@ -7,7 +7,8 @@ layers) and llava (patch-embedding prefix).  MoE and Mamba positions raise
 
 Three entry modes share the layer code: ``train`` (full sequence, no
 cache), ``prefill`` (full sequence, fills the cache), ``decode`` (one token
-against the cache).  The reference stacks the ``num_blocks`` repeats on a
+against the cache); in train mode ``cfg.remat`` checkpoints each block as
+the reference's ``jax.checkpoint`` does.  The reference stacks the ``num_blocks`` repeats on a
 leading axis for ``lax.scan``; here ``params["blocks"]`` is a list of
 per-block dicts run by a Python loop (``repro_torch.convert`` unstacks a
 reference tree), and the remainder layers follow, as in the reference.
@@ -15,9 +16,11 @@ reference tree), and the remainder layers follow, as in the reference.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import (
     ATTN,
@@ -196,6 +199,41 @@ def _apply_layer(
     return x, new_cache
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products with no batch dimension (the
+    projections and the MLP; einsum lowers them to a batch-1 ``bmm``),
+    recompute the rest: ``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``' counterpart."""
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+        op == aten.bmm.default and args[0].shape[0] == 1
+    ):
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed_block(bp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One block in train mode under ``torch.utils.checkpoint``, as the
+    reference runs its scan body under ``jax.checkpoint``: ``remat="full"``
+    saves only the block's input (``nothing_saveable``), ``"dots"`` also
+    the products :func:`_dots_policy` names."""
+
+    def body(xb):
+        for i, pos in enumerate(cfg.block):
+            xb, _ = _apply_layer(bp[f"pos{i}"], xb, pos, cfg, "train", None, None)
+        return xb
+
+    kwargs = {}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _dots_policy
+        )
+    elif cfg.remat != "full":
+        raise ValueError(f"remat={cfg.remat!r}; expected 'none', 'dots' or 'full'")
+    return checkpoint.checkpoint(body, x, use_reentrant=False, **kwargs)
+
+
 def _run_stack(
     params: dict,
     x: torch.Tensor,
@@ -204,10 +242,17 @@ def _run_stack(
     cache: Optional[dict],
     cache_len,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The blocks in order, then the remainder layers."""
+    """The blocks in order, then the remainder layers.  In train mode with
+    grad enabled and ``cfg.remat`` other than ``"none"`` each block runs
+    under a checkpoint (:func:`_checkpointed_block`); the remainder layers
+    run plain, as the reference unrolls them outside its scan."""
 
     new_cache: Dict[str, Any] = {"blocks": [], "rem": {}}
+    remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
     for b, bp in enumerate(params["blocks"]):
+        if remat:
+            x = _checkpointed_block(bp, x, cfg)
+            continue
         nbc = {}
         for i, pos in enumerate(cfg.block):
             pc = cache["blocks"][b][f"pos{i}"] if cache is not None else None

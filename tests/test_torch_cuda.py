@@ -798,6 +798,108 @@ def test_smoke_size_serving_on_cuda_goes_through_the_kernel(cuda, arch):
 
 
 # ---------------------------------------------------------------------- #
+# The training path
+# ---------------------------------------------------------------------- #
+
+def test_attention_with_grad_takes_the_plain_version_and_no_grad_the_kernel(cuda):
+    """Training (inputs that require grad, grad enabled) takes the plain
+    version under autograd, counted; the same call under no_grad launches
+    the kernel; the kernel's own entry still refuses a grad input."""
+
+    from repro_torch.obs import metrics
+
+    plain_calls = metrics.counter("attention.train_plain_calls")
+    q, k, v = (
+        t.requires_grad_(True)
+        for t in _flash_inputs(cuda, 1, 64, 64, 4, 2, 64, torch.bfloat16)
+    )
+    launches, calls = flash_ops.flash_attention.launches, plain_calls.value
+    with torch.no_grad():
+        out = attention.chunked_attention(q, k, v, causal=True)
+    assert flash_ops.flash_attention.launches == launches + 1
+    assert plain_calls.value == calls
+    trained = attention.chunked_attention(q, k, v, causal=True)
+    assert flash_ops.flash_attention.launches == launches + 1
+    assert plain_calls.value == calls + 1
+    trained.float().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+    torch.testing.assert_close(out.float(), trained.detach().float(), atol=3e-2, rtol=3e-2)
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        flash_ops.flash_attention(q, k, v, causal=True)
+    assert flash_ops.flash_attention.launches == launches + 1
+
+
+def test_smoke_train_step_on_cuda_matches_the_cpu(cuda):
+    """One train step of the smoke configuration (f32, remat "full") on the
+    card against the same step on the CPU: loss and grad norm within 1e-5
+    relative, ``mu`` and ``nu`` within 1e-4 of each leaf's norm, params
+    within 1e-3 of the learning rate where the gradient is at least 1e-6
+    (100 eps) and within 2 lr elsewhere.  A first Adam step moves an element
+    by lr g / (|g| + eps): ill-conditioned where |g| is near eps (1e-8), so
+    there the devices' rounding of g may move it by up to 2 lr, and the
+    moments, linear in g, hold those elements instead."""
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, DataState, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizer import AdamW
+
+    cfg = get_smoke_config("granite_3_2b").scaled(dtype="float32", remat="full")
+    lr = 1e-3
+    opt = AdamW(learning_rate=lr, warmup_steps=0, total_steps=10)
+    step = make_train_step(cfg, opt)
+    params = model_zoo.init(cfg, device="cpu", seed=0)
+    batch = {
+        k: torch.from_numpy(v)
+        for k, v in make_batch(DataConfig(4, 32), cfg, DataState(0, 0)).items()
+    }
+    cp, cs, cm = step(params, opt.init(params), batch)
+    launches = flash_ops.flash_attention.launches
+    gp, gs, gm = step(
+        tree_lib.tree_map(lambda t: t.to(cuda), params),
+        opt.init(tree_lib.tree_map(lambda t: t.to(cuda), params)),
+        {k: v.to(cuda) for k, v in batch.items()},
+    )
+    assert flash_ops.flash_attention.launches == launches  # training: plain attention
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(gm[key].item() - cm[key].item()) <= 1e-5 * abs(cm[key].item()), key
+    for moment in ("mu", "nu"):
+        for a, b in zip(tree_lib.leaves(getattr(gs, moment)), tree_lib.leaves(getattr(cs, moment))):
+            assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.norm().item(), moment
+    for a, b, m in zip(tree_lib.leaves(gp), tree_lib.leaves(cp), tree_lib.leaves(cs.mu)):
+        assert a.device.type == "cuda"
+        err = (a.cpu() - b).abs()
+        clear = m.abs() / (1 - opt.b1) >= 1e-6  # mu = (1 - b1) g after one step
+        assert err.max().item() <= 2 * lr
+        assert err[clear].max().item() <= 1e-3 * lr if clear.any() else True
+
+
+def test_checkpoint_roundtrip_of_cuda_bf16_tensors(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager, Snapshot
+    from repro_torch.optim.optimizer import AdamW
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {
+        "blocks": [{"w": torch.randn(33, 7, generator=gen, device=cuda).to(torch.bfloat16)}
+                   for _ in range(2)],
+        "scale": torch.ones(7, device=cuda),
+    }
+    state = AdamW().init(params)
+    mgr = CheckpointManager(tmp_path)  # the async writer
+    try:
+        mgr.save(Snapshot(step=3, tree={"params": params, "opt": state}))
+        mgr.wait()
+        snap = mgr.restore(target={"params": params, "opt": state})
+    finally:
+        mgr.close()
+    got = snap.tree["params"]["blocks"][1]["w"]
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), params["blocks"][1]["w"].view(torch.int16))
+    assert snap.tree["opt"].step.device.type == "cuda"
+    assert snap.tree["opt"].mu["scale"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------- #
 # The level loop captured as one CUDA graph per prepared case
 # ---------------------------------------------------------------------- #
 
