@@ -33,6 +33,23 @@ non-zero:
    bounds (no bounds seen twice), with and without the capture policy in
    turns (no capture either way); every store bit-equal, and a planted
    fault (a replay that skips loading its store) read as diverged;
+3c. calibration on the card: ``repro_torch.calibrate.measure(device=
+   "cuda")`` into a temporary directory (the units, the per-level µs per
+   width, the time it took), then a fresh ``warm()`` and a
+   ``PlanService(warm_profile=True)`` that reload it with no measurement;
+   for the wide 40×96 and 96×192 recurrences and the 64×16 one, the
+   unforced auction under the hand-set and the measured units (structural
+   key and offer set unchanged) beside each forced strategy's warm
+   captured time, in turns, every store bit-equal, and whether the
+   measured profile picked the faster one;
+3d. ``"torch_spmd"``: (a) in a world-size-1 NCCL group on the card, Alg. 6
+   at 1025 and both wide recurrences bit-equal, one shard, no collective,
+   the same captures and launch list as ``"torch"`` (device events under
+   the profiler printed beside), warm ms beside it in turns; (b) 2 and 4 gloo processes on the host CPU
+   running phase 3's small corpus and the 64×16 recurrence, bit-equal on
+   every rank, one all-gather per read-bearing group step; (c) the auction
+   at a forced 8 devices: the wide recurrence skews, the narrow one
+   chunks;
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
    the Hopper K-loop plan (a producer warpgroup issues and loads, consumer
@@ -259,6 +276,53 @@ def emit(line: str) -> None:
 # Phase 3 corpus, from the port's own classes
 # ---------------------------------------------------------------------- #
 
+def _wide(ni, nj):
+    """The {(0,1),(1,-1)} recurrence of phase 3 (benchmarks/run.py's)."""
+
+    from repro_torch.core import ArrayRef, LoopProgram, Statement
+
+    return LoopProgram(
+        statements=(
+            Statement(
+                "S1",
+                ArrayRef("a", (0, 0)),
+                (ArrayRef("a", (0, -1)), ArrayRef("a", (-1, 1))),
+            ),
+        ),
+        bounds=((0, ni), (0, nj)),
+    )
+
+
+def _skew(ni, nj):
+    """Phase 3's {(1,-1)} recurrence."""
+
+    from repro_torch.core import ArrayRef, LoopProgram, Statement
+
+    return LoopProgram(
+        statements=(
+            Statement("S1", ArrayRef("a", (0, 0)), (ArrayRef("a", (-1, 1)),)),
+        ),
+        bounds=((0, ni), (0, nj)),
+    )
+
+
+def _narrow(n):
+    """{(0,-32),(-1,1)}: tests/test_spmd.py's narrow blocked recurrence."""
+
+    from repro_torch.core import ArrayRef, LoopProgram, Statement
+
+    return LoopProgram(
+        statements=(
+            Statement(
+                "S1",
+                ArrayRef("a", (0, 0)),
+                (ArrayRef("a", (0, -32)), ArrayRef("a", (-1, 1))),
+            ),
+        ),
+        bounds=((0, n), (0, n)),
+    )
+
+
 def corpus():
     from repro_torch.core import (
         ArrayRef,
@@ -270,14 +334,6 @@ def corpus():
         paper_alg6,
         sparse_matvec,
     )
-
-    def skew_recurrence(ni=5, nj=5):
-        return LoopProgram(
-            statements=(
-                Statement("S1", ArrayRef("a", (0, 0)), (ArrayRef("a", (-1, 1)),)),
-            ),
-            bounds=((0, ni), (0, nj)),
-        )
 
     mixed_cycle_pm1 = LoopProgram(
         statements=(
@@ -296,21 +352,11 @@ def corpus():
         ),
         bounds=((1, 7),),
     )
-    wide = LoopProgram(  # {(0,1),(1,-1)}: benchmarks/run.py's wide recurrence
-        statements=(
-            Statement(
-                "S1",
-                ArrayRef("a", (0, 0)),
-                (ArrayRef("a", (0, -1)), ArrayRef("a", (-1, 1))),
-            ),
-        ),
-        bounds=((0, 96), (0, 192)),
-    )
     small = [
         ("alg1", paper_alg1(8), (None,)),
         ("alg4", paper_alg4(8), (None,)),
         ("alg6", paper_alg6(8), (None,)),
-        ("skew_recurrence", skew_recurrence(), (None,)),
+        ("skew_recurrence", _skew(5, 5), (None,)),
         ("mixed_cycle_pm1", mixed_cycle_pm1, (None,)),
         ("guarded", guarded, (None,)),
         ("gather_scatter", gather_scatter(8), ("inspect", "speculate")),
@@ -318,8 +364,8 @@ def corpus():
     ]
     sized = [
         ("paper_alg6_1025", paper_alg6(1025), {}),
-        ("skew_recurrence_64x16_chunk", skew_recurrence(64, 16), {"scc_policy": "chunk"}),
-        ("wide_skew_96x192_skew", wide, {"scc_policy": "skew"}),
+        ("skew_recurrence_64x16_chunk", _skew(64, 16), {"scc_policy": "chunk"}),
+        ("wide_skew_96x192_skew", _wide(96, 192), {"scc_policy": "skew"}),
     ]
     return small, sized
 
@@ -756,6 +802,398 @@ def service_phase(torch):
                                    "bucket_hits", "bucket_misses", "completed")}
         )
     )
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3c: calibration on the card
+# ---------------------------------------------------------------------- #
+
+CALIBRATION_WARM_RUNS = 5  # warm runs a forced strategy, in turns
+
+
+def _auction(prog, backend="torch"):
+    """The unforced auction of a fresh artifact on the card: (strategy,
+    offers, structural key) of the program's one recurrence."""
+
+    from repro_torch.compile import clear_compile_cache
+    from repro_torch.core import plan
+
+    clear_compile_cache()
+    exe = plan(prog, method="isd").compile(backend, device="cuda")
+    (rec,) = exe.report().summary()["scc"]["recurrences"]
+    return rec["strategy"], rec["offers"], exe.compiled.key
+
+
+def calibration_phase(torch, smi):
+    """``repro_torch.calibrate.measure(device="cuda")`` into a temporary
+    directory; a fresh ``warm()`` reloads it with no measurement, and so
+    does a ``PlanService(warm_profile=True)``.  For the wide 40×96 and
+    96×192 recurrences and the 64×16 one: the unforced auction under the
+    hand-set and the measured units (the structural key and the offer set
+    must not change), and each forced strategy captured and timed warm, in
+    turns, every store bit-equal."""
+
+    import tempfile
+
+    import repro_torch.calibrate as calibrate
+    from repro_torch import obs
+    from repro_torch.core import plan, run_sequential
+    from repro_torch.obs import metrics
+    from repro_torch.serve import PlanService, ServiceOptions
+
+    saved = {k: os.environ.get(k) for k in ("REPRO_CALIBRATE_DIR", "REPRO_CALIBRATE")}
+    with tempfile.TemporaryDirectory() as profile_dir:
+        os.environ["REPRO_CALIBRATE_DIR"] = profile_dir
+        os.environ.pop("REPRO_CALIBRATE", None)
+        try:
+            obs.reset_all()
+            t0 = time.perf_counter()
+            prof = calibrate.measure(device="cuda")
+            measure_s = time.perf_counter() - t0
+            meta = prof.meta
+            check(prof.source == "measured" and calibrate.profile_path().exists(),
+                  "calibration: measure() persisted no profile")
+            check(meta["device"] == torch.cuda.get_device_name(0),
+                  f"calibration: the profile names {meta['device']!r}, not the card")
+            check(all(v > 0 for v in prof.units.values()), f"calibration: units {prof.units}")
+            emit("calibration: " + json.dumps({
+                "units_us": prof.units,
+                "step_over_lane": prof.units["xla_step"] / prof.units["xla_lane"],
+                "per_level_us": meta["xla_per_level_us"],
+                "lane_slope_us": meta["xla_lane_slope_us"],
+                "lane_slope_resolved": meta["lane_slope_resolved"],
+                "wavefront_per_group_us": meta["wavefront_per_group_us"],
+                "spmd": meta["spmd_delta_us"],
+                "n": meta["n"], "widths": meta["widths"], "repeats": meta["repeats"],
+                "timed": meta["timed"],
+                "measurements": metrics.counter("calibrate.measurements").value,
+                "measure_s": measure_s,
+                "card": smi,
+            }))
+
+            # a fresh process state: warm() reloads, nothing is measured
+            obs.reset_all()
+            again = calibrate.warm()
+            loads = metrics.counter("calibrate.loads").value
+            check(again.source == "persisted" and again.units == prof.units,
+                  f"calibration: warm() gave a {again.source} profile")
+            check(metrics.counter("calibrate.measurements").value == 0 and loads == 1,
+                  f"calibration: warm() measured or loaded {loads} times")
+            calibrate.reset()
+            with PlanService(ServiceOptions(warm_profile=True, device="cuda", workers=1)):
+                check(calibrate.active_profile().source == "persisted"
+                      and metrics.counter("calibrate.measurements").value == 0,
+                      "calibration: PlanService(warm_profile=True) measured again")
+            emit("calibration: warm() and PlanService(warm_profile=True) reloaded "
+                 f"the profile, 0 measurements, {metrics.counter('calibrate.loads').value} loads")
+
+            cells = [
+                ("wide_40x96", _wide(40, 96)),
+                ("wide_96x192", _wide(96, 192)),
+                ("skew_recurrence_64x16", _skew(64, 16)),
+            ]
+            for name, prog in cells:
+                os.environ["REPRO_CALIBRATE"] = "off"
+                hand, hand_offers, hand_key = _auction(prog)
+                del os.environ["REPRO_CALIBRATE"]
+                picked, offers, key = _auction(prog)
+                check(key == hand_key, f"calibration: {name}'s structural key moved with the profile")
+                check(set(offers) == set(hand_offers),
+                      f"calibration: {name}'s offer set moved with the profile")
+                init = prog.initial_store()
+                expect = run_sequential(prog, init)
+                exes = {
+                    s: plan(prog, method="isd").compile("torch", device="cuda", scc_policy=s)
+                    for s in ("chunk", "skew")
+                }
+                levels = {}
+                for s, exe in exes.items():
+                    for _ in range(2):  # eager, then captured
+                        check(exe.run(store=init) == expect, f"calibration: {name} {s} diverged")
+                    levels[s] = next(reversed(exe.compiled._cases.values())).n_levels
+                host = {s: [] for s in exes}
+                events = {s: [] for s in exes}
+                for turn in range(CALIBRATION_WARM_RUNS):
+                    order = ("chunk", "skew") if turn % 2 == 0 else ("skew", "chunk")
+                    for s in order:
+                        out, host_ms, event_ms = _timed_run(torch, exes[s], init)
+                        check(out == expect, f"calibration: {name} {s} warm run diverged")
+                        host[s].append(host_ms)
+                        events[s].append(event_ms)
+                warm = {s: statistics.median(v) for s, v in host.items()}
+                faster = min(warm, key=warm.get)
+                profiled = {}
+                for s, exe in exes.items():
+                    busy_ms, wall_ms, n_events = _profiled_run(
+                        torch, lambda exe=exe: exe.run(store=init)
+                    )
+                    profiled[s] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
+                                   "device_events": n_events}
+                emit("calibration auction: " + json.dumps({
+                    "cell": name,
+                    "hand_set": {"strategy": hand, "offers": hand_offers},
+                    "measured": {"strategy": picked, "offers": offers},
+                    "levels": levels,
+                    "warm_ms_median_host": warm,
+                    "warm_ms_median_events": {s: statistics.median(v) for s, v in events.items()},
+                    "warm_runs": CALIBRATION_WARM_RUNS,
+                    "profiled_run": profiled,
+                    "faster": faster,
+                    "measured_picked_faster": picked == faster,
+                    "hand_set_picked_faster": hand == faster,
+                    "bit_equal": True,
+                    "card": smi,
+                }))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            obs.reset_all()
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3d: the SPMD level loop ("torch_spmd")
+# ---------------------------------------------------------------------- #
+
+SPMD_WORLDS = (2, 4)  # gloo processes on the host CPU
+SPMD_TIMEOUT_S = 300  # per spawn; its children are killed on it
+
+
+def _spmd_runs():
+    """(label, program, plan knobs, compile knobs) of phase 3d's gloo runs:
+    phase 3's small corpus under every method (``inspect`` and
+    ``speculate`` for the non-affine ones) and the 64×16 recurrence."""
+
+    small, _ = corpus()
+    runs = []
+    for name, prog, modes in small:
+        for deps in modes:
+            for method in ("none", "isd", "pattern", "both"):
+                runs.append((f"{name}/{method}/deps={deps}", prog,
+                             {"method": method, "deps": deps}, {}))
+    runs.append(("skew_recurrence_64x16_chunk", _skew(64, 16), {"method": "isd"},
+                 {"scc_policy": "chunk"}))
+    runs.append(("skew_recurrence_64x16", _skew(64, 16), {"method": "isd"}, {}))
+    return runs
+
+
+def _spmd_worker(rank, world, init_file, stores, results):
+    """One gloo rank of phase 3d (b): every run of ``_spmd_runs`` on the
+    CPU, on the stores the parent built (``initial_store()`` hashes
+    differently in each process, and every rank must hold the same one)."""
+
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.compile import device_scope
+        from repro_torch.core import plan
+        from repro_torch.core.wavefront import _DenseStore
+        from repro_torch.obs import metrics
+
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            rows = []
+            t0 = time.perf_counter()
+            for (label, prog, plan_knobs, knobs), init in zip(_spmd_runs(), stores):
+                before = metrics.counter("spmd.collectives").value
+                exe = plan(prog, **plan_knobs).compile("torch_spmd", device="cpu", **knobs)
+                t_run = time.perf_counter()
+                store = exe.run(store=init)
+                run_ms = (time.perf_counter() - t_run) * 1e3
+                with device_scope("cpu"):
+                    case, _ = exe.compiled.prepare(prog, _DenseStore(init))
+                stmts = case.static.stmts
+                rows.append({
+                    "label": label, "store": store, "shards": case.static.n_shards,
+                    "issued": metrics.counter("spmd.collectives").value - before,
+                    "expected": (None if plan_knobs.get("deps") == "speculate"
+                                 else sum(1 for k, _, _ in case._steps if stmts[k].reads)),
+                    "run_ms": run_ms,
+                })
+            results.put((rank, "ok", {"rows": rows, "wall_s": time.perf_counter() - t0}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _spawn_gloo(world, stores, workdir):
+    """Run ``_spmd_worker`` on ``world`` spawned processes; every wait is
+    bounded by ``SPMD_TIMEOUT_S`` and the children are killed on it."""
+
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [
+        ctx.Process(target=_spmd_worker, daemon=True,
+                    args=(r, world, str(Path(workdir) / f"store_{world}"), stores, results))
+        for r in range(world)
+    ]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + SPMD_TIMEOUT_S
+    try:
+        while len(got) < world and time.monotonic() < deadline:
+            try:
+                rank, status, payload = results.get(timeout=5.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            check(status == "ok", f"torch_spmd gloo rank {rank} of {world} failed:\n{payload}")
+            got[rank] = payload
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    check(sorted(got) == list(range(world)),
+          f"torch_spmd gloo: ranks {sorted(set(range(world)) - set(got))} of {world} "
+          f"gave no result in {SPMD_TIMEOUT_S} s (killed)")
+    return got
+
+
+def spmd_phase(torch, smi):
+    """(a) ``"torch_spmd"`` in a world-size-1 NCCL group on the card: Alg. 6
+    at 1025 and both wide cells bit-equal, one shard, no collective, the
+    same captures and launch list as ``"torch"`` (the profiler's device
+    events printed beside), warm ms beside ``"torch"``'s in turns.  (b) 2
+    and 4 gloo processes on the host's CPU: phase 3's small corpus and the
+    64×16 recurrence bit-equal
+    on every rank, one all-gather per read-bearing group step.  (c) The
+    auction at a forced 8 devices: the wide recurrence skews, the narrow
+    one chunks."""
+
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.compile import spmd
+    from repro_torch.core import paper_alg6, plan, run_sequential
+    from repro_torch.obs import metrics
+
+    obs.reset_all()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            for name, prog in (("paper_alg6_1025", paper_alg6(1025)),
+                               ("wide_40x96", _wide(40, 96)),
+                               ("wide_96x192", _wide(96, 192))):
+                init = prog.initial_store()
+                expect = run_sequential(prog, init)
+                exes = {b: plan(prog, method="isd").compile(b, device="cuda")
+                        for b in ("torch", "torch_spmd")}
+                sweeps, cases, events = {}, {}, {}
+                for b, exe in exes.items():
+                    before = graph_counts()
+                    for _ in range(3):  # eager, captured, replayed
+                        check(exe.run(store=init) == expect, f"torch_spmd (a): {name} {b} diverged")
+                    sweeps[b] = count_delta(before)
+                    cases[b] = next(reversed(exe.compiled._cases.values()))
+                    _, _, events[b] = _profiled_run(torch, lambda: exe.run(store=init))
+                check(sweeps["torch_spmd"] == sweeps["torch"]
+                      == {"captures": 1, "replays": 2, "eager_sweeps": 1},
+                      f"torch_spmd (a): {name} sweeps {sweeps}")
+                check(cases["torch_spmd"].static.n_shards == 1, f"torch_spmd (a): {name} sharded")
+                check(cases["torch_spmd"]._steps == cases["torch"]._steps,
+                      f"torch_spmd (a): {name}'s launch list differs from torch's")
+                host = {b: [] for b in exes}
+                for turn in range(WARM_RUNS):
+                    for b in (("torch", "torch_spmd") if turn % 2 == 0 else ("torch_spmd", "torch")):
+                        out, host_ms, _ = _timed_run(torch, exes[b], init)
+                        check(out == expect, f"torch_spmd (a): {name} {b} warm run diverged")
+                        host[b].append(host_ms)
+                emit("torch_spmd (a) nccl world 1: " + json.dumps({
+                    "cell": name, "n_shards": 1, "sweeps": sweeps["torch_spmd"],
+                    "group_steps": len(cases["torch"]._steps),
+                    # printed, not held equal: the same graph read 147460 /
+                    # 147458 events at 96×192 (the profiler's loss, PERF.md)
+                    "device_events_profiled": events,
+                    "warm_ms_median_host": {b: statistics.median(v) for b, v in host.items()},
+                    "warm_runs": WARM_RUNS, "bit_equal": True, "card": smi,
+                }))
+            check(metrics.counter("spmd.collectives").value == 0,
+                  "torch_spmd (a): a world of one issued a collective")
+        finally:
+            dist.destroy_process_group()
+        _spmd_gloo(d)
+    _spmd_auction()
+    obs.reset_all()
+
+
+def _spmd_gloo(workdir):
+    """Phase 3d (b): the gloo worlds on the host CPU."""
+
+    from repro_torch.core import run_sequential
+
+    runs = _spmd_runs()
+    stores = [prog.initial_store() for _, prog, _, _ in runs]
+    expect = [run_sequential(prog, s) for (_, prog, _, _), s in zip(runs, stores)]
+    for world in SPMD_WORLDS:
+        t0 = time.perf_counter()
+        got = _spawn_gloo(world, stores, workdir)
+        spawn_s = time.perf_counter() - t0
+        issued = None
+        for rank, payload in sorted(got.items()):
+            rows = payload["rows"]
+            check([r["label"] for r in rows] == [r[0] for r in runs],
+                  f"torch_spmd (b): rank {rank} ran other runs")
+            for row, want in zip(rows, expect):
+                check(row["store"] == want,
+                      f"torch_spmd (b): {row['label']} diverged on rank {rank} of {world}")
+                check(row["shards"] == world, f"torch_spmd (b): {row['label']} shards")
+                check(row["expected"] is None or row["issued"] == row["expected"],
+                      f"torch_spmd (b): {row['label']} issued {row['issued']} "
+                      f"all-gathers, expected {row['expected']}")
+            counts = [r["issued"] for r in rows]
+            check(issued is None or counts == issued,
+                  "torch_spmd (b): ranks issued different collectives")
+            issued = counts
+        rows0 = got[0]["rows"]
+        emit(f"torch_spmd (b) gloo world {world}, host CPU: " + json.dumps({
+            "runs": len(rows0), "bit_equal_on_every_rank": True,
+            "all_gathers_rank0": sum(issued),
+            "skew_recurrence_64x16_run_ms_host_cpu": {
+                r["label"]: r["run_ms"] for r in rows0 if r["label"].startswith("skew_recurrence")
+            },
+            "rank_wall_s_host_cpu": {r: p["wall_s"] for r, p in sorted(got.items())},
+            "spawn_s_host_cpu": spawn_s,
+        }))
+
+
+def _spmd_auction():
+    """Phase 3d (c): the auction at a forced 8 devices."""
+
+    from repro_torch.compile import spmd
+
+    spmd.force_device_count(8)
+    try:
+        wide, wide_offers, _ = _auction(_wide(40, 96), "torch_spmd")
+        narrow_prog = _narrow(32)
+        narrow, narrow_offers, _ = _auction(narrow_prog, "torch_spmd")
+    finally:
+        spmd.force_device_count(None)
+    check(wide == "skew" and narrow == "chunk",
+          f"torch_spmd (c): at 8 devices the wide recurrence took {wide}, the narrow {narrow}")
+    emit("torch_spmd (c) auction at a forced 8 devices: " + json.dumps({
+        "wide_40x96": {"strategy": wide, "offers": wide_offers},
+        "narrow_32": {"strategy": narrow, "offers": narrow_offers},
+    }))
 
 
 # ---------------------------------------------------------------------- #
@@ -2426,6 +2864,8 @@ def main() -> int:
     level_loop_phase(torch)  # phase 3
     operator_phase()
     service_phase(torch)  # phase 3b
+    calibration_phase(torch, smi)  # phase 3c
+    spmd_phase(torch, smi)  # phase 3d
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6

@@ -141,6 +141,7 @@ _REGISTRY: Dict[str, BackendSpec] = {}
 # for it.
 _LAZY_BACKENDS: Dict[str, str] = {
     "torch": "repro_torch.compile",
+    "torch_spmd": "repro_torch.compile.spmd",
 }
 
 

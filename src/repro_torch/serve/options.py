@@ -40,9 +40,11 @@ class ServiceOptions:
     ``"cuda"``, ``"cuda:N"`` or ``"cpu"``; an unavailable device fails here,
     never by falling back to the CPU.  The other backends run on the host:
     they are not passed it, and it is not checked for them.
-    ``warm_profile``: warming the host's cost-calibration profile at
-    construction needs ``repro_torch.calibrate.warm``, which the port does
-    not have yet (ROADMAP Queue 1 item 5): ``True`` is refused.
+    ``warm_profile``: warm the cost-calibration profile of ``device``
+    (:func:`repro_torch.calibrate.warm`) once at service construction — a
+    persisted profile loads in microseconds, a cold device pays the
+    microbenchmark once *before* traffic instead of never (plans then price
+    strategy offers with measured units).
     """
 
     backend: str = "torch"
@@ -96,12 +98,6 @@ class ServiceOptions:
         if not isinstance(self.warm_profile, bool):
             raise ValueError(
                 f"warm_profile must be a bool, got {self.warm_profile!r}"
-            )
-        if self.warm_profile:
-            raise ValueError(
-                "warm_profile=True needs repro_torch.calibrate.warm, which "
-                "the port does not have yet (ROADMAP Queue 1 item 5); "
-                "construct the service with warm_profile=False"
             )
         if self.backend == "torch":  # the one backend with a device knob
             self._validate_device()

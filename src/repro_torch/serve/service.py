@@ -194,6 +194,14 @@ class PlanService:
             max_workers=self.options.workers,
             thread_name_prefix="plan-serve",
         )
+        if self.options.warm_profile:
+            # load-or-measure the cost profile of the options' device before
+            # the first request, so every plan this service builds prices
+            # strategy offers with the same (measured) units — a persisted
+            # profile makes this a microsecond file read, zero re-measurement
+            from repro_torch.calibrate import warm
+
+            warm(device=self.options.device)
 
     # ------------------------------------------------------------------ #
     # Cache plumbing

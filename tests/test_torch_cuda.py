@@ -1231,3 +1231,96 @@ def test_threads_first_touching_one_constant_beside_captures(cuda):
     for prog, exe in zip(progs, exes):
         init = prog.initial_store()
         assert exe.run(store=init) == tc.run_sequential(prog, init)
+
+
+# ---------------------------------------------------------------------- #
+# Calibration on the card, and "torch_spmd" in a world-size-1 NCCL group
+# ---------------------------------------------------------------------- #
+
+def test_tiny_measure_on_the_card_persists_a_profile_of_the_card(cuda, tmp_path, monkeypatch):
+    import repro_torch.calibrate as calibrate
+    from repro_torch import obs
+    from repro_torch.obs import metrics
+
+    monkeypatch.setenv("REPRO_CALIBRATE_DIR", str(tmp_path))
+    monkeypatch.delenv("REPRO_CALIBRATE", raising=False)
+    obs.reset_all()
+    try:
+        prof = calibrate.measure(device=cuda, n=4096, widths=(8, 64), repeats=2)
+        for name in calibrate.UNIT_NAMES:
+            assert prof.units[name] > 0.0
+        assert prof.meta["timed"] == "captured graph replay between CUDA events"
+        assert prof.meta["device"] == torch.cuda.get_device_name(0)
+        assert set(prof.meta["xla_per_level_us"]) == {"8", "64"}
+        assert metrics.counter("calibrate.measurements").value > 0
+        assert calibrate.profile_path().exists()
+        assert not calibrate.profile_path(device="cpu").exists()
+        obs.reset_all()
+        again = calibrate.warm()
+        assert again.source == "persisted" and again.units == prof.units
+        assert metrics.counter("calibrate.measurements").value == 0
+        assert metrics.counter("calibrate.loads").value == 1
+    finally:
+        obs.reset_all()
+
+
+def test_profile_identity_is_keyed_by_the_cards_name(cuda):
+    import repro_torch.calibrate as calibrate
+
+    info = calibrate.host_info("cuda")
+    assert info["device"] == torch.cuda.get_device_name(0)
+    assert info["cuda"] == torch.version.cuda
+    assert calibrate.host_info("cpu")["device"] == "cpu"
+    assert calibrate.host_fingerprint(device="cuda") != calibrate.host_fingerprint(device="cpu")
+
+
+def test_torch_spmd_in_a_world_of_one_nccl_group_is_the_torch_path(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.compile import spmd
+    from repro_torch.obs import metrics
+
+    obs.reset_all()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1
+    )
+    try:
+        for prog in (tc.paper_alg6(64), _wide_recurrence()):
+            init = prog.initial_store()
+            expect = tc.run_sequential(prog, init)
+            exes = {
+                b: tc.plan(prog, method="isd").compile(b, device=cuda)
+                for b in ("torch", "torch_spmd")
+            }
+            deltas = {}
+            for backend, exe in exes.items():
+                before = _counts()
+                for _ in range(3):  # eager, captured, replayed
+                    assert exe.run(store=init) == expect, backend
+                deltas[backend] = tuple(a - b for a, b in zip(_counts(), before))
+            assert deltas["torch_spmd"] == deltas["torch"] == (1, 2, 1)
+            (c_s,) = exes["torch_spmd"].compiled._cases.values()
+            (c_t,) = exes["torch"].compiled._cases.values()
+            assert c_s.static.n_shards == 1
+            assert c_s._steps == c_t._steps
+        assert metrics.counter("spmd.collectives").value == 0
+        assert spmd.shard_count() == 1
+    finally:
+        dist.destroy_process_group()
+        obs.reset_all()
+
+
+def test_torch_spmd_refuses_a_gloo_group_with_the_card(cuda, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1
+    )
+    try:
+        p = tc.plan(tc.paper_alg6(8), method="isd")
+        with pytest.raises(ValueError, match="cannot gather tensors on cuda"):
+            p.compile("torch_spmd", device=cuda)
+        p.compile("torch_spmd", device="cpu")  # gloo reaches the CPU
+    finally:
+        dist.destroy_process_group()

@@ -41,13 +41,15 @@ VERBATIM = [
     "optim/__init__.py",
     "checkpoint/__init__.py",
     "runtime/fault_tolerance.py",
+    "calibrate/__init__.py",
 ]
 
 # The copies that differ beyond the rename, and why.
 DIFFERING = {
     "core/parallelizer.py": (
         "the lazily registered backends are the port's own: "
-        '{"torch": "repro_torch.compile"} instead of xla / xla_spmd'
+        '{"torch": "repro_torch.compile", "torch_spmd": '
+        '"repro_torch.compile.spmd"} instead of xla / xla_spmd'
     ),
     "kernels/pipelined_matmul/schedule.py": (
         'compile_kloop compiles "torch" and takes the device'
@@ -56,12 +58,11 @@ DIFFERING = {
         'the default backend is "torch" (the port registers no "xla"); a '
         'device knob, default "cuda", validated at construction for the '
         '"torch" backend, the one that takes it; '
-        "warm_profile=True is refused (the port's calibration has no "
-        "warm(), ROADMAP Queue 1 item 5)"
+        "warm_profile warms the profile of the options' device"
     ),
     "serve/service.py": (
         "requests compile with the options' device on the torch backend; "
-        "no warm() at "
+        "warm_profile=True calls warm(device=options.device) at "
         "construction; stats() reads the port's torch.bucket_hits|misses "
         "and reports captures / replays / eager_sweeps from "
         "torch.graph_captures|replays / torch.eager_sweeps, captures in "
@@ -74,6 +75,17 @@ DIFFERING = {
     ),
     "data/pipeline.py": (
         "the unused jax / jax.numpy imports dropped (the stream is NumPy)"
+    ),
+    "calibrate/__init__.py": (
+        "units price the torch level loop (TORCH_STEP_UNITS / "
+        "TORCH_LANE_UNITS) and the collective units are read late from "
+        "repro_torch.compile.spmd; measure / warm / load_profile / "
+        "profile_path / host_info take the device (default 'cuda', which "
+        "raises without a card) and the identity names it (its name, the "
+        "process group's device count, torch, CUDA, machine, system); the "
+        "default profile's fingerprint is 'default' (no CUDA query per "
+        "plan); under a process group rank 0 measures or loads and "
+        "broadcasts; the cache dir is repro-torch-calibrate"
     ),
 }
 
@@ -152,6 +164,15 @@ for prog, deps in ((paper_alg6(16), None), (gather_scatter(8), "speculate")):
     ).run(store=init)
     assert out == run_sequential(prog, init)
 compile_kloop(2, 16, device="cpu")
+
+# the SPMD backend (no process group: one device) and a calibration
+import repro_torch.calibrate as calibrate
+
+prog = paper_alg6(16)
+init = prog.initial_store()
+out = plan(prog, method="isd").compile("torch_spmd", device="cpu").run(store=init)
+assert out == run_sequential(prog, init)
+calibrate.measure(device="cpu", n=256, widths=(4, 16), repeats=1, persist=False)
 
 # the plan service on the "torch" backend
 from repro_torch.serve import PlanService, ServiceOptions, decode_program

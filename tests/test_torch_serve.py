@@ -122,11 +122,23 @@ def test_service_options_rejects_unknown_or_unavailable_device(device):
     assert "'cuda'" in msg and "'cpu'" in msg  # the accepted set
 
 
-def test_service_options_refuses_warm_profile_naming_the_roadmap_item():
-    with pytest.raises(ValueError) as exc:
-        ServiceOptions(warm_profile=True, **CPU)
-    assert "item 5" in str(exc.value)
+def test_service_options_refuses_warm_profile_naming_the_roadmap_item(monkeypatch):
+    """ROADMAP item 5 (calibration) is done, so ``warm_profile=True`` is
+    accepted: a service built with it warms the cost profile of its own
+    device, once, at construction."""
+
+    import repro_torch.calibrate as calibrate
+
+    warmed = []
+    monkeypatch.setattr(
+        calibrate, "warm", lambda *, device="cuda", **kw: warmed.append(device)
+    )
+    assert ServiceOptions(warm_profile=True, **CPU).warm_profile is True
     assert ServiceOptions(warm_profile=False, **CPU).warm_profile is False
+    with PlanService(ServiceOptions(warm_profile=False, **CPU)):
+        assert warmed == []
+    with PlanService(ServiceOptions(warm_profile=True, **CPU)):
+        assert warmed == ["cpu"]
 
 
 def test_service_options_defaults_are_torch_on_cuda():
