@@ -115,6 +115,31 @@ non-zero:
    1.01, the causal mask dropped); and at 1 layer, 6 straight steps
    against 3 + restore + 3, and a ``WorkerFailure`` at step 4 with
    ``ckpt_every=2``, under deterministic algorithms;
+7c. deepseek-moe-16b at full size (28 layers, 16.88 B parameters, 64
+   experts top 6 + 2 shared, bf16, random weights from a seed) with phase
+   7's traffic: one flash launch per layer per prefill, all on the TMA
+   route, no matmul launch; the first wave's logits against a rerun whose
+   attention is the plain version and whose routing replays the kernel
+   run's, and against the same with a planted attention fault; every
+   layer's kernel output against the plain version; the share of (token, k)
+   pairs capacity drops; layer 0's ``moe_apply`` with nothing dropped
+   against ``moe_reference``, and with one expert's output lost; prefill and
+   decode times, tokens/s, peak memory, the idle share of profiled decode
+   steps;
+7d. mamba2-2.7b at full size (64 layers) with the same traffic: no kernel
+   launch; decode steps 1 and 16 against a fresh prefill over the same
+   tokens, in f32 at full size and in bf16 (against the f32 prefill), each
+   with the state dropped as a planted fault; ``ssd_chunked`` against
+   ``ssd_reference`` at one layer's heads and state; then jamba-v0.1 at full
+   width cut to one block of 8 layers (4 requests, 16 new tokens): one
+   launch a prefill, both cache kinds filled, the logits and layer checks;
+7e. whisper-medium at full size (24 + 24 layers, 1500 random frame
+   embeddings a request, a 4-token decoder prompt, 32 new tokens, 8
+   requests in waves of 4): 72 launches a prefill and 24 a decode step, all
+   on the TMA route; the logits check; the encoder's 1500 x 1500, the
+   prefill cross-attention's 4 x 1500 and the decode step's 1 x 1500 calls
+   on the wave's own activations against the plain version, each timed with
+   SDPA and the plain version beside its bound;
 8. one JSON line listing every kernel with its numbers;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -210,6 +235,35 @@ SERVE_SLOTS = 4
 SERVE_PROMPT = 2048
 SERVE_NEW_TOKENS = 32
 SERVE_LOGIT_RTOL = 5e-2  # relative L2 error of the kernel's logits vs plain
+# the other families at full size, bf16, random weights from SEED:
+# deepseek-moe-16b (src/repro/configs/deepseek_moe_16b.py: 28 layers, 64
+# experts top 6 + 2 shared) and mamba2-2.7b (64 layers, 80 SSD heads of 64,
+# state 128) with phase 7's traffic; jamba-v0.1 at full width cut to one
+# block of 8 layers (its 102.9 GB of weights do not fit one card), 4
+# requests of 2048 tokens, 16 new; whisper-medium (24 + 24 layers, 1500
+# frames) with a 4-token decoder prompt and phase 7's requests
+MOE_ARCH = "deepseek_moe_16b"
+MAMBA_ARCH = "mamba2_2_7b"
+HYBRID_ARCH = "jamba_v01_52b"
+HYBRID_REQUESTS = 4
+HYBRID_NEW_TOKENS = 16
+ENCDEC_ARCH = "whisper_medium"
+ENCDEC_PROMPT = 4
+# mamba2's decode steps against a fresh prefill over the same tokens,
+# relative L2 of the logits.  In f32 at full size (TF32 off; the bf16
+# weights upcast, exactly) within MAMBA_F32_RTOL.  In bf16 each path rounds
+# apart by an ulp a layer (cuBLAS takes other kernels for 4 rows than for
+# 8192) and 64 random-init layers amplify it (0.058 at step 1, 0.24 at step
+# 16 on an H100 80GB HBM3 at 700 W), so the bf16 decode is held against the f32 prefill:
+# no further from it than MAMBA_BF16_FACTOR times the bf16 prefill is.  The
+# chunked SSD against its sequential oracle at one layer's heads and
+# state, f32, within tests/test_models.py's 1e-4
+MAMBA_CONTINUATION_STEPS = (1, 16)
+PROFILED_STEPS = 8  # decode steps traced for 7c-7e's idle share
+MAMBA_F32_RTOL = 1e-3
+MAMBA_BF16_FACTOR = 2.0
+SSD_CHECK = (1, 512, 80, 64, 128)  # (B, S, H, P, N)
+SSD_TOL = 1e-4
 
 # (M, K, N). yi-6b (src/repro/configs/yi_6b.py): d_model 4096, d_ff
 # 11008; a 2048-token prefill through the MLP's up and down projections.
@@ -2201,8 +2255,6 @@ def _layer_check(torch, readings):
 
 def serve_phase(torch):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
     from repro_torch.launch.serve_lm import generate, make_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model_zoo
@@ -2224,15 +2276,11 @@ def serve_phase(torch):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: every count set to 0 just before, read just after
-    flash_ops.flash_attention.launches = 0
-    flash_ops.flash_attention.routes = dict.fromkeys(flash_ops.flash_attention.routes, 0)
-    matmul_ops.matmul.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     results = [generate(params, cfg, batch, SERVE_NEW_TOKENS, cache=cache) for batch in waves]
     wall_s = time.perf_counter() - t0
-    launches = flash_ops.flash_attention.launches
-    flash_routes = dict(flash_ops.flash_attention.routes)
-    matmul_launches = matmul_ops.matmul.launches
+    launches, flash_routes, matmul_launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     prefills = len(waves)
     check(
@@ -2760,10 +2808,663 @@ def train_phase(torch):
     emit(f"train phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# Phases 7c-7e: the MoE, Mamba-2 and encoder-decoder families
+# ---------------------------------------------------------------------- #
+
+def _reset_counts():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+
+    flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.routes = dict.fromkeys(flash_ops.flash_attention.routes, 0)
+    matmul_ops.matmul.launches = 0
+
+
+def _read_counts():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+
+    return (flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes),
+            matmul_ops.matmul.launches)
+
+
+def _zeroed(cache):
+    """``cache`` with every entry zeroed, as ``generate`` starts a reused
+    cache: a Mamba layer's prefill starts from the state the cache holds."""
+
+    from repro_torch import tree as tree_lib
+
+    for t in tree_lib.leaves(cache):
+        t.zero_()
+    return cache
+
+
+def _attention_fault(q, k, v, *, causal=True, window=None, chunk=1024, q_offset=0):
+    """The plain version with a planted fault that the last position's
+    logits see: a causal call's edge one key back (each query loses its
+    own key), a non-causal call's last key dropped."""
+
+    from repro_torch.models.attention import chunked_attention_plain
+
+    if causal:
+        return chunked_attention_plain(
+            q, k, v, causal=True, window=window, chunk=chunk, q_offset=q_offset - 1
+        )
+    return chunked_attention_plain(
+        q, k[:, :-1], v[:, :-1], causal=False, window=window, chunk=chunk, q_offset=q_offset
+    )
+
+
+def _routes_recorded(recorded):
+    """``moe._route`` passing through, each call's (one-hot experts, slots,
+    kept) appended to ``recorded`` in call order."""
+
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def recording(params, xg, mc, C):
+        out = route(params, xg, mc, C)
+        recorded.append(out[2:])
+        return out
+
+    return recording
+
+
+def _routes_pinned(torch, recorded):
+    """``moe._route`` taking each call's experts, slots and drops from
+    ``recorded`` (a run's, in call order) and the weights from its own
+    router probabilities at those experts: a rerun whose attention differs
+    routes every (token, k) pair as the recorded run did."""
+
+    calls = iter(recorded)
+
+    def pinned(params, xg, mc, C):
+        onehot, pos, keep = next(calls)
+        probs = torch.softmax(torch.matmul(xg.float(), params["router"]), dim=-1)
+        top_p = (probs[:, :, None, :] * onehot).sum(-1)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        return probs, top_p, onehot, pos, keep
+
+    return pinned
+
+
+def _logit_rel(a, b, vocab) -> float:
+    a, b = a.float()[..., :vocab], b.float()[..., :vocab]
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
+                  flash_per_prefill, flash_per_step, tally=None, logits_fault_held=True):
+    """Phase 7's serving run for one configuration at full width: random
+    bf16 weights from ``SEED``, ``requests`` prompts in waves of ``slots``
+    through ``generate`` (the main path: every count set to 0 just before,
+    read just after), the flash launches it must make (``flash_per_prefill``
+    a prefill, ``flash_per_step`` a decode step, all on ``tma_wgmma``) and
+    no pipelined-matmul launch; where it launches the kernel, the first
+    wave's prefill logits against a rerun whose attention is the plain
+    version and one with a planted fault (:func:`_attention_fault`); one
+    decode wave timed, and its first ``PROFILED_STEPS`` steps profiled for
+    the idle share.  ``tally``, a
+    chunked_attention wrapper, observes the main path's calls.  With
+    ``logits_fault_held`` false the planted fault's logits reading is
+    printed, not held (a model whose attention carries too little of the
+    residual for any attention fault to move its logits past the limit; its
+    per-layer check holds the fault instead).  Returns (row, params, waves,
+    cache, results)."""
+
+    from repro_torch.launch.serve_lm import generate, make_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model_zoo
+    from repro_torch.models.attention import chunked_attention_plain
+
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    waves = [
+        make_batch(cfg, slots, prompt, device="cuda", seed=SEED + 1 + w)
+        for w in range(requests // slots)
+    ]
+    cache = model_zoo.init_cache(cfg, slots, prompt + new_tokens, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every count set to 0 just before, read just after
+    _reset_counts()
+    t0 = time.perf_counter()
+    if tally is None:
+        results = [generate(params, cfg, b, new_tokens, cache=cache) for b in waves]
+    else:
+        with _attention_replaced(tally):
+            results = [generate(params, cfg, b, new_tokens, cache=cache) for b in waves]
+    wall_s = time.perf_counter() - t0
+    launches, routes, matmul_launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect = len(waves) * (flash_per_prefill + (new_tokens - 1) * flash_per_step)
+    check(launches == expect, f"{label}: {launches} flash launches, expected {expect}")
+    check(routes["tma_wgmma"] == launches,
+          f"{label}: flash routes {routes}, expected all {launches} on tma_wgmma")
+    check(matmul_launches == 0, f"{label}: {matmul_launches} pipelined-matmul launches, expected none")
+    for r in results:
+        check(tuple(r.tokens.shape) == (slots, new_tokens), f"{label}: tokens of shape {tuple(r.tokens.shape)}")
+        check(bool(torch.isfinite(r.prefill_logits.float()).all()), f"{label}: non-finite logits")
+        check(int(r.tokens.min()) >= 0 and int(r.tokens.max()) < cfg.vocab_size,
+              f"{label}: a token outside the vocabulary")
+
+    prefill_ms = [r.prefill_ms for r in results]
+    decode_ms = [t for r in results for t in r.decode_ms]
+    row = {
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "params": model_zoo.param_count(params),
+        "init_s": init_s,
+        "requests": requests,
+        "slots": slots,
+        "prompt_tokens": prompt,
+        "new_tokens": new_tokens,
+        "flash_launches": launches,
+        "flash_routes": routes,
+        "pipelined_matmul_launches": matmul_launches,
+        "prefill_ms": prefill_ms,
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_ms_per_step_min": min(decode_ms),
+        "decode_ms_per_step_max": max(decode_ms),
+        "decode_tokens_per_s": slots * len(decode_ms) / (sum(decode_ms) / 1e3),
+        "tokens_per_s_end_to_end": requests * new_tokens / wall_s,
+        "prefill_tokens_per_s": slots * prompt / (statistics.median(prefill_ms) / 1e3),
+        "wall_s": wall_s,
+        "peak_memory_bytes": peak,
+    }
+
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    t_checks = time.perf_counter()
+    if launches:
+        # the first wave's prefill again, its attention the plain version;
+        # then with the planted fault, which the same check must fail.  A
+        # MoE layer's top-k choice jumps where a router near-tie flips, and
+        # the kernel and the plain version round apart in bf16: so the
+        # reruns of a MoE configuration route every (token, k) pair as a
+        # rerun with the kernel did (_routes_pinned), and only attention
+        # differs between them
+        from unittest import mock
+
+        from repro_torch.models import moe
+
+        kernel = results[0].prefill_logits
+        route = mock.patch.object(moe, "_route", moe._route)
+        if cfg.has_moe:
+            recorded = []
+            with mock.patch.object(moe, "_route", _routes_recorded(recorded)):
+                again, cache = prefill_step(params, waves[0], _zeroed(cache))
+            row["kernel_rerun_logits_bit_equal"] = bool(torch.equal(again, kernel))
+            kernel = again
+            route = mock.patch.object(moe, "_route", _routes_pinned(torch, recorded))
+        with _attention_replaced(chunked_attention_plain), route:
+            plain, cache = prefill_step(params, waves[0], _zeroed(cache))
+        if cfg.has_moe:
+            route = mock.patch.object(moe, "_route", _routes_pinned(torch, recorded))
+        with _attention_replaced(_attention_fault), route:
+            faulty, cache = prefill_step(params, waves[0], _zeroed(cache))
+        rel = _logit_rel(kernel, plain, cfg.vocab_size)
+        fault_rel = _logit_rel(faulty, plain, cfg.vocab_size)
+        row.update(logits_vs_plain_rel_l2=rel, logits_rel_l2_limit=SERVE_LOGIT_RTOL,
+                   logits_planted_fault_rel_l2=fault_rel,
+                   logits_planted_fault_held=logits_fault_held)
+        check(rel <= SERVE_LOGIT_RTOL, f"{label}: logits differ from the plain rerun by {rel} (relative L2)")
+        check(not logits_fault_held or fault_rel > SERVE_LOGIT_RTOL,
+              f"{label}: the planted attention fault moves the logits by {fault_rel}, "
+              f"inside the limit {SERVE_LOGIT_RTOL}: the check cannot see it")
+        del plain, faulty, kernel
+        recorded = None
+    if launches and cfg.family == "decoder":
+        # every attention layer's kernel output against the plain version
+        # on the first wave's own activations, and against the same with
+        # the causal edge off by one (phase 7's per-layer check)
+        layers = []
+        with _attention_replaced(_layer_check(torch, layers)):
+            prefill_step(params, waves[0], _zeroed(cache))
+        n_attn = sum(p.mixer != "mamba" for p in cfg.block) * cfg.num_blocks
+        layer_err = max(r[0] for r in layers)
+        layer_fault = min(r[1] for r in layers)
+        row.update(layers_max_row_rel_err=layer_err, layers_min_planted_fault=layer_fault,
+                   layers_row_rel_limit=ROW_TOL["bf16"])
+        check(len(layers) == n_attn, f"{label}: {len(layers)} attention layers checked of {n_attn}")
+        check(layer_err <= ROW_TOL["bf16"], f"{label}: a layer's attention reads {layer_err} > {ROW_TOL['bf16']}")
+        check(layer_fault > ROW_TOL["bf16"],
+              f"{label}: a layer's planted causal-edge fault reads {layer_fault}, "
+              f"inside the limit {ROW_TOL['bf16']}: the check cannot see it")
+
+    row["attention_checks_s"] = time.perf_counter() - t_checks
+
+    # one decode wave timed, then again under the profiler for the busy
+    # time: the idle share is taken against the unprofiled wall time
+    logits, cache = prefill_step(params, waves[0], _zeroed(cache))
+    first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+    state = {}
+
+    def decode_wave(steps=new_tokens - 1):
+        c = state.get("cache", cache)
+        cur = first
+        for i in range(steps):
+            cur, c = serve_step(params, cur, c, prompt + i)
+        state["cache"] = c
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the profiler's cost grows with its events (2000-4000 a step here), so
+    # it traces the wave's first PROFILED_STEPS steps, read against the
+    # same steps unprofiled
+    wave_ms = timed(decode_wave)
+    part = lambda: decode_wave(PROFILED_STEPS)  # noqa: E731
+    part_ms = timed(part)
+    t0 = time.perf_counter()
+    busy_ms, prof_wall_ms, n_events = _profiled_run(torch, part)
+    row.update(
+        profile_s=time.perf_counter() - t0,
+        decode_wave_wall_ms=wave_ms,
+        profiled_steps=PROFILED_STEPS,
+        profiled_steps_wall_ms=part_ms,
+        profiled_steps_profiled_wall_ms=prof_wall_ms,
+        profiled_steps_device_busy_ms=busy_ms,
+        decode_idle_share=(1.0 - busy_ms / part_ms if busy_ms is not None else None),
+        decode_device_events_per_step=n_events / PROFILED_STEPS,
+    )
+    return row, params, waves, cache, results
+
+
+def _moe_checks(torch, cfg, params, batch, cache):
+    """7c's MoE readings on the first wave's own activations: the share of
+    (token, k) pairs each layer's capacity drops at the configured
+    ``capacity_factor``, and layer 0's ``moe_apply`` with the capacity
+    raised so that nothing drops against ``moe_reference``: the largest
+    row-relative L2 error within ``ROW_TOL["bf16"]``, and with one expert's
+    output lost (the most loaded expert's ``w_down`` zeroed), which must
+    read above it."""
+
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+
+    mc = cfg.moe
+    apply = moe.moe_apply
+    drops, inputs = [], []
+
+    def observed(p, x, c):
+        tokens = x.shape[0] * x.shape[1]
+        G = min(mc.group_size, tokens)
+        *_, keep = moe._route(p, x.reshape(tokens // G, G, -1), mc, moe._capacity(mc, G))
+        drops.append(1.0 - keep.float().mean().item())
+        if not inputs:
+            inputs.append(x.clone())
+        return apply(p, x, c)
+
+    with mock.patch.object(moe, "moe_apply", observed):
+        make_prefill_step(cfg)(params, batch, _zeroed(cache))
+    x = inputs[0]
+    lp = params["blocks"][0]["pos0"]["moe"]
+    tokens = x.shape[0] * x.shape[1]
+    G = min(mc.group_size, tokens)
+    _, _, onehot, _, _ = moe._route(lp, x.reshape(tokens // G, G, -1), mc, 1)
+    load = onehot.sum(dim=(1, 2))  # (n, E): the pairs each expert takes in each group
+    factor = (float(load.max()) + 1) * mc.num_experts / (G * mc.top_k)
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(mc, capacity_factor=factor))
+    check(moe._capacity(roomy.moe, G) >= float(load.max()), "moe: the raised capacity still drops")
+    with torch.inference_mode():
+        y, _ = moe.moe_apply(lp, x, roomy)
+        ref = moe.moe_reference(lp, x, roomy)
+        err = row_rel_err(y, ref)
+        busiest = int(onehot.sum(dim=(0, 1, 2)).argmax())
+        w_down = lp["w_down"].clone()
+        w_down[busiest] = 0
+        fault = row_rel_err(moe.moe_apply(dict(lp, w_down=w_down), x, roomy)[0], ref)
+    del y, ref, w_down
+    check(err <= ROW_TOL["bf16"], f"moe: moe_apply reads {err} against moe_reference > {ROW_TOL['bf16']}")
+    check(fault > ROW_TOL["bf16"],
+          f"moe: expert {busiest}'s lost output reads {fault}, inside the limit {ROW_TOL['bf16']}: "
+          "the check cannot see it")
+    return {
+        "dropped_pair_share_per_layer": drops,
+        "dropped_pair_share": statistics.fmean(drops),
+        "capacity_factor": mc.capacity_factor,
+        "layer0_no_drop_capacity_factor": factor,
+        "layer0_moe_vs_reference_max_row_rel_err": err,
+        "layer0_row_rel_limit": ROW_TOL["bf16"],
+        "layer0_planted_fault": f"expert {busiest} w_down zeroed",
+        "layer0_planted_fault_row_rel_err": fault,
+    }
+
+
+def moe_serve_phase(torch):
+    """Phase 7c: deepseek-moe-16b at full size with phase 7's traffic."""
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    row, params, waves, cache, results = _family_serve(
+        torch, "moe", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=cfg.num_layers, flash_per_step=0,
+    )
+    t0 = time.perf_counter()
+    row.update(_moe_checks(torch, cfg, params, waves[0], cache))
+    row["moe_checks_s"] = time.perf_counter() - t0
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit("serve moe: " + json.dumps(row))
+    del params, cache, results, waves
+    torch.cuda.empty_cache()
+    return row["flash_launches"]
+
+
+def _ssd_check(torch):
+    """``ssd_chunked`` against ``ssd_reference`` at one mamba2-2.7b layer's
+    heads and state, f32 (TF32 off), as the layer draws its inputs at
+    initialisation (A = -exp(A_log), dt = softplus(N(0, 1) + dt_bias)):
+    held within ``SSD_TOL``.  Beside it, printed and not held, the same at
+    tests/test_models.py's draw (dt = softplus(N(0, 1)), A = -exp(0.3 N)):
+    over a 256-step chunk its decay sums fall to about -400, and the
+    segment sums, differences of those cumulative sums as the reference's
+    ``_segsum`` takes them, lose f32 digits."""
+
+    from repro_torch.models import mamba
+
+    B, S, H, P, N = SSD_CHECK
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def excess(a, b):  # the largest |a - b| / (atol + rtol |b|): above 1 fails
+        return ((a - b).abs() / (SSD_TOL + SSD_TOL * b.abs())).max().item()
+
+    dt0 = torch.exp(
+        torch.rand(H, device="cuda", generator=gen) * (math.log(0.1) - math.log(0.001))
+        + math.log(0.001)
+    )
+    draws = {
+        "layer_init": (mamba.softplus(randn(B, S, H) + torch.log(torch.expm1(dt0))),
+                       -torch.linspace(1.0, 16.0, H, device="cuda")),
+        "test_models": (mamba.softplus(randn(B, S, H)), -torch.exp(randn(H) * 0.3)),
+    }
+    out = {"ssd_shape": dict(zip("BSHPN", SSD_CHECK)), "ssd_tol": SSD_TOL}
+    for name, (dt, A) in draws.items():
+        x, Bm, Cm = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        with torch.inference_mode():
+            y, h = mamba.ssd_chunked(x, dt, A, Bm, Cm, 256)
+            y_ref, h_ref = mamba.ssd_reference(x, dt, A, Bm, Cm)
+        out[f"ssd_{name}_limit_share"] = {"y": excess(y, y_ref), "state": excess(h, h_ref)}
+    held = out["ssd_layer_init_limit_share"]
+    check(held["y"] <= 1 and held["state"] <= 1,
+          f"mamba: ssd_chunked against ssd_reference reads {held} of the limit")
+    return out
+
+
+def _continuation(torch, cfg, params, batch, cache, f32_params):
+    """Decode step t's logits against the last-position logits of a fresh
+    prefill over the prompt and the t greedy tokens so far, for each t of
+    ``MAMBA_CONTINUATION_STEPS``.  In f32 within ``MAMBA_F32_RTOL``; in
+    bf16 against the f32 prefill (``f32_params``, the same weights) of the
+    same tokens, within ``MAMBA_BF16_FACTOR`` times the bf16 prefill's
+    distance from it.  The planted fault is step t with every layer's SSM
+    state zeroed before it (the state not carried), on a copy of the cache,
+    and must read above the limit."""
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model_zoo
+
+    prefill_step = make_prefill_step(cfg)
+    f32_cfg = cfg.scaled(dtype="float32")
+    f32_prefill = make_prefill_step(f32_cfg)
+    fresh = model_zoo.init_cache(cfg, batch["tokens"].shape[0], 1, device="cuda")
+    f32_fresh = model_zoo.init_cache(f32_cfg, batch["tokens"].shape[0], 1, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        logits, cache = prefill_step(params, batch, _zeroed(cache))
+        tokens, n = batch["tokens"], batch["tokens"].shape[1]
+        for t in range(1, max(MAMBA_CONTINUATION_STEPS) + 1):
+            cur = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+            tokens = torch.cat([tokens, cur], dim=1)
+            if t in MAMBA_CONTINUATION_STEPS:
+                stateless = tree_lib.tree_map(lambda a: a.clone(), cache)
+                for b in stateless["blocks"]:
+                    b["pos0"]["ssm"].zero_()
+                faulty, _ = model_zoo.decode_step(params, cur, cfg, stateless, n)
+                del stateless
+            logits, cache = model_zoo.decode_step(params, cur, cfg, cache, n)
+            n += 1
+            if t not in MAMBA_CONTINUATION_STEPS:
+                continue
+            ref, _ = prefill_step(params, {"tokens": tokens}, _zeroed(fresh))
+            reading = {"vs_prefill_rel_l2": _logit_rel(logits, ref, cfg.vocab_size)}
+            if cfg.dtype == "float32":
+                limit = MAMBA_F32_RTOL
+                err = reading["vs_prefill_rel_l2"]
+                fault = _logit_rel(faulty, ref, cfg.vocab_size)
+            else:
+                ref32, _ = f32_prefill(f32_params, {"tokens": tokens}, _zeroed(f32_fresh))
+                noise = _logit_rel(ref, ref32, cfg.vocab_size)
+                limit = MAMBA_BF16_FACTOR * noise
+                err = _logit_rel(logits, ref32, cfg.vocab_size)
+                fault = _logit_rel(faulty, ref32, cfg.vocab_size)
+                reading.update(prefill_vs_f32_rel_l2=noise, decode_vs_f32_rel_l2=err)
+            reading.update(limit=limit, planted_fault_rel_l2=fault)
+            out[t] = reading
+            check(err <= limit, f"mamba {cfg.dtype}: decode step {t} reads {err} > {limit}")
+            check(fault > limit,
+                  f"mamba {cfg.dtype}: step {t} without its state reads {fault}, inside the "
+                  f"limit {limit}: the check cannot see it")
+    return {f"continuation_{cfg.dtype}": out}
+
+
+def mamba_serve_phase(torch):
+    """Phase 7d: mamba2-2.7b at full size with phase 7's traffic, then
+    jamba-v0.1 at full width cut to one block of 8 layers."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MAMBA_ARCH)
+    row, params, waves, cache, results = _family_serve(
+        torch, "mamba", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=0, flash_per_step=0,
+    )
+    del results
+    # the same weights in f32 (exact; 10.8 GB): the bf16 decode's yardstick,
+    # then the continuation itself in f32
+    from repro_torch import tree as tree_lib
+
+    t0 = time.perf_counter()
+    f32 = cfg.scaled(dtype="float32")
+    f32_params = tree_lib.tree_map(lambda a: a.float(), params)
+    row.update(_continuation(torch, cfg, params, waves[0], cache, f32_params))
+    del params, cache
+    torch.cuda.empty_cache()
+    cache = model_zoo.init_cache(f32, SERVE_SLOTS, 1, device="cuda")
+    row.update(_continuation(torch, f32, f32_params, waves[0], cache, f32_params))
+    del f32_params, cache, waves
+    torch.cuda.empty_cache()
+    row["continuation_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row.update(_ssd_check(torch))
+    row["ssd_check_s"] = time.perf_counter() - t0
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit("serve mamba: " + json.dumps(row))
+
+    t_phase = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    cfg = full.scaled(num_layers=len(full.block))
+    # one attention layer of 8, behind four Mamba layers whose outputs are
+    # O(1) a component at random init where a near-uniform attention over
+    # 2048 keys gives O(1/45): its planted fault is held at the layer
+    row, params, waves, cache, results = _family_serve(
+        torch, "hybrid", cfg, requests=HYBRID_REQUESTS, slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
+        new_tokens=HYBRID_NEW_TOKENS, flash_per_prefill=1, flash_per_step=0,
+        logits_fault_held=False,
+    )
+    # after the profiled decode wave the cache holds both kinds of state
+    block = cache["blocks"][0]
+    kinds = {
+        f"pos{i}": ("kv" if "k" in c else "ssm",
+                    float(c["k"].float().abs().amax()) if "k" in c else float(c["ssm"].abs().amax()))
+        for i, c in ((i, block[f"pos{i}"]) for i in range(len(cfg.block)))
+    }
+    check(all(v > 0 for _, v in kinds.values()), f"hybrid: an empty cache entry: {kinds}")
+    check({k for k, _ in kinds.values()} == {"kv", "ssm"}, f"hybrid: cache kinds {kinds}")
+    row.update(cut=f"{full.num_layers} layers to one block of {cfg.num_layers}",
+               cache_kinds_abs_max=kinds, phase_s=time.perf_counter() - t_phase)
+    emit("serve hybrid: " + json.dumps(row))
+    del params, cache, results, waves
+    torch.cuda.empty_cache()
+    return row["flash_launches"]
+
+
+def _whisper_shapes(torch, cfg, params, batch, cache):
+    """The three new call shapes on the first wave's own activations (the
+    first encoder call, the first prefill cross-attention call and the
+    first decode step's): the kernel against the plain version (largest
+    row-relative error within ``ROW_TOL["bf16"]``, with phase 6's planted
+    64-key tile drop above it), then the kernel, SDPA and the plain version
+    timed in turns beside the kernel's bound."""
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.attention import chunked_attention
+
+    seen = {}
+
+    def record(q, k, v, *, causal=True, **kw):
+        if not causal and q.shape[1] not in seen:
+            seen[q.shape[1]] = (q.clone(), k.clone(), v.clone())
+        return chunked_attention(q, k, v, causal=causal, **kw)
+
+    with _attention_replaced(record), torch.inference_mode():
+        logits, cache = make_prefill_step(cfg)(params, batch, _zeroed(cache))
+        first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        make_serve_step(cfg)(params, first, cache, ENCDEC_PROMPT)
+    names = {cfg.encoder.num_frames: "encoder", ENCDEC_PROMPT: "cross prefill", 1: "cross decode"}
+    check(sorted(seen) == sorted(names), f"encdec: non-causal calls of {sorted(seen)} query rows")
+    rows = {}
+    for sq, name in names.items():
+        q, k, v = seen[sq]
+        B, Sq, H, hd = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        out = ops.flash_attention(q, k, v, causal=False)
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=False)
+        err = (out.float() - ref).abs().max().item()
+        rel = row_rel_err(out, ref)
+        del ref
+        faults = planted_faults(torch, q, k, v, out, False, None)
+        check(rel <= ROW_TOL["bf16"], f"encdec {name}: row relative error {rel} > {ROW_TOL['bf16']}")
+        # the dropped 64-key tile is held; one dropped key of 1500 is printed
+        # (a decoder query's weight on one key is near 1/1500 at random init)
+        tile = next(f for f in faults if f.startswith("keys "))
+        check(faults[tile] > ROW_TOL["bf16"],
+              f"encdec {name}: planted fault {tile!r} reads {faults[tile]}, inside the limit "
+              f"{ROW_TOL['bf16']}: the check cannot see it")
+        bound_ms, bound_by, flops = flash_bound(B, Sq, Sk, H, KV, hd, False, None, "bf16", 2)
+        reps = 20 if Sq > 64 else 100
+        ms, library_ms, plain_ms = _time_turns_ms(torch, [
+            lambda: ops.flash_attention(q, k, v, causal=False),
+            lambda: _sdpa(torch, q, k, v, False, None),
+            lambda: flash_attention_bshd_ref(q, k, v, causal=False),
+        ], reps)
+        rows[name] = {
+            "case": f"whisper-medium {name} {Sq}x{Sk}, bf16",
+            "kernel_route": ops._route_of(q, k, v),
+            "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                      "causal": False, "window": None},
+            "max_abs_err": err,
+            "max_row_rel_err": rel,
+            "row_rel_limit": ROW_TOL["bf16"],
+            "planted_faults": faults,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "reps": reps,
+            "tflops": flops / ms / 1e9,
+            "timed_in_turns": ["ms", "library_ms", "plain_ms"],
+        }
+        emit("flash: " + json.dumps(rows[name]))
+    return rows
+
+
+def encdec_serve_phase(torch):
+    """Phase 7e: whisper-medium at full size (24 + 24 layers, 1500 random
+    frame embeddings a request), a 4-token decoder prompt, 32 new tokens,
+    8 requests in waves of 4."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import chunked_attention
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    calls = {}
+
+    def tally(q, k, v, *, causal=True, **kw):
+        key = (q.shape[1], k.shape[1], causal)
+        calls[key] = calls.get(key, 0) + 1
+        return chunked_attention(q, k, v, causal=causal, **kw)
+
+    row, params, waves, cache, results = _family_serve(
+        torch, "encdec", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=ENCDEC_PROMPT,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=3 * cfg.num_layers,
+        flash_per_step=cfg.num_layers, tally=tally,
+    )
+    check(sum(calls.values()) == row["flash_launches"],
+          f"encdec: {sum(calls.values())} attention calls for {row['flash_launches']} launches")
+    shapes = _whisper_shapes(torch, cfg, params, waves[0], cache)
+    F = cfg.encoder.num_frames
+    launches = {"encoder": calls[(F, F, False)], "cross prefill": calls[(ENCDEC_PROMPT, F, False)],
+                "cross decode": calls[(1, F, False)]}
+    for name, n in launches.items():
+        shapes[name]["launches"] = n
+    row.update(attention_calls={f"{sq}x{sk}{' causal' if c else ''}": n for (sq, sk, c), n in calls.items()},
+               phase_s=time.perf_counter() - t_phase)
+    emit("serve encdec: " + json.dumps(row))
+    del params, cache, results, waves
+    torch.cuda.empty_cache()
+    return row["flash_launches"], shapes
+
+
+def whisper_entries(shapes):
+    """The kernels-line entries of the flash kernel at whisper's three new
+    call shapes, with the main path's launches at each."""
+
+    entries = []
+    for row in shapes.values():
+        check(row["kernel_route"] == "tma_wgmma", f"{row['case']}: took {row['kernel_route']}")
+        check(row["launches"] > 0, f"{row['case']}: no launch on the main path")
+        entries.append({
+            "name": f"flash_attention[{row['case']}]",
+            "route": "cuda",
+            "kernel_route": row["kernel_route"],
+            "source": TMA_FLASH_SOURCE,
+            "replaces": FLASH_TPU_KERNEL,
+            **{k: row[k] for k in ("launches", "max_abs_err", "max_row_rel_err", "row_rel_limit",
+                                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "reps", "tflops", "timed_in_turns")},
+        })
+    return entries
+
+
 def flash_entries(rows, serve_launches, phase_launches):
     """The kernels-line entries of the flash kernels, one per route taken:
     ``tma_wgmma`` at the shape the serving phase gives it (its launches are
-    the serving run's), ``tma_wgmma_tf32x3`` at the f32 prefill, and
+    the serving runs' of phases 7 and 7c-7e), ``tma_wgmma_tf32x3`` at the f32 prefill, and
     ``cp_async_mma`` and ``ffma`` at the unaligned hd-32 case (their
     launches are phase 6's main run's)."""
 
@@ -2871,7 +3572,16 @@ def main() -> int:
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
     flash_launches = serve_phase(torch)  # phase 7
     train_phase(torch)  # phase 7b
+    for phase in (moe_serve_phase, mamba_serve_phase):  # phases 7c, 7d
+        t0 = time.perf_counter()
+        flash_launches += phase(torch)
+        emit(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    encdec_launches, whisper_rows = encdec_serve_phase(torch)  # phase 7e
+    emit(f"encdec_serve_phase: {time.perf_counter() - t0:.1f} s")
+    flash_launches += encdec_launches
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
+    entries.extend(whisper_entries(whisper_rows))
     entries.append(split_entry)
 
     emit(json.dumps({"kernels": entries}))  # phase 8

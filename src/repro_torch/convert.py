@@ -4,10 +4,11 @@
 this package's IR classes, field by field, with the compute callables
 passed through unchanged; :func:`store_from_reference` copies a store.
 :func:`params_from_jax` turns a reference parameter tree (NumPy arrays)
-into the port's decoder parameters, :func:`opt_state_from_jax` and
-:func:`snapshot_from_jax` carry an optimizer state and a training
-checkpoint across the same way, and :func:`cache_to_jax_layout` lays the
-port's KV cache out as the reference's.  All read attributes and
+into the port's parameters (decoder or encoder-decoder),
+:func:`opt_state_from_jax` and :func:`snapshot_from_jax` carry an
+optimizer state and a training checkpoint across the same way, and
+:func:`cache_to_jax_layout` lays the port's cache (KV, Mamba state,
+cross-attention K/V) out as the reference's.  All read attributes and
 arrays only (duck typing) and import nothing of the reference package, so
 the port stays importable without it.  Matmul operands need no converter:
 they are NumPy arrays on both sides (``torch.from_numpy``).
@@ -83,22 +84,34 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, n: int, conv) -> list:
+    """A stacked reference subtree as a list of ``n`` per-block trees."""
+
+    return [_map(tree, lambda a, b=b: conv(a[b])) for b in range(n)]
+
+
 def params_from_jax(cfg, tree, *, device="cuda") -> dict:
-    """The port's decoder parameters for a reference tree
+    """The port's parameters for a reference tree
     (``repro.models.model_zoo.init``'s, as NumPy arrays): the stacked
-    ``blocks`` are unstacked along their leading ``num_blocks`` axis into a
-    list of per-block dicts; ``embed``, ``rem`` and ``final_norm`` are
-    copied."""
+    ``blocks`` (decoder) or ``enc_blocks`` / ``dec_blocks``
+    (encoder-decoder) are unstacked along their leading axis into lists of
+    per-block dicts, MoE expert stacks staying whole inside each block;
+    every other leaf is copied."""
 
     def conv(a):
         return tensor_from_numpy(a, device)
 
+    if cfg.family == "encdec":
+        return {
+            "embed": _map(tree["embed"], conv),
+            "enc_blocks": _unstack(tree["enc_blocks"], cfg.encoder.num_layers, conv),
+            "enc_norm": _map(tree["enc_norm"], conv),
+            "dec_blocks": _unstack(tree["dec_blocks"], cfg.num_layers, conv),
+            "final_norm": _map(tree["final_norm"], conv),
+        }
     return {
         "embed": _map(tree["embed"], conv),
-        "blocks": [
-            _map(tree["blocks"], lambda a, b=b: conv(a[b]))
-            for b in range(cfg.num_blocks)
-        ],
+        "blocks": _unstack(tree["blocks"], cfg.num_blocks, conv),
         "rem": _map(tree.get("rem", {}), conv),
         "final_norm": _map(tree["final_norm"], conv),
     }
@@ -142,10 +155,13 @@ def snapshot_from_jax(cfg, snap, *, device="cuda"):
 
 
 def cache_to_jax_layout(cfg, cache) -> dict:
-    """The port's KV cache as NumPy arrays in the reference's layout: the
-    per-block caches stacked on a leading ``num_blocks`` axis under
-    ``blocks`` (absent without blocks), ``rem`` as it is.  bf16 entries
-    come back as float32 (exact)."""
+    """The port's cache as NumPy arrays in the reference's layout.  A
+    decoder's per-block caches (KV entries, Mamba ``ssm`` / ``conv``
+    states) are stacked on a leading ``num_blocks`` axis under ``blocks``
+    (absent without blocks), ``rem`` as it is; an encoder-decoder's
+    per-layer ``{"k", "v", "ck", "cv"}`` are stacked on a leading layer
+    axis, with no ``blocks`` / ``rem``.  bf16 entries come back as float32
+    (exact)."""
 
     import numpy as np
     import torch
@@ -160,6 +176,8 @@ def cache_to_jax_layout(cfg, cache) -> dict:
             return {k: stacked([t[k] for t in trees]) for k in trees[0]}
         return np.stack([host(t) for t in trees])
 
+    if cfg.family == "encdec":
+        return stacked(cache)
     out = {"rem": _map(cache["rem"], host)}
     if cfg.num_blocks:
         out["blocks"] = stacked(cache["blocks"])

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.compile.lowering import resolve_device
 from repro_torch.configs import ARCHITECTURES, get_smoke_config
 from repro_torch.configs.base import ModelConfig
@@ -45,8 +46,9 @@ def prefix_len(cfg: ModelConfig) -> int:
 def make_batch(
     cfg: ModelConfig, batch: int, prompt_len: int, *, device="cuda", seed: int = 0
 ) -> Dict[str, torch.Tensor]:
-    """Random prompts (and patch embeddings for the vision stub), drawn
-    from a seeded generator on ``device``."""
+    """Random prompts (and frame embeddings for the audio stub, patch
+    embeddings for the vision stub), drawn from a seeded generator on
+    ``device``."""
 
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -56,6 +58,10 @@ def make_batch(
             dtype=torch.int32,
         )
     }
+    if cfg.frontend == "audio":
+        out["frame_embeds"] = torch.randn(
+            (batch, cfg.encoder.num_frames, cfg.d_model), generator=gen, device=dev
+        )
     if cfg.frontend == "vision":
         out["patch_embeds"] = 0.1 * torch.randn(
             (batch, cfg.num_patches, cfg.d_model), generator=gen, device=dev
@@ -79,8 +85,9 @@ def generate(
     """Prefill ``batch``, then ``new_tokens - 1`` greedy decode steps.
 
     ``cache`` (optional) is a cache from :func:`zoo.init_cache` with room
-    for the prompt, the prefix and ``new_tokens``; it is overwritten, so
-    one cache can serve wave after wave of the same shape.
+    for the prompt, the prefix and ``new_tokens``; it is zeroed and then
+    overwritten, so one cache can serve wave after wave of the same shape
+    (a Mamba layer's prefill starts from the state the cache holds).
     """
 
     if new_tokens < 1:
@@ -91,6 +98,9 @@ def generate(
     cache_len = S + prefix_len(cfg)
     if cache is None:
         cache = zoo.init_cache(cfg, B, cache_len + new_tokens, device=dev)
+    else:
+        for t in tree_lib.leaves(cache):
+            t.zero_()
     prefill = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
 

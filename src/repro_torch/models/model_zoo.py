@@ -1,10 +1,10 @@
-"""Unified model API, as the reference's ``models/model_zoo.py``, for the
-decoder families the port runs (``transformer``); the encoder-decoder
-family raises ``NotImplementedError``.
+"""Unified model API over the decoder and encoder-decoder families, as the
+reference's ``models/model_zoo.py``.
 
 ``batch`` dict contract:
-  tokens (B,S) int              — text tokens
+  tokens (B,S) int              — text tokens (decoder input for encdec)
   labels (B,S) int              — next-token targets (train)
+  frame_embeds (B,F,d)          — audio frontend stub (whisper)
   patch_embeds (B,P,d)          — vision frontend stub (llava)
 
 ``loss_fn`` is the training objective (mean NLL + MoE aux), ``prefill`` /
@@ -17,39 +17,54 @@ Every entry point runs on the device its tensors lie on; :func:`init` and
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.compile.lowering import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import softmax_cross_entropy
 
 AUX_LOSS_WEIGHT = 0.01
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: the
+    initialisers then give every parameter's shape and dtype and allocate
+    nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def _init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported yet (ROADMAP Queue 1 item 9)"
-        )
+        return encdec.init_encdec(generator, cfg)
+    return transformer.init_decoder(generator, cfg)
 
 
 def init(cfg: ModelConfig, *, device="cuda", seed: int = 0) -> dict:
     """Random parameters on ``device``, drawn tensor by tensor from a
     ``torch.Generator`` on that device seeded with ``seed``."""
 
-    _decoder_only(cfg)
-    generator = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return transformer.init_decoder(generator, cfg)
+    return _init(torch.Generator(device=resolve_device(device)).manual_seed(seed), cfg)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes without
+    allocating (the reference's ``jax.eval_shape`` of ``init``)."""
+
+    return _init(_MetaGenerator(), cfg)
 
 
 def forward_logits(
     params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _decoder_only(cfg)
+    if cfg.family == "encdec":
+        return encdec.forward(params, batch["frame_embeds"], batch["tokens"], cfg)
     return transformer.forward(
         params, batch["tokens"], cfg, prefix_embeds=batch.get("patch_embeds")
     )
@@ -60,7 +75,7 @@ def loss_fn(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"nll", "aux"}): the mean next-token NLL in f32 over the text
     positions (``loss_mask`` weights them when given) plus the weighted MoE
-    aux loss (zero here)."""
+    aux loss (zero without MoE)."""
 
     logits, aux = forward_logits(params, batch, cfg)
     labels = batch["labels"]
@@ -72,15 +87,19 @@ def loss_fn(
     return loss, {"nll": nll, "aux": aux}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    _decoder_only(cfg)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, resolve_device(device))
     return transformer.init_cache(cfg, batch, max_len, resolve_device(device))
 
 
 def prefill(
-    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig, cache: dict
-) -> Tuple[torch.Tensor, dict]:
-    _decoder_only(cfg)
+    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig, cache
+) -> Tuple[torch.Tensor, Any]:
+    if cfg.family == "encdec":
+        return encdec.prefill(
+            params, batch["frame_embeds"], batch["tokens"], cfg, cache
+        )
     return transformer.prefill(
         params, batch["tokens"], cfg, cache,
         prefix_embeds=batch.get("patch_embeds"),
@@ -91,10 +110,11 @@ def decode_step(
     params: dict,
     tokens: torch.Tensor,
     cfg: ModelConfig,
-    cache: dict,
+    cache,
     cache_len,
-) -> Tuple[torch.Tensor, dict]:
-    _decoder_only(cfg)
+) -> Tuple[torch.Tensor, Any]:
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, tokens, cfg, cache, cache_len)
     return transformer.decode_step(params, tokens, cfg, cache, cache_len)
 
 
@@ -103,13 +123,25 @@ def param_count(params: dict) -> int:
 
 
 def active_param_count(params: dict, cfg: ModelConfig) -> int:
-    """Parameters touched per token: all of them in a dense model."""
+    """Parameters touched per token: the routed experts' weights scaled by
+    top_k/E, the router, the shared experts and everything else in full.
+    The scaled count is rounded down per leaf of the reference's layout
+    (:func:`repro_torch.tree.reference_groups`), as the reference rounds."""
 
-    if cfg.has_moe:
-        raise NotImplementedError(
-            "the MoE MLP is not ported yet (ROADMAP Queue 1 item 9)"
+    if not cfg.has_moe:
+        return param_count(params)
+    assert cfg.moe is not None
+    frac = cfg.moe.top_k / cfg.moe.num_experts
+    flat = tree_lib.flatten_with_paths(params)
+    total = 0
+    for idx, _ in tree_lib.reference_groups(params):
+        path = flat[idx[0]][0]
+        size = sum(flat[i][1].numel() for i in idx)
+        routed = len(path) >= 2 and path[-2] == "moe" and path[-1] in (
+            "w_gate", "w_up", "w_down"
         )
-    return param_count(params)
+        total += int(size * frac) if routed else size
+    return total
 
 
 def model_flops_per_token(params: dict, cfg: ModelConfig) -> float:

@@ -1,9 +1,11 @@
 """Decoder LM over repeating layer blocks, as the reference's
-``models/transformer.py``, for the dense decoder families: full attention
-(``ATTN``), sliding-window attention (``ATTN_LOCAL``) and the dense SwiGLU
-MLP — yi, granite, internlm2, gemma3 (5:1 local:global with remainder
-layers) and llava (patch-embedding prefix).  MoE and Mamba positions raise
-``NotImplementedError``.
+``models/transformer.py``, for every decoder family through the block
+pattern of :class:`repro_torch.configs.base.ModelConfig`: full attention
+(``ATTN``), sliding-window attention (``ATTN_LOCAL``), the Mamba2 mixer
+(``MAMBA``), the dense SwiGLU MLP and the MoE MLP — yi, granite, internlm2,
+gemma3 (5:1 local:global with remainder layers), llava (patch-embedding
+prefix), deepseek and mixtral (MoE), jamba (Mamba + attention, MoE every
+other layer) and mamba2 (attention-free).
 
 Three entry modes share the layer code: ``train`` (full sequence, no
 cache), ``prefill`` (full sequence, fills the cache), ``decode`` (one token
@@ -12,6 +14,8 @@ the reference's ``jax.checkpoint`` does.  The reference stacks the ``num_blocks`
 leading axis for ``lax.scan``; here ``params["blocks"]`` is a list of
 per-block dicts run by a Python loop (``repro_torch.convert`` unstacks a
 reference tree), and the remainder layers follow, as in the reference.
+Every layer returns its MoE aux loss (zero without MoE), summed over the
+stack.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     cdtype,
     embed,
@@ -43,46 +49,31 @@ from repro_torch.models.layers import (
     unembed,
 )
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 9)"
-
-
-def _check_position(pos: LayerPos) -> None:
-    if pos.mixer == MAMBA:
-        raise NotImplementedError(f"the Mamba mixer {_NOT_PORTED}")
-    if pos.mixer not in (ATTN, ATTN_LOCAL):
-        raise ValueError(pos.mixer)
-    if pos.mlp == MLP_MOE:
-        raise NotImplementedError(f"the MoE MLP {_NOT_PORTED}")
-
-
-def check_config(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port's decoder does not run."""
-
-    if cfg.family != "decoder":
-        raise NotImplementedError(f"the {cfg.family!r} family {_NOT_PORTED}")
-    for pos in cfg.block:
-        _check_position(pos)
-
-
 # ---------------------------------------------------------------------- #
 # init
 # ---------------------------------------------------------------------- #
 
 def _layer_init(generator: torch.Generator, pos: LayerPos, cfg: ModelConfig) -> dict:
-    _check_position(pos)
     dev = generator.device
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dev)}
-    p["attn"] = attn_lib.attn_init(generator, cfg)
+    if pos.mixer in (ATTN, ATTN_LOCAL):
+        p["attn"] = attn_lib.attn_init(generator, cfg)
+    elif pos.mixer == MAMBA:
+        p["mamba"] = mamba_lib.mamba_init(generator, cfg)
+    else:
+        raise ValueError(pos.mixer)
     if pos.mlp == MLP_DENSE and cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(cfg.d_model, dev)
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cdtype(cfg))
+    elif pos.mlp == MLP_MOE:
+        p["norm2"] = rmsnorm_init(cfg.d_model, dev)
+        p["moe"] = moe_lib.moe_init(generator, cfg)
     return p
 
 
 def init_decoder(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters drawn from ``generator`` on its device."""
 
-    check_config(cfg)
     params: Dict[str, Any] = {"embed": embed_init(generator, cfg)}
     params["blocks"] = [
         {f"pos{i}": _layer_init(generator, pos, cfg) for i, pos in enumerate(cfg.block)}
@@ -101,7 +92,8 @@ def init_decoder(generator: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------- #
 
 def _layer_cache(pos: LayerPos, cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    _check_position(pos)
+    if pos.mixer == MAMBA:
+        return mamba_lib.mamba_init_state(cfg, batch, device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant:
         sshape = shape[:-1] + (1,)
@@ -118,7 +110,6 @@ def _layer_cache(pos: LayerPos, cfg: ModelConfig, batch: int, max_len: int, devi
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    check_config(cfg)
     return {
         "blocks": [
             {
@@ -138,32 +129,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 # layer application (shared by all modes)
 # ---------------------------------------------------------------------- #
 
-def _apply_layer(
-    p: dict,
-    x: torch.Tensor,
-    pos: LayerPos,
-    cfg: ModelConfig,
-    mode: str,
-    cache: Optional[dict],
-    cache_len,
-) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache).  The cache is updated in place."""
+def positions(mode: str, seq: int, cache_len, device) -> torch.Tensor:
+    """The rotary positions of a layer's input: ``cache_len`` for the one
+    decode token (a Python int makes no host-to-device copy), else
+    0..seq-1."""
 
-    _check_position(pos)
-    window = cfg.sliding_window if pos.mixer == ATTN_LOCAL else None
+    if mode != "decode":
+        return torch.arange(seq, device=device)
+    if isinstance(cache_len, int):
+        return torch.arange(cache_len, cache_len + 1, device=device)
+    return torch.as_tensor(cache_len, device=device).reshape(1)
 
-    # --- mixer ---
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    q, k, v = attn_lib.qkv_project(p["attn"], h)
-    if mode == "decode":
-        if isinstance(cache_len, int):  # no host-to-device copy
-            positions = torch.arange(cache_len, cache_len + 1, device=x.device)
-        else:
-            positions = torch.as_tensor(cache_len, device=x.device).reshape(1)
-    else:
-        positions = torch.arange(x.shape[1], device=x.device)
-    q = attn_lib.apply_rope(q, positions, cfg.rope_theta)
-    k = attn_lib.apply_rope(k, positions, cfg.rope_theta)
+
+def _attention(p, h, cfg, window, mode, cache, cache_len):
+    """The attention mixer: (output, new cache)."""
+
+    q, k, v = attn_lib.qkv_project(p, h)
+    pos = positions(mode, h.shape[1], cache_len, h.device)
+    q = attn_lib.apply_rope(q, pos, cfg.rope_theta)
+    k = attn_lib.apply_rope(k, pos, cfg.rope_theta)
     new_cache = cache
     if mode == "train":
         o = attn_lib.chunked_attention(
@@ -190,13 +174,48 @@ def _apply_layer(
             )
             new_cache = {"k": kc, "v": vc}
             o = attn_lib.decode_attention(q, kc, vc, cache_len + 1, window=window)
-    x = x + attn_lib.out_project(p["attn"], o)
+    return attn_lib.out_project(p, o), new_cache
+
+
+def _apply_layer(
+    p: dict,
+    x: torch.Tensor,
+    pos: LayerPos,
+    cfg: ModelConfig,
+    mode: str,
+    cache: Optional[dict],
+    cache_len,
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss).  The cache is updated in place."""
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # --- mixer ---
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if pos.mixer in (ATTN, ATTN_LOCAL):
+        window = cfg.sliding_window if pos.mixer == ATTN_LOCAL else None
+        o, new_cache = _attention(p["attn"], h, cfg, window, mode, cache, cache_len)
+    elif pos.mixer == MAMBA:
+        if mode == "train":
+            o, _ = mamba_lib.mamba_apply(p["mamba"], h, cfg, None)
+            new_cache = cache
+        elif mode == "prefill":
+            o, new_cache = mamba_lib.mamba_apply(p["mamba"], h, cfg, cache)
+        else:
+            o, new_cache = mamba_lib.mamba_decode_step(p["mamba"], h, cfg, cache)
+    else:
+        raise ValueError(pos.mixer)
+    x = x + o
 
     # --- mlp ---
     if pos.mlp == MLP_DENSE and "mlp" in p:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + mlp(p["mlp"], h)
-    return x, new_cache
+    elif pos.mlp == MLP_MOE:
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        x = x + y
+    return x, new_cache, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -213,16 +232,22 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _checkpointed_block(bp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _checkpointed_block(
+    bp: dict, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block in train mode under ``torch.utils.checkpoint``, as the
     reference runs its scan body under ``jax.checkpoint``: ``remat="full"``
     saves only the block's input (``nothing_saveable``), ``"dots"`` also
-    the products :func:`_dots_policy` names."""
+    the products :func:`_dots_policy` names.  Returns (x, the block's aux
+    loss), both out of the checkpointed body, so the aux keeps its
+    gradient."""
 
     def body(xb):
+        aux = torch.zeros((), dtype=torch.float32, device=xb.device)
         for i, pos in enumerate(cfg.block):
-            xb, _ = _apply_layer(bp[f"pos{i}"], xb, pos, cfg, "train", None, None)
-        return xb
+            xb, _, a = _apply_layer(bp[f"pos{i}"], xb, pos, cfg, "train", None, None)
+            aux = aux + a
+        return xb, aux
 
     kwargs = {}
     if cfg.remat == "dots":
@@ -241,31 +266,38 @@ def _run_stack(
     mode: str,
     cache: Optional[dict],
     cache_len,
-) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The blocks in order, then the remainder layers.  In train mode with
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """The blocks in order, then the remainder layers; returns (x, new
+    cache, the aux loss summed over every layer).  In train mode with
     grad enabled and ``cfg.remat`` other than ``"none"`` each block runs
     under a checkpoint (:func:`_checkpointed_block`); the remainder layers
     run plain, as the reference unrolls them outside its scan."""
 
     new_cache: Dict[str, Any] = {"blocks": [], "rem": {}}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
     for b, bp in enumerate(params["blocks"]):
         if remat:
-            x = _checkpointed_block(bp, x, cfg)
+            x, a = _checkpointed_block(bp, x, cfg)
+            aux = aux + a
             continue
         nbc = {}
+        block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, pos in enumerate(cfg.block):
             pc = cache["blocks"][b][f"pos{i}"] if cache is not None else None
-            x, nbc[f"pos{i}"] = _apply_layer(
+            x, nbc[f"pos{i}"], a = _apply_layer(
                 bp[f"pos{i}"], x, pos, cfg, mode, pc, cache_len
             )
+            block_aux = block_aux + a
+        aux = aux + block_aux
         new_cache["blocks"].append(nbc)
     for i in range(cfg.remainder_layers):
         pc = cache["rem"][f"layer{i}"] if cache is not None else None
-        x, new_cache["rem"][f"layer{i}"] = _apply_layer(
+        x, new_cache["rem"][f"layer{i}"], a = _apply_layer(
             params["rem"][f"layer{i}"], x, cfg.block[i], cfg, mode, pc, cache_len
         )
-    return x, (new_cache if cache is not None else None)
+        aux = aux + a
+    return x, (new_cache if cache is not None else None), aux
 
 
 # ---------------------------------------------------------------------- #
@@ -287,14 +319,12 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode forward.  Returns (logits (B,S,V), aux_loss), the aux loss
-    zero (no MoE).  ``prefix_embeds`` (B,P,d) are prepended (VLM patch
-    embeddings)."""
+    the MoE layers' summed (zero without MoE).  ``prefix_embeds`` (B,P,d)
+    are prepended (VLM patch embeddings)."""
 
-    check_config(cfg)
     x = _embed_inputs(params, tokens, cfg, prefix_embeds)
-    x, _ = _run_stack(params, x, cfg, "train", None, None)
+    x, _, aux = _run_stack(params, x, cfg, "train", None, None)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params["embed"], x, cfg), aux
 
 
@@ -309,9 +339,8 @@ def prefill(
     """Fill the cache from a full prompt.  Returns (last-position logits,
     cache)."""
 
-    check_config(cfg)
     x = _embed_inputs(params, tokens, cfg, prefix_embeds)
-    x, new_cache = _run_stack(params, x, cfg, "prefill", cache, None)
+    x, new_cache, _ = _run_stack(params, x, cfg, "prefill", cache, None)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return unembed(params["embed"], x, cfg), new_cache
 
@@ -325,8 +354,7 @@ def decode_step(
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B,1); cache_len = tokens already cached."""
 
-    check_config(cfg)
     x = embed(params["embed"], tokens).to(cdtype(cfg))
-    x, new_cache = _run_stack(params, x, cfg, "decode", cache, cache_len)
+    x, new_cache, _ = _run_stack(params, x, cfg, "decode", cache, cache_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), new_cache

@@ -5,10 +5,11 @@ leaf.  Dict children go in sorted key order, as ``jax.tree`` orders them, so
 a flattened tree lists its leaves in the reference's order wherever the two
 layouts agree.
 
-The reference stacks a decoder's ``num_blocks`` repeating blocks on a
-leading axis, so one of its leaves holds that tensor of every block; the
-port keeps ``params["blocks"]`` as a list of per-block dicts
-(:func:`repro_torch.convert.params_from_jax`).  :func:`reference_groups`
+The reference stacks a decoder's ``num_blocks`` repeating blocks, and an
+encoder-decoder's encoder and decoder layers, on a leading axis, so one of
+its leaves holds that tensor of every block; the port keeps
+``params["blocks"]``, ``["enc_blocks"]`` and ``["dec_blocks"]`` as lists
+of per-block dicts (:func:`repro_torch.convert.params_from_jax`).  :func:`reference_groups`
 maps the port's leaves back onto the reference's: what the reference
 computes per leaf (the rank that decides weight decay, an int8 scale, a
 top-k set) the port computes per group.
@@ -93,18 +94,25 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)])
 
 
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def reference_groups(tree) -> List[Tuple[List[int], bool]]:
     """The port's leaves grouped as the reference's: a leaf under
-    ``["blocks"][b]`` joins the same leaf of every other block (in block
-    order, the reference's stacking order); any other leaf is a group of
-    its own.  Each group is (leaf indices in flattened order, stacked)."""
+    ``[g][b]``, for ``g`` in :data:`STACKED` and a list ``tree[g]``, joins
+    the same leaf of every other block of ``g`` (in block order, the
+    reference's stacking order); any other leaf is a group of its own.
+    Each group is (leaf indices in flattened order, stacked)."""
 
-    unstacked = isinstance(tree, dict) and isinstance(tree.get("blocks"), list)
+    lists = (
+        {g for g in STACKED if isinstance(tree.get(g), list)}
+        if isinstance(tree, dict) else set()
+    )
     groups: Dict[Path, List[int]] = {}
     for i, (path, _) in enumerate(flatten_with_paths(tree)):
-        key = ("blocks",) + path[2:] if unstacked and path[0] == "blocks" else path
+        key = (path[0],) + path[2:] if path and path[0] in lists else path
         groups.setdefault(key, []).append(i)
-    return [(idx, unstacked and key[0] == "blocks") for key, idx in groups.items()]
+    return [(idx, bool(key) and key[0] in lists) for key, idx in groups.items()]
 
 
 def reference_ndims(tree) -> List[int]:

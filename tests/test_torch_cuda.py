@@ -1324,3 +1324,111 @@ def test_torch_spmd_refuses_a_gloo_group_with_the_card(cuda, tmp_path):
         p.compile("torch_spmd", device="cpu")  # gloo reaches the CPU
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------- #
+# The MoE, Mamba-2 and encoder-decoder families
+# ---------------------------------------------------------------------- #
+
+def _rel_l2(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("dtype,limit", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_moe_layer_matches_dense_oracle_on_cuda(cuda, dtype, limit):
+    """One deepseek-moe-16b MoE layer at full width (64 experts, top 6, 2
+    shared) on 512 tokens, capacity raised so nothing drops: the grouped
+    dispatch against ``moe_reference`` on the card, relative L2 within
+    1e-5 in f32 (TF32 off) and 1e-2 in bf16 (the two sum the experts in
+    other orders and round the combine weights to bf16)."""
+
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("deepseek_moe_16b").scaled(dtype=dtype)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn(2, 256, cfg.d_model, device=cuda, generator=gen).to(getattr(torch, dtype))
+    with torch.inference_mode():
+        y, aux = moe.moe_apply(params, x, cfg)
+        ref = moe.moe_reference(params, x, cfg)
+    assert bool(torch.isfinite(aux)) and y.dtype == x.dtype
+    assert _rel_l2(y, ref) <= limit
+
+
+def test_ssd_chunked_matches_sequential_on_cuda(cuda):
+    """``ssd_chunked`` against ``ssd_reference`` at one mamba2-2.7b layer's
+    heads and state (H 80, P 64, N 128), S 512 in two chunks of 256, f32
+    (TF32 off), within 1e-4 as the reference's own test holds them."""
+
+    from repro_torch.models import mamba
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, S, H, P, N = 1, 512, 80, 64, 128
+    x = torch.randn(B, S, H, P, device=cuda, generator=gen)
+    dt = mamba.softplus(torch.randn(B, S, H, device=cuda, generator=gen) - 4.0)
+    A = -torch.exp(torch.randn(H, device=cuda, generator=gen) * 0.3)
+    Bm = torch.randn(B, S, N, device=cuda, generator=gen)
+    Cm = torch.randn(B, S, N, device=cuda, generator=gen)
+    with torch.inference_mode():
+        y, h = mamba.ssd_chunked(x, dt, A, Bm, Cm, 256)
+        y_ref, h_ref = mamba.ssd_reference(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+# whisper-medium (16 heads, hd 64, 1500 encoder frames): the encoder's
+# 1500 x 1500, the prefill cross-attention's 4 x 1500 and the decode
+# step's 1 x 1500, all non-causal
+WHISPER_SHAPES = [(4, 1500, 1500), (4, 4, 1500), (4, 1, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk", WHISPER_SHAPES, ids=lambda v: str(v))
+def test_flash_kernel_at_whisper_shapes_on_cuda(cuda, B, Sq, Sk, dtype):
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, 16, 16, 64, dtype)
+    out, took = _flash_counted(q, k, v, causal=False)
+    assert took == _flash_route(dtype, 64)
+    ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=False)
+    assert _row_err(out, ref) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize(
+    "arch,per_prefill,per_step",
+    [
+        ("deepseek_moe_16b", 1, 0),
+        ("mamba2_2_7b", 0, 0),
+        ("jamba_v01_52b", 1, 0),
+        ("whisper_medium", 3, 1),  # encoder, self, cross; the cross at decode
+    ],
+)
+def test_new_families_serve_on_cuda_through_the_kernel(cuda, arch, per_prefill, per_step):
+    """The smoke configuration served on the card agrees with the same
+    weights served on the CPU (f32 logits within 1e-4: the devices sum in
+    other orders), with the stated flash launches per attention layer."""
+
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = model_zoo.init(cfg, device="cpu", seed=0)
+    # 2 x 16 prompt tokens: one MoE group of 32
+    batch = serve_lm.make_batch(cfg, 2, 16, device="cpu", seed=1)
+    on_cpu = serve_lm.generate(params, cfg, batch, 6)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    attn_layers = sum(p.mixer != "mamba" for p in cfg.block) * cfg.num_blocks
+    before = flash_ops.flash_attention.launches
+    on_cuda = serve_lm.generate(to(params), cfg, to(batch), 6)
+    assert flash_ops.flash_attention.launches - before == attn_layers * (per_prefill + 5 * per_step)
+    torch.testing.assert_close(
+        on_cuda.prefill_logits.cpu(), on_cpu.prefill_logits, atol=1e-4, rtol=1e-4
+    )
+    assert torch.equal(on_cuda.tokens.cpu(), on_cpu.tokens)

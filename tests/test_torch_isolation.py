@@ -193,6 +193,12 @@ cfg = get_smoke_config("gemma3_27b")
 params = model_zoo.init(cfg, device="cpu")
 res = generate(params, cfg, make_batch(cfg, 2, 8, device="cpu"), 2)
 assert res.tokens.shape == (2, 2) and len(res.decode_ms) == 1
+# one MoE, one Mamba and one encoder-decoder smoke forward
+for arch in ("deepseek_moe_16b", "mamba2_2_7b", "whisper_medium"):
+    cfg = get_smoke_config(arch)
+    batch = make_batch(cfg, 2, 8, device="cpu")
+    logits, aux = model_zoo.forward_logits(model_zoo.init(cfg, device="cpu"), batch, cfg)
+    assert logits.shape == (2, 8, cfg.padded_vocab_size) and bool(torch.isfinite(aux))
 # the training path: a CPU train loop of a smoke config, checkpointed
 import tempfile
 from repro_torch.checkpoint.manager import CheckpointManager
