@@ -50,6 +50,14 @@ non-zero:
    every rank, one all-gather per read-bearing group step; (c) the auction
    at a forced 8 devices: the wide recurrence skews, the narrow one
    chunks;
+3e. the pipeline runner (``repro_torch.runtime.pipeline.PipelineRunner``,
+   one thread a stage) with 4 stages of ``tanh(x @ W)`` at yi-6b's width on
+   the card, without and with skips, bit-equal to ``run_reference`` with
+   (S-1) x M hand-offs; then the pipeline step
+   (``repro_torch.runtime.pp_lowering.build_pipeline_step``, one rank a
+   stage) in 2 and 4 gloo processes on the host CPU, with no skip and with
+   every forward pair of stages as a skip: the last rank's outputs against
+   the plain stage chain, one hand-off a microbatch step on every rank;
 4. the pipelined matmul's K-loop plan at ring depths 1 and 2, and the
    K-loop compiled on the card (bit-equal, structural hit across ``steps``);
    the Hopper K-loop plan (a producer warpgroup issues and loads, consumer
@@ -139,7 +147,26 @@ non-zero:
    on the TMA route; the logits check; the encoder's 1500 x 1500, the
    prefill cross-attention's 4 x 1500 and the decode step's 1 x 1500 calls
    on the wave's own activations against the plain version, each timed with
-   SDPA and the plain version beside its bound;
+   SDPA and the plain version beside its bound; at the two cross shapes the
+   one-hot probes (and with V = I) on the TMA route, their first rows on
+   the last ragged tile's 28 keys, exact, and the plain version with the
+   last key dropped must miss them;
+7f. the continuous-batching server (``repro_torch.launch.serve``)
+   at yi-6b's full size: 16 requests of 2048 prompt tokens in 4 slots (4
+   waves), 32 new tokens, each wave's four sync plans through the default
+   plan service on the card; every request's tokens equal ``generate``'s
+   on the same batch, one flash launch a layer a prefill on the TMA route,
+   no structural miss and no capture from the third wave on; tokens/s, the
+   per-wave plan / compile / run p50 and p99, each wave's cache and
+   capture counts; then one more wave with the int8 KV cache;
+7g. whisper-medium (24 + 24 layers, 4 x 448 tokens, 1500 frames a row),
+   mamba2-2.7b (64 layers, 4 x 2048) and deepseek-moe-16b (cut to 4 of 28
+   layers, 4 x 2048, 16 steps) trained at full width as phase 7b trains
+   granite (8 steps): losses finite and falling, step ms, tokens/s, peak
+   memory, the idle share of a profiled step; deepseek's aux-loss gradient at every
+   router; each with phase 7b's parity step at 2 layers in f32 and its two
+   planted faults (in an attention-free stack the mask fault moves the
+   SSD's causal edge one step forward);
 8. one JSON line listing every kernel with its numbers;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -304,6 +331,33 @@ RESUME_LAYERS = 1
 RESUME_BATCH = 2
 RESUME_SEQ = 512
 RESUME_RTOL = 1e-6
+
+# phase 7f: the continuous-batching server (repro_torch.launch.serve) at
+# yi-6b's full size with phase 7's prompts, slots and new tokens: 16
+# requests (4 waves), then one more wave with the int8 KV cache
+BATCHING_REQUESTS = 16
+# phase 7g: the three new families trained at full width, bf16, remat
+# "full", random weights from SEED, phase 7b's optimizer, each with phase
+# 7b's parity step at PARITY_LAYERS layers (an encoder-decoder's encoder
+# cut alike): (cell, arch, layers or None for the config's, rows, tokens
+# a row, steps).
+# whisper-medium (src/repro/configs/whisper_medium.py: 24 + 24 layers) with
+# 1500 frame embeddings a row and 448 decoder tokens, its published
+# maximum target length; mamba2-2.7b at its 64 layers; deepseek-moe-16b cut
+# from 28 layers to FAMILY_MOE_LAYERS, the most whose peak stays under
+# FAMILY_PEAK_LIMIT bytes (the phase holds it): at the update a layer's
+# 588 M parameters hold 24 bytes each, 14.1e9 a layer (bf16 weights and
+# grads, and the f32 AdamW moments twice while the eager update replaces
+# them), so a fifth layer would pass the card's 80 GB.  Its 4-layer loss
+# moves by less in 8 steps than step-to-step noise, so it takes 16 (~0.45 s
+# a step); the others take phase 7b's 8
+FAMILY_MOE_LAYERS = 4
+FAMILY_PEAK_LIMIT = 70e9
+FAMILY_TRAIN = [
+    ("whisper_medium_train_4x448_1500f", ENCDEC_ARCH, None, 4, 448, 8),
+    ("mamba2_2p7b_train_4x2048", MAMBA_ARCH, None, 4, 2048, 8),
+    (f"deepseek_moe16b_{FAMILY_MOE_LAYERS}l_train_4x2048", MOE_ARCH, FAMILY_MOE_LAYERS, 4, 2048, 16),
+]
 
 SEED = 0
 WARM_RUNS = 11
@@ -1013,6 +1067,24 @@ def calibration_phase(torch, smi):
 
 SPMD_WORLDS = (2, 4)  # gloo processes on the host CPU
 SPMD_TIMEOUT_S = 300  # per spawn; its children are killed on it
+# phase 3e: PipelineRunner on the card, 4 stages of tanh(x @ W) at yi-6b's
+# width (d_model 4096), 8 microbatches of 2048 rows in bf16, without skips
+# and with PP_SKIPS; then build_pipeline_step in gloo worlds on the host CPU
+# (f32, 8 rows a microbatch), without skips and with every forward pair of
+# stages as a skip (1 in a world of 2, 6 in a world of 4).  The last rank's
+# outputs against the plain stage chain in the parent within PP_GLOO_TOL
+# (the ranks run one CPU thread, the parent several)
+PP_STAGES = 4
+PP_MICROBATCHES = 8
+PP_ROWS = 2048
+PP_D = 4096
+PP_SKIPS = ((0, 2), (0, 3), (1, 3))
+PP_GLOO_ROWS = 8
+PP_WORLDS = {
+    2: ((), ((0, 1),)),
+    4: ((), ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))),
+}
+PP_GLOO_TOL = 1e-5
 
 
 def _spmd_runs():
@@ -1079,18 +1151,20 @@ def _spmd_worker(rank, world, init_file, stores, results):
         results.put((rank, "error", traceback.format_exc()))
 
 
-def _spawn_gloo(world, stores, workdir):
-    """Run ``_spmd_worker`` on ``world`` spawned processes; every wait is
-    bounded by ``SPMD_TIMEOUT_S`` and the children are killed on it."""
+def _spawn_gloo(world, payload, workdir, worker=None, label="torch_spmd"):
+    """Run ``worker`` (``_spmd_worker`` by default) on ``world`` spawned
+    processes, each given ``payload``; every wait is bounded by
+    ``SPMD_TIMEOUT_S`` and the children are killed on it."""
 
     import multiprocessing
     import queue
 
+    worker = worker or _spmd_worker
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
+    store = str(Path(workdir) / f"store_{worker.__name__}_{world}")
     procs = [
-        ctx.Process(target=_spmd_worker, daemon=True,
-                    args=(r, world, str(Path(workdir) / f"store_{world}"), stores, results))
+        ctx.Process(target=worker, daemon=True, args=(r, world, store, payload, results))
         for r in range(world)
     ]
     for p in procs:
@@ -1100,13 +1174,13 @@ def _spawn_gloo(world, stores, workdir):
     try:
         while len(got) < world and time.monotonic() < deadline:
             try:
-                rank, status, payload = results.get(timeout=5.0)
+                rank, status, result = results.get(timeout=5.0)
             except queue.Empty:
                 if not any(p.is_alive() for p in procs):
                     break
                 continue
-            check(status == "ok", f"torch_spmd gloo rank {rank} of {world} failed:\n{payload}")
-            got[rank] = payload
+            check(status == "ok", f"{label} gloo rank {rank} of {world} failed:\n{result}")
+            got[rank] = result
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.monotonic()))
     finally:
@@ -1115,7 +1189,7 @@ def _spawn_gloo(world, stores, workdir):
                 p.kill()
                 p.join(timeout=10)
     check(sorted(got) == list(range(world)),
-          f"torch_spmd gloo: ranks {sorted(set(range(world)) - set(got))} of {world} "
+          f"{label} gloo: ranks {sorted(set(range(world)) - set(got))} of {world} "
           f"gave no result in {SPMD_TIMEOUT_S} s (killed)")
     return got
 
@@ -1248,6 +1322,171 @@ def _spmd_auction():
         "wide_40x96": {"strategy": wide, "offers": wide_offers},
         "narrow_32": {"strategy": narrow, "offers": narrow_offers},
     }))
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3e: the pipeline runner and the pipeline-parallel step
+# ---------------------------------------------------------------------- #
+
+def _pp_stage(torch, w):
+    """One stage of ``tanh(x @ W)``; a stage that takes skip inputs adds
+    them to its chain input first, in the order they come."""
+
+    def fn(x):
+        if isinstance(x, tuple):
+            x, *skip_in = x
+            extra = torch.zeros_like(x)
+            for v in skip_in:
+                extra = extra + v
+            x = x + extra
+        return torch.tanh(x @ w)
+
+    return fn
+
+
+def _pp_weight(torch, s):
+    """Stage ``s``'s (d, d) f32 weights of the gloo pipeline step, drawn on
+    the CPU from its own seed: each rank builds its own, the parent all."""
+
+    gen = torch.Generator().manual_seed(SEED + 1 + s)
+    return torch.randn((PP_D, PP_D), generator=gen) / math.sqrt(PP_D)
+
+
+def _pp_inputs(torch):
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randn((PP_MICROBATCHES, PP_GLOO_ROWS, PP_D), generator=gen)
+
+
+def _pp_worker(rank, world, init_file, skip_sets, results):
+    """One gloo rank of phase 3e: one stage of ``build_pipeline_step`` for
+    each skip set, its accumulator (the last rank's, as NumPy: a tensor
+    would cross by a shared-memory handle that dies with this process),
+    the hand-offs it counted and its plan's eliminated edges."""
+
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.obs import metrics
+        from repro_torch.runtime.pp_lowering import HANDOFFS, build_pipeline_step
+
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            w, xs = _pp_weight(torch, rank), _pp_inputs(torch)
+            rows = []
+            for skips in skip_sets:
+                before = metrics.counter(HANDOFFS).value
+                step, plan = build_pipeline_step(PP_MICROBATCHES, PP_D, skips, device="cpu")
+                t0 = time.perf_counter()
+                acc = step(w, xs)
+                rows.append({
+                    "skips": skips,
+                    "acc": acc.numpy() if rank == world - 1 else None,
+                    "acc_nonzero": bool(acc.any()),
+                    "handoffs": metrics.counter(HANDOFFS).value - before,
+                    "eliminated": sorted((d.source, d.sink) for d in plan.elimination.eliminated),
+                    "naive_sync": plan.summary()["naive_sync_instructions"],
+                    "optimized_sync": plan.summary()["optimized_sync_instructions"],
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                })
+            results.put((rank, "ok", rows))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def pipeline_phase(torch, smi):
+    """Phase 3e: (a) ``PipelineRunner`` (one thread a stage) with 4 stages
+    of ``tanh(x @ W)`` at yi-6b's width on CUDA tensors, without and with
+    skips, bit-equal to ``run_reference`` with (S-1) x M hand-offs; (b) the
+    pipeline step (``build_pipeline_step``, one rank a stage) in gloo worlds
+    of 2 and 4 on the host CPU, with no skip and with every forward pair of
+    stages as a skip: the last rank's accumulator against the plain stage
+    chain, one hand-off a microbatch step on every rank."""
+
+    import tempfile
+
+    from repro_torch.runtime.pipeline import PipelineRunner
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    weights = [draw(PP_D, PP_D) / math.sqrt(PP_D) for _ in range(PP_STAGES)]
+    inputs = [draw(PP_ROWS, PP_D) for _ in range(PP_MICROBATCHES)]
+    stages = [_pp_stage(torch, w) for w in weights]
+    for skips in ((), PP_SKIPS):
+        runner = PipelineRunner(stages, skips=skips, num_microbatches=PP_MICROBATCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, stats = runner.run(inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = runner.run_reference(inputs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        differ = sum(int((a != b).sum()) for a, b in zip(outs, ref))
+        check(differ == 0, f"pipeline runner (cuda, skips {skips}): {differ} values differ "
+                           "from run_reference")
+        expect = (PP_STAGES - 1) * PP_MICROBATCHES
+        check(stats.handoffs == expect,
+              f"pipeline runner (cuda, skips {skips}): {stats.handoffs} hand-offs, expected {expect}")
+        emit("pipeline runner (cuda): " + json.dumps({
+            "stages": PP_STAGES, "microbatches": PP_MICROBATCHES, "rows": PP_ROWS, "d": PP_D,
+            "dtype": "bf16", "skips": skips, "handoffs": stats.handoffs,
+            "naive_handoffs_per_microbatch": runner.naive_handoffs_per_microbatch(),
+            "eliminated": sorted((d.source, d.sink) for d in runner.plan.elimination.eliminated),
+            "bit_equal_to_run_reference": True,
+            "runner_ms_host": (t1 - t0) * 1e3, "run_reference_ms_host": (t2 - t1) * 1e3,
+            "card": smi,
+        }))
+
+    xs = _pp_inputs(torch)
+    with tempfile.TemporaryDirectory() as d:
+        for world, skip_sets in PP_WORLDS.items():
+            w = [_pp_weight(torch, s) for s in range(world)]
+            t0 = time.perf_counter()
+            got = _spawn_gloo(world, skip_sets, d, worker=_pp_worker, label="pipeline step")
+            spawn_s = time.perf_counter() - t0
+            for i, skips in enumerate(skip_sets):
+                rows = [got[r][i] for r in range(world)]
+                plain = PipelineRunner([_pp_stage(torch, ws) for ws in w], skips=skips,
+                                       num_microbatches=1)
+                want = torch.zeros_like(xs)
+                for m in range(world - 1, PP_MICROBATCHES):
+                    (want[m],) = plain.run_reference([xs[m - (world - 1)]])
+                err = (torch.from_numpy(rows[-1]["acc"]) - want).abs().max().item()
+                check(err <= PP_GLOO_TOL, f"pipeline step (gloo {world}, skips {skips}): the last "
+                                          f"stage's outputs differ from the plain chain by {err}")
+                check(all(r["handoffs"] == PP_MICROBATCHES for r in rows),
+                      f"pipeline step (gloo {world}, skips {skips}): hand-offs "
+                      f"{[r['handoffs'] for r in rows]}, expected {PP_MICROBATCHES} on every rank")
+                check(not any(r["acc_nonzero"] for r in rows[:-1]),
+                      f"pipeline step (gloo {world}): a stage before the last wrote its outputs")
+                skipped = {(f"F{a}", f"F{b}") for a, b in skips if b > a + 1}
+                check(skipped <= set(map(tuple, rows[0]["eliminated"])),
+                      f"pipeline step (gloo {world}): skips {skipped} not all eliminated")
+                emit(f"pipeline step gloo world {world}, host CPU: " + json.dumps({
+                    "microbatches": PP_MICROBATCHES, "rows": PP_GLOO_ROWS, "d": PP_D,
+                    "dtype": "f32", "skips": skips,
+                    "handoffs_per_rank": [r["handoffs"] for r in rows],
+                    "payload_slabs_per_handoff": 1 + len(skips),
+                    "naive_sync": rows[0]["naive_sync"],
+                    "optimized_sync": rows[0]["optimized_sync"],
+                    "eliminated": rows[0]["eliminated"],
+                    "last_stage_max_abs_err": err, "tol": PP_GLOO_TOL,
+                    "step_ms_host_cpu": [r["step_ms"] for r in rows],
+                    "spawn_s_host_cpu": spawn_s,
+                }))
+    emit(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------- #
@@ -2469,6 +2708,7 @@ def _step_readings(p0, got, ref, b1):
     worst, where = {}, {}
 
     def note(key, value, path):
+        value = math.inf if math.isnan(value) else value  # NaN reads as off the limit
         if value >= worst.get(key, 0.0):
             worst[key], where[key] = value, "/".join(map(str, path))
 
@@ -2505,16 +2745,17 @@ def _parity(torch, cfg):
     """One ``make_train_step`` on the card against the same step on the CPU
     from the same params and batch (f32, TF32 off), within
     ``TRAIN_PARITY_TOL``; then the step on the card with a planted fault,
-    which must read above it: one leaf's grad scaled by 1.01 (through the
-    ``grad_compressor`` hook), and, apart, train-mode attention with the
-    causal mask dropped."""
+    which must read above it: the output projection's grad scaled by 1.01
+    (through the ``grad_compressor`` hook), and, apart, the causal mask
+    broken: train-mode attention's dropped, or in an attention-free stack
+    the SSD's moved one step forward within a chunk."""
 
     from unittest import mock
 
     from repro_torch import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, DataState, make_batch
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import attention, model_zoo
+    from repro_torch.models import attention, mamba, model_zoo
     from repro_torch.optim.optimizer import AdamW
 
     opt = AdamW(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=10)
@@ -2535,8 +2776,10 @@ def _parity(torch, cfg):
         cpu_s = time.perf_counter() - t0
         sound = _step_readings(host, on_cuda(), ref, opt.b1)
 
+        head = "head" if "head" in params["embed"] else "tok"  # tied: the embedding
+
         def scaled_head(grads, opt_state):
-            grads["embed"]["head"] = grads["embed"]["head"] * 1.01
+            grads["embed"][head] = grads["embed"][head] * 1.01
             return grads, opt_state
 
         plain = attention.chunked_attention_plain
@@ -2544,13 +2787,24 @@ def _parity(torch, cfg):
         def no_causal(q, k, v, *, causal=True, **kw):
             return plain(q, k, v, causal=False, **kw)
 
+        def leaky_segsum(a):  # the SSD's causal edge one step forward
+            Q = a.shape[-1]
+            cum = torch.cumsum(a, dim=-1)
+            keep = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device), diagonal=1)
+            return (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, mamba.NEG_INF)
+
         grad_fault = _step_readings(host, on_cuda(grad_compressor=scaled_head), ref, opt.b1)
-        with mock.patch.object(attention, "chunked_attention_plain", no_causal):
+        if _attention_calls(cfg):
+            masked = mock.patch.object(attention, "chunked_attention_plain", no_causal)
+        else:
+            masked = mock.patch.object(mamba, "_segsum", leaky_segsum)
+        with masked:
             mask_fault = _step_readings(host, on_cuda(), ref, opt.b1)
     finally:
         torch.set_float32_matmul_precision(precision)
     del params
     row = {
+        "arch": cfg.name,
         "layers": cfg.num_layers,
         "dtype": cfg.dtype,
         "tokens": PARITY_SEQ,
@@ -2561,7 +2815,9 @@ def _parity(torch, cfg):
         "limits": TRAIN_PARITY_TOL,
         "clear_grad": CLEAR_GRAD,
         "planted_head_grad_x1_01": grad_fault,
+        "planted_head_leaf": f"embed/{head}",
         "planted_causal_mask_dropped": mask_fault,
+        "planted_mask": "attention" if _attention_calls(cfg) else "ssd causal edge +1",
     }
     # the row first, so that a failed check leaves its readings behind
     emit("train parity: " + json.dumps(row))
@@ -3367,12 +3623,14 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
         del ref
         faults = planted_faults(torch, q, k, v, out, False, None)
         check(rel <= ROW_TOL["bf16"], f"encdec {name}: row relative error {rel} > {ROW_TOL['bf16']}")
-        # the dropped 64-key tile is held; one dropped key of 1500 is printed
-        # (a decoder query's weight on one key is near 1/1500 at random init)
+        # the dropped 64-key tile is held here; one dropped key of 1500 is
+        # printed (a decoder query's weight on one key is near 1/1500 at
+        # random init) and held by the exact probes at the cross shapes
         tile = next(f for f in faults if f.startswith("keys "))
         check(faults[tile] > ROW_TOL["bf16"],
               f"encdec {name}: planted fault {tile!r} reads {faults[tile]}, inside the limit "
               f"{ROW_TOL['bf16']}: the check cannot see it")
+        probes = _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd) if Sq < 64 else None
         bound_ms, bound_by, flops = flash_bound(B, Sq, Sk, H, KV, hd, False, None, "bf16", 2)
         reps = 20 if Sq > 64 else 100
         ms, library_ms, plain_ms = _time_turns_ms(torch, [
@@ -3389,6 +3647,7 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
             "max_row_rel_err": rel,
             "row_rel_limit": ROW_TOL["bf16"],
             "planted_faults": faults,
+            "one_hot_probes": probes,
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -3400,6 +3659,41 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
         }
         emit("flash: " + json.dumps(rows[name]))
     return rows
+
+
+def _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd):
+    """Phase 6's one-hot probes (and with V = I) at a whisper cross shape,
+    non-causal, on the ``tma_wgmma`` route, their first rows on the last
+    ragged tile's keys (Sk % 64 of them) and the key before it: exact; and
+    the plain version with the last key dropped, a planted one-key edge,
+    must miss on at least the row that picked it."""
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe
+
+    edge = Sk % 64 + 1
+    out = {"ragged_tile_keys": Sk % 64, "rows": B * H * Sq}
+    for identity_v in (False, True):
+        q, k, v, expected = one_hot_probe(
+            B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=SEED,
+            first_picks=Sk - 1 - np.arange(edge),
+        )
+        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q, k, v))
+        expected = torch.from_numpy(expected)
+        label = f"{Sq}x{Sk}{', V = I' if identity_v else ''}"
+        check(ops._route_of(q, k, v) == "tma_wgmma", f"edge probe {label}: not on tma_wgmma")
+        differ = int((ops.flash_attention(q, k, v, causal=False).float().cpu() != expected).sum())
+        check(differ == 0, f"edge probe {label}: {differ} values differ")
+        dropped = masked_attention(
+            torch, q, k, v, keep_mask(torch, Sq, Sk, False, None, q.device, edge=-1)
+        ).cpu()
+        missed = int((dropped != expected).any(-1).sum())
+        check(missed >= 1, f"edge probe {label}: the last key dropped passes the probe")
+        out["V = I" if identity_v else "one-hot"] = {
+            "exact": True, "planted_last_key_dropped_rows_missed": missed,
+        }
+    return out
 
 
 def encdec_serve_phase(torch):
@@ -3438,6 +3732,360 @@ def encdec_serve_phase(torch):
     del params, cache, results, waves
     torch.cuda.empty_cache()
     return row["flash_launches"], shapes
+
+
+# ---------------------------------------------------------------------- #
+# Phase 7f: the continuous-batching server
+# ---------------------------------------------------------------------- #
+
+def _wave_counts():
+    """The structural cache's and the level loop's counters."""
+
+    from repro_torch.compile import compile_cache_stats
+
+    cc = compile_cache_stats()
+    captures, replays, eager = graph_counts()
+    return {"compile_cache_misses": cc["misses"], "compile_cache_hits": cc["hits"],
+            "graph_captures": captures, "graph_replays": replays, "eager_sweeps": eager}
+
+
+def _served(torch, server, params, cfg, prompts):
+    """``server.serve_requests`` over ``prompts`` in ``SERVE_SLOTS`` slots,
+    with the counters read at the start of each wave's planning and after
+    the last wave: (the run, each wave's counter deltas)."""
+
+    from unittest import mock
+
+    marks = []
+    plan_wave = server.plan_wave
+
+    def marked(*args, **kw):
+        marks.append(_wave_counts())
+        return plan_wave(*args, **kw)
+
+    requests = [server.Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+    with mock.patch.object(server, "plan_wave", marked):
+        run = server.serve_requests(params, cfg, requests, slots=SERVE_SLOTS,
+                                    max_new=SERVE_NEW_TOKENS, device="cuda")
+    torch.cuda.synchronize()
+    marks.append(_wave_counts())
+    deltas = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+    return run, deltas
+
+
+def _generated_as_generate(torch, params, cfg, run, prompts):
+    """Each request's tokens against ``serve_lm.generate`` on the same
+    prompts in the same batch: the number of requests that differ."""
+
+    from repro_torch.launch.serve_lm import generate
+
+    differ = 0
+    for w in range(0, len(prompts), SERVE_SLOTS):
+        batch = {"tokens": torch.stack(prompts[w:w + SERVE_SLOTS])}
+        got = generate(params, cfg, batch, SERVE_NEW_TOKENS).tokens.tolist()
+        for r, tokens in zip(run.done[w:w + SERVE_SLOTS], got):
+            differ += int(r.generated != tokens)
+    return differ
+
+
+def batching_phase(torch, smi):
+    """Phase 7f: ``repro_torch.launch.serve.serve_requests`` at yi-6b's full
+    size, ``BATCHING_REQUESTS`` requests of 2048 prompt tokens in 4 slots:
+    each wave's four sync plans through the default plan service on the
+    card, the prefill on the bf16 TMA flash kernel, 31 greedy decode steps
+    and the wave's non-affine workloads (asserted bit-equal to
+    ``run_sequential`` by ``run_nonaffine_wave``); then one more wave with
+    the int8 KV cache.  Held: one flash launch a layer a prefill, all on
+    ``tma_wgmma``; every request's tokens those of ``generate`` on the same
+    batch; no structural miss and no capture from the third wave on."""
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as server
+    from repro_torch.models import model_zoo
+    from repro_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    params = model_zoo.init(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    prompts = [
+        torch.randint(0, cfg.vocab_size, (SERVE_PROMPT,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+        for _ in range(BATCHING_REQUESTS)
+    ]
+    obs.reset_all()  # a cold default service, structural cache and histograms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every count set to 0 just before, read just after
+    _reset_counts()
+    run, waves = _served(torch, server, params, cfg, prompts)
+    launches, flash_routes, matmul_launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    server.print_summary(run)
+    latency = {}
+    for name in ("serve.plan_ms", "serve.compile_ms", "serve.run_ms"):
+        h = metrics.histogram(name)
+        latency[name] = {"n": h.count, "p50": h.percentile(50), "p99": h.percentile(99)}
+    n_waves = BATCHING_REQUESTS // SERVE_SLOTS
+    check(run.waves == n_waves and len(run.done) == BATCHING_REQUESTS,
+          f"batching: {run.waves} waves served {len(run.done)} requests")
+    check(all(len(r.generated) == SERVE_NEW_TOKENS for r in run.done),
+          "batching: a request holds other than SERVE_NEW_TOKENS tokens")
+    check(launches == cfg.num_layers * n_waves,
+          f"batching: {launches} flash launches, expected {cfg.num_layers} x {n_waves}")
+    check(flash_routes["tma_wgmma"] == launches,
+          f"batching: flash routes {flash_routes}, expected all {launches} on tma_wgmma")
+    check(matmul_launches == 0, f"batching: {matmul_launches} pipelined-matmul launches")
+    check(latency["serve.run_ms"]["n"] == n_waves, f"batching: serve.run_ms {latency['serve.run_ms']}")
+    for i, wave in enumerate(waves[2:], start=3):
+        check(wave["compile_cache_misses"] == 0 and wave["graph_captures"] == 0,
+              f"batching: wave {i} missed the structural cache or captured: {wave}")
+    differ = _generated_as_generate(torch, params, cfg, run, prompts)
+    check(differ == 0, f"batching: {differ} requests' tokens differ from generate's on the same batch")
+
+    # one more wave with the int8 KV cache, its latencies alone
+    qcfg = cfg.scaled(kv_quant=True)
+    for name in latency:
+        metrics.histogram(name).reset()
+    _reset_counts()
+    qrun, qwaves = _served(torch, server, params, qcfg, prompts[:SERVE_SLOTS])
+    qlaunches, qroutes, _ = _read_counts()
+    server.print_summary(qrun)
+    check(qrun.kv_quant and qlaunches == cfg.num_layers and qroutes["tma_wgmma"] == qlaunches,
+          f"batching kv_quant: {qlaunches} launches, routes {qroutes}")
+    check(qwaves[0]["compile_cache_misses"] == 0,
+          f"batching kv_quant: the wave missed the structural cache: {qwaves[0]}")
+    qdiffer = _generated_as_generate(torch, params, qcfg, qrun, prompts[:SERVE_SLOTS])
+    check(qdiffer == 0, f"batching kv_quant: {qdiffer} requests' tokens differ from generate's")
+    same = sum(a.generated == b.generated for a, b in zip(qrun.done, run.done))
+
+    row = {
+        "cell": "yi6b_batching_16x2048_32",
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "dtype": cfg.dtype,
+        "requests": BATCHING_REQUESTS,
+        "slots": SERVE_SLOTS,
+        "prompt_tokens": SERVE_PROMPT,
+        "new_tokens": SERVE_NEW_TOKENS,
+        "waves": run.waves,
+        "decoded_tokens": run.decoded_tokens,
+        "seconds": run.seconds,
+        "tokens_per_s_batched": run.decoded_tokens / run.seconds,
+        "latency_ms": latency,
+        "per_wave_counts": waves,
+        "flash_launches": launches,
+        "flash_routes": flash_routes,
+        "pipelined_matmul_launches": matmul_launches,
+        "peak_memory_bytes": peak,
+        "speculation_rollbacks": metrics.counter("speculation.rollbacks").value,
+        "tokens_equal_generate": True,
+        "nonaffine_bit_equal_to_run_sequential": True,
+        "scan_strategy": run.scan_plan.summary()["scc"]["recurrences"][0]["strategy"],
+        "kv_quant": {
+            "seconds": qrun.seconds,
+            "tokens_per_s_batched": qrun.decoded_tokens / qrun.seconds,
+            "wave_counts": qwaves,
+            "flash_launches": qlaunches,
+            "tokens_equal_generate": True,
+            "requests_with_the_bf16_cache_tokens": same,
+        },
+        "card": smi,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit("serve batching: " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+    obs.reset_all()
+    return launches + qlaunches
+
+
+# ---------------------------------------------------------------------- #
+# Phase 7g: the MoE, Mamba-2 and encoder-decoder families trained
+# ---------------------------------------------------------------------- #
+
+def _cut(cfg, layers):
+    """``cfg`` at ``layers`` layers, an encoder-decoder's encoder too."""
+
+    import dataclasses
+
+    if cfg.encoder is not None:
+        cfg = cfg.scaled(encoder=dataclasses.replace(cfg.encoder, num_layers=layers))
+    return cfg.scaled(num_layers=layers)
+
+
+def _attention_calls(cfg):
+    """Train-mode attention calls of one forward: each attention layer's,
+    an encoder-decoder's encoder layers and its decoder's cross-attention
+    too."""
+
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL
+
+    layers = sum(cfg.block[i % len(cfg.block)].mixer in (ATTN, ATTN_LOCAL)
+                 for i in range(cfg.num_layers))
+    if cfg.encoder is not None:
+        return cfg.encoder.num_layers + 2 * layers
+    return layers
+
+
+def _router_aux_check(torch, cfg, params, batch):
+    """The MoE aux loss's gradient reaches every router on the card: each
+    router leaf's gradient with the aux weight on and off (the aux term
+    alone is their difference), at the phase's config and batch."""
+
+    from unittest import mock
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model_zoo
+
+    def router_grads():
+        # the loss's gradient with respect to the router leaves alone
+        flat, routers = [], []
+        for path, p in tree_lib.flatten_with_paths(params):
+            flat.append(p.detach().requires_grad_(path[-1] == "router"))
+            if path[-1] == "router":
+                routers.append(flat[-1])
+        loss, m = model_zoo.loss_fn(tree_lib.unflatten(params, flat), batch, cfg)
+        grads = torch.autograd.grad(loss, routers)
+        return float(m["aux"]), [g.float() for g in grads]
+
+    aux, on = router_grads()
+    with mock.patch.object(model_zoo, "AUX_LOSS_WEIGHT", 0.0):
+        _, off = router_grads()
+    norms = [g.norm().item() for g in on]
+    diffs = [(a - b).norm().item() / max(a.norm().item(), 1e-30) for a, b in zip(on, off)]
+    check(len(on) == cfg.num_layers, f"train moe: {len(on)} router leaves")
+    check(min(norms) > 0.0, f"train moe: a router's gradient is zero: {norms}")
+    check(min(diffs) > 0.0, f"train moe: the aux weight does not move a router's gradient: {diffs}")
+    return {"aux": aux, "aux_weight": model_zoo.AUX_LOSS_WEIGHT, "routers": len(on),
+            "router_grad_norm_min": min(norms),
+            "router_grad_rel_change_without_aux_min": min(diffs),
+            "router_grad_rel_change_without_aux_max": max(diffs)}
+
+
+def _train_family(torch, smi, cell, arch, layers, rows, seq, steps):
+    """One family trained at full width (depth cut to ``layers`` when
+    given) for ``steps`` steps of ``rows`` x ``seq`` tokens through
+    ``train_loop``; its row.  Then the router check (MoE) and the
+    parity step against the CPU at ``PARITY_LAYERS`` layers in f32."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataState, make_batch
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.runtime.trainer import train_loop
+
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = full if layers is None else _cut(full, layers)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16", f"train {arch}: {cfg.remat} / {cfg.dtype}")
+    opt = AdamW(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    dc = DataConfig(global_batch=rows, seq_len=seq, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: the counts read just before and just after
+    flash0, plain0, matmul0 = _flash_count(), _plain_count(), matmul_ops.matmul.launches
+    marks = []
+    res = train_loop(cfg, dc, total_steps=steps, opt=opt, seed=SEED,
+                     failure_injector=_clock(torch, marks), device="cuda")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    flash = _flash_count() - flash0
+    plain_calls = _plain_count() - plain0
+    matmul_launches = matmul_ops.matmul.launches - matmul0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    params, opt_state = res.state["params"], res.state["opt"]
+    check(res.final_step == steps and len(losses) == steps,
+          f"train {arch}: {res.final_step} steps, {len(losses)} losses")
+    check(all(math.isfinite(l) for l in losses), f"train {arch}: a loss is not finite: {losses}")
+    check(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+          f"train {arch}: the loss did not fall: {losses}")
+    check(flash == 0, f"train {arch}: {flash} flash launches in training (no backward kernel)")
+    check(matmul_launches == 0, f"train {arch}: {matmul_launches} pipelined-matmul launches")
+    # remat "full": each attention call once forward, once recomputed
+    expect_plain = 2 * _attention_calls(cfg) * steps
+    check(plain_calls == expect_plain,
+          f"train {arch}: {plain_calls} plain attention calls, expected {expect_plain}")
+
+    # one more step under the profiler for the device's idle share
+    batch = {
+        k: torch.from_numpy(v).cuda()
+        for k, v in make_batch(dc, cfg, DataState(SEED, steps)).items()
+    }
+    step_fn = make_train_step(cfg, opt)
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+
+    busy_ms, prof_wall_ms, n_events = _profiled_run(torch, one_step)
+    n_params = model_zoo.param_count(params)
+    flops_per_token = model_zoo.model_flops_per_token(params, cfg)
+    del opt_state, res
+    torch.cuda.empty_cache()
+    router = _router_aux_check(torch, cfg, params, batch) if cfg.has_moe else None
+    del params, batch
+    torch.cuda.empty_cache()
+
+    timed = step_ms[2:]
+    step_s = statistics.median(timed) / 1e3
+    tokens = rows * seq
+    row = {
+        "cell": cell,
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "full_layers": full.num_layers,
+        "encoder_layers": cfg.encoder.num_layers if cfg.encoder is not None else None,
+        "frames_per_row": cfg.encoder.num_frames if cfg.encoder is not None else None,
+        "dtype": cfg.dtype,
+        "remat": cfg.remat,
+        "params": n_params,
+        "global_batch": rows,
+        "seq_len": seq,
+        "lr": TRAIN_LR,
+        "warmup_steps": TRAIN_WARMUP,
+        "steps": steps,
+        "losses": losses,
+        "step_ms": step_ms,
+        "step_ms_median_steps_3_on": statistics.median(timed),
+        "tokens_per_s": tokens / step_s,
+        "model_flops_per_token": flops_per_token,
+        "model_tflops": flops_per_token * tokens / step_s / 1e12,
+        "peak_memory_bytes": peak,
+        "profiled_step_wall_ms": prof_wall_ms,
+        "profiled_step_device_busy_ms": busy_ms,
+        "step_idle_share": (
+            1.0 - busy_ms / statistics.median(timed) if busy_ms is not None else None
+        ),
+        "profiled_step_device_events": n_events,
+        "attention_train_plain_calls": plain_calls,
+        "flash_launches": flash,
+        "pipelined_matmul_launches": matmul_launches,
+        "router_aux_gradient": router,
+        "card": smi,
+    }
+    emit("train family: " + json.dumps(row))
+    if layers is not None:  # the depth was cut to the largest under the limit
+        check(peak < FAMILY_PEAK_LIMIT,
+              f"train {arch}: peak memory {peak} bytes above {FAMILY_PEAK_LIMIT}")
+    _parity(torch, _cut(full, PARITY_LAYERS).scaled(dtype="float32"))
+    emit(f"train family {arch}: {time.perf_counter() - t_phase:.1f} s")
+
+
+def family_train_phase(torch, smi):
+    """Phase 7g: whisper-medium, mamba2-2.7b and deepseek-moe-16b (depth
+    cut) trained on the card."""
+
+    for cell, arch, layers, rows, seq, steps in FAMILY_TRAIN:
+        _train_family(torch, smi, cell, arch, layers, rows, seq, steps)
 
 
 def whisper_entries(shapes):
@@ -3567,6 +4215,7 @@ def main() -> int:
     service_phase(torch)  # phase 3b
     calibration_phase(torch, smi)  # phase 3c
     spmd_phase(torch, smi)  # phase 3d
+    pipeline_phase(torch, smi)  # phase 3e
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
@@ -3580,6 +4229,12 @@ def main() -> int:
     encdec_launches, whisper_rows = encdec_serve_phase(torch)  # phase 7e
     emit(f"encdec_serve_phase: {time.perf_counter() - t0:.1f} s")
     flash_launches += encdec_launches
+    t0 = time.perf_counter()
+    flash_launches += batching_phase(torch, smi)  # phase 7f
+    emit(f"batching_phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    family_train_phase(torch, smi)  # phase 7g
+    emit(f"family_train_phase: {time.perf_counter() - t0:.1f} s")
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
     entries.extend(whisper_entries(whisper_rows))
     entries.append(split_entry)

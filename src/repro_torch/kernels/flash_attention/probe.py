@@ -48,9 +48,14 @@ def one_hot_probe(
     window: Optional[int] = None,
     identity_v: bool = False,
     seed: int = 0,
+    first_picks: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """``(q, k, v, expected)`` as float32 arrays in the wrapper's layout (q
-    and ``expected`` ``(B, Sq, H, hd)``, k and v ``(B, Sk, KV, hd)``)."""
+    and ``expected`` ``(B, Sq, H, hd)``, k and v ``(B, Sk, KV, hd)``).
+
+    Each (b, h, query) row picks a random live key; ``first_picks`` sets
+    the keys of the first rows in that order (row-major over (B, H, Sq)),
+    so that a probe can hold given keys, such as the last tile's."""
 
     rng = np.random.default_rng(seed)
     lo, hi = live_range(Sq, Sk, causal, window)
@@ -58,6 +63,12 @@ def one_hot_probe(
         raise ValueError("one_hot_probe: a query row keeps no key")
     k = rng.choice(np.array([-1.0, 1.0], np.float32), size=(B, Sk, KV, hd))
     pick = lo + (rng.random((B, H, Sq)) * (hi - lo)).astype(np.int64)  # (B, H, Sq)
+    if first_picks is not None:
+        first = np.asarray(first_picks, np.int64).ravel()
+        rows = np.arange(first.size) % Sq
+        if first.size > pick.size or np.any(first < lo[rows]) or np.any(first >= hi[rows]):
+            raise ValueError("one_hot_probe: first_picks holds a key its row does not keep")
+        pick.ravel()[: first.size] = first
     kv_of = np.arange(H) // (H // KV)
     b_idx = np.arange(B)[:, None, None]
     chosen = k[b_idx, pick, kv_of[None, :, None]]  # (B, H, Sq, hd)

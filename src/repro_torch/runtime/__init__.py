@@ -1,1 +1,1 @@
-"""Runtime control plane: fault tolerance, supervised training."""
+"""Runtime control plane: fault tolerance, supervised training, pipeline executor."""

@@ -1432,3 +1432,99 @@ def test_new_families_serve_on_cuda_through_the_kernel(cuda, arch, per_prefill, 
         on_cuda.prefill_logits.cpu(), on_cpu.prefill_logits, atol=1e-4, rtol=1e-4
     )
     assert torch.equal(on_cuda.tokens.cpu(), on_cpu.tokens)
+
+
+# ---------------------------------------------------------------------- #
+# The continuous-batching server, the pipeline runner and the pipeline step
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("identity_v", [False, True])
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_flash_tma_probes_hold_whisper_last_ragged_tile_on_cuda(cuda, Sq, identity_v):
+    """The one-hot probes at whisper's cross shapes (Sk 1500, non-causal,
+    hd 64: the last tile holds 28 keys), their first rows on those keys
+    and the one before: exact on the TMA route."""
+
+    B, Sk, H, KV, hd = 4, 1500, 16, 16, 64
+    q, k, v, expected = one_hot_probe(
+        B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=Sq,
+        first_picks=Sk - 1 - np.arange(29),
+    )
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    out, took = _flash_counted(q, k, v, causal=False)
+    assert took == "tma_wgmma"
+    assert torch.equal(out.float().cpu(), torch.from_numpy(expected))
+
+
+def test_continuous_batching_on_cuda_is_generate_through_the_kernel(cuda, monkeypatch):
+    """``launch.serve.serve_requests`` at smoke size on the card: each
+    request's tokens are ``generate``'s on the same batch, one flash launch
+    a layer a wave, the wave plans on a service of the card."""
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    obs.reset_all()
+    try:
+        cfg = get_smoke_config("yi_6b")
+        params = model_zoo.init(cfg, device=cuda, seed=0)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        prompts = [torch.randint(0, cfg.vocab_size, (24,), generator=gen, device=cuda,
+                                 dtype=torch.int32) for _ in range(6)]
+        before = flash_ops.flash_attention.launches
+        run = serve.serve_requests(
+            params, cfg, [serve.Request(rid=i, prompt=p) for i, p in enumerate(prompts)],
+            slots=4, max_new=5, device=cuda,
+        )
+        assert flash_ops.flash_attention.launches - before == cfg.num_layers * run.waves == 4
+        assert serve.default_service().options.device.startswith("cuda")
+        padded = prompts + [prompts[4]] * 2  # the short wave's pads
+        for w in range(2):
+            batch = {"tokens": torch.stack(padded[4 * w: 4 * w + 4])}
+            want = serve_lm.generate(params, cfg, batch, 5).tokens.tolist()
+            for r, tokens in zip(run.done[4 * w: 4 * w + 4], want):
+                assert r.generated == tokens, r.rid
+    finally:
+        obs.reset_all()
+
+
+def test_pipeline_runner_on_cuda_is_bit_equal_to_its_reference(cuda):
+    from repro_torch.runtime.pipeline import PipelineRunner
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ws = [torch.randn((256, 256), generator=gen, device=cuda) / 16 for _ in range(4)]
+
+    def stage(w):
+        def fn(x):
+            if isinstance(x, tuple):
+                x, *skips = x
+                x = x + sum(skips)
+            return torch.tanh(x @ w)
+
+        return fn
+
+    inputs = [torch.randn((64, 256), generator=gen, device=cuda) for _ in range(5)]
+    for skips in ((), ((0, 2), (0, 3), (1, 3))):
+        runner = PipelineRunner([stage(w) for w in ws], skips=skips, num_microbatches=5)
+        out, stats = runner.run(inputs)
+        for a, b in zip(out, runner.run_reference(inputs)):
+            assert torch.equal(a, b)
+        assert stats.handoffs == 3 * 5
+
+
+def test_pipeline_step_refuses_a_gloo_group_with_the_card(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.runtime.pp_lowering import build_pipeline_step
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1
+    )
+    try:
+        with pytest.raises(ValueError, match="cannot move tensors on cuda"):
+            build_pipeline_step(2, 8, device=cuda)
+        step, _ = build_pipeline_step(2, 8, device="cpu")  # gloo moves CPU tensors
+        w, xs = torch.eye(8), torch.ones((2, 3, 8))
+        assert torch.equal(step(w, xs), torch.tanh(xs))  # one stage, nothing moved
+    finally:
+        dist.destroy_process_group()

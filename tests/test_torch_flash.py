@@ -385,3 +385,42 @@ def test_one_hot_probe_is_exact_in_the_reference_kernel_and_the_plain_version(sh
     np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)), expected)
     out = ops.flash_attention(*(torch.from_numpy(a).to(TORCH[dtype]) for a in (q, k, v)), **mask)
     np.testing.assert_array_equal(out.float().numpy(), expected)
+
+
+# whisper-medium's cross-attention keys: 1500 frames, the last 64-key tile
+# holding 28; the first rows pick the last tile's keys and the key before it
+WHISPER_SK = 1500
+EDGE_PICKS = WHISPER_SK - 1 - np.arange(29)
+
+
+@pytest.mark.parametrize("identity_v", [False, True])
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_one_hot_probe_holds_the_last_ragged_tile_of_whisper_keys(Sq, identity_v):
+    """The probe at whisper's cross shapes (non-causal, hd 64, Sk 1500)
+    with its first rows on the last tile's 28 keys: exact in the reference
+    kernel (interpret mode) and the plain version, and a planted one-key
+    edge (the last key dropped) fails the exact match."""
+
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe
+
+    B, H, KV, hd = 2, 16, 16, 64
+    q, k, v, expected = one_hot_probe(
+        B, Sq, WHISPER_SK, H, KV, hd, causal=False, identity_v=identity_v, seed=Sq,
+        first_picks=EDGE_PICKS,
+    )
+    ref = jax_flash(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)), causal=False)
+    np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)), expected)
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = ops.flash_attention(qt, kt, vt, causal=False)
+    np.testing.assert_array_equal(out.float().numpy(), expected)
+    edge = ops.flash_attention(qt, kt[:, :-1], vt[:, :-1], causal=False).float().numpy()
+    differ = (edge != expected).any(-1)  # (B, Sq, H)
+    assert differ.transpose(0, 2, 1).ravel()[0]  # the row on key 1499
+    assert int(differ.sum()) == 1
+
+
+def test_one_hot_probe_refuses_a_first_pick_its_row_does_not_keep():
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe
+
+    with pytest.raises(ValueError, match="first_picks"):
+        one_hot_probe(1, 4, 8, 1, 1, 16, causal=True, first_picks=[3])

@@ -40,7 +40,9 @@ VERBATIM = [
     "data/pipeline.py",
     "optim/__init__.py",
     "checkpoint/__init__.py",
+    "runtime/__init__.py",
     "runtime/fault_tolerance.py",
+    "runtime/pipeline.py",
     "calibrate/__init__.py",
 ]
 
@@ -212,6 +214,16 @@ with tempfile.TemporaryDirectory() as d:
         ckpt_every=1, device="cpu",
     )
 assert res.final_step == 2
+# the continuous-batching server, the pipeline runner and the pipeline step's module
+from repro_torch.launch import serve
+from repro_torch.runtime import pp_lowering  # noqa: F401
+from repro_torch.runtime.pipeline import PipelineRunner
+
+run = serve.main(["--requests", "2", "--slots", "2", "--max-new", "2", "--device", "cpu"])
+assert run.waves == 1 and len(run.done[0].generated) == 2
+runner = PipelineRunner([lambda x: x + 1.0] * 3, num_microbatches=2)
+outs, stats = runner.run([torch.zeros(2), torch.ones(2)])
+assert stats.handoffs == 4 and all(torch.equal(a, b) for a, b in zip(outs, runner.run_reference([torch.zeros(2), torch.ones(2)])))
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro")

@@ -2,10 +2,10 @@
 ``tests/test_runtime.py`` holds the reference's: data determinism,
 checkpoint round-trip and crash recovery, the fault-tolerant training loop,
 elastic planning, straggler detection and gradient compression.  The
-pipeline executor (``TestPipelineRunner``) is not ported yet (ROADMAP Queue 1
-item 12).  The numbers of steps, the data and the optimizer are the
-reference tests'; ``tests/test_torch_train.py`` holds the two packages
-against each other."""
+pipeline executor's tests (``TestPipelineRunner``) are in
+``tests/test_torch_pipeline.py``.  The numbers of steps, the data and the
+optimizer are the reference tests'; ``tests/test_torch_train.py`` holds the
+two packages against each other."""
 
 import dataclasses
 
