@@ -167,6 +167,28 @@ non-zero:
    router; each with phase 7b's parity step at 2 layers in f32 and its two
    planted faults (in an attention-free stack the mask fault moves the
    SSD's causal edge one step forward);
+7h. the launch layer on ``DeviceMesh`` and DTensor
+   (``repro_torch.launch.{mesh,sharding,input_specs,steps,dryrun}``):
+   (a) yi-6b at full width served on a world-1 NCCL mesh under
+   ``cell_shardings``' placements with phase 7's first wave: greedy tokens
+   equal phase 7's, every flash launch through ``local_map`` on the TMA
+   route, the decode step beside the plain one in turns; (b) inside phase
+   7b, on its state cut to 10 of 40 layers, two microbatch-2 train steps
+   on that mesh with FSDP gradient shardings, each against the unsharded
+   step leaf by leaf (7b's parity limits where a leaf differs), the
+   gradient reductions counted; (c) 2 and 4 gloo
+   processes on the host CPU, meshes (2, 1), (1, 2) and (2, 2): the dense,
+   MoE, Mamba-2 and encoder-decoder smoke configs in f32, the sharded
+   train step (microbatches 1 and 4, and ``seq_shard``) within 1e-5 of the
+   unsharded one, as many gradient reductions at 4 microbatches as at 1,
+   sharded prefill and decode with the unsharded greedy tokens; (d) the
+   dry runs of mamba2-2.7b x decode_32k and granite-3-2b x train_4k on the
+   16 x 16 mesh (a fake group of 512 ranks; granite at 2 microbatches)
+   and ``pp_lowering.main``; (c) and (d) run on the host beside phase
+   7g's device-bound cells (mamba2, deepseek) and are read before (a);
+   (e) internlm2's
+   smoke config (hd 8, on the zero-padded hd-16 kernel) against the CPU,
+   and transposed matmul operands against the plain version;
 8. one JSON line listing every kernel with its numbers;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -353,6 +375,10 @@ BATCHING_REQUESTS = 16
 # a step); the others take phase 7b's 8
 FAMILY_MOE_LAYERS = 4
 FAMILY_PEAK_LIMIT = 70e9
+# whisper-medium's step is host-bound (idle share 0.51-0.67): it trains
+# alone; phase 7h's host-side runs start after it, beside the device-bound
+# cells (mamba2 and deepseek, idle 0.02-0.06)
+FAMILY_TRAIN_ALONE = 1
 FAMILY_TRAIN = [
     ("whisper_medium_train_4x448_1500f", ENCDEC_ARCH, None, 4, 448, 8),
     ("mamba2_2p7b_train_4x2048", MAMBA_ARCH, None, 4, 2048, 8),
@@ -1151,13 +1177,12 @@ def _spmd_worker(rank, world, init_file, stores, results):
         results.put((rank, "error", traceback.format_exc()))
 
 
-def _spawn_gloo(world, payload, workdir, worker=None, label="torch_spmd"):
-    """Run ``worker`` (``_spmd_worker`` by default) on ``world`` spawned
-    processes, each given ``payload``; every wait is bounded by
-    ``SPMD_TIMEOUT_S`` and the children are killed on it."""
+def _start_gloo(world, payload, workdir, worker=None, timeout=None):
+    """Start ``worker`` (``_spmd_worker`` by default) on ``world`` spawned
+    processes, each given ``payload``; :func:`_collect_gloo` waits for
+    them, until ``timeout`` seconds (``SPMD_TIMEOUT_S``) from now."""
 
     import multiprocessing
-    import queue
 
     worker = worker or _spmd_worker
     ctx = multiprocessing.get_context("spawn")
@@ -1169,14 +1194,24 @@ def _spawn_gloo(world, payload, workdir, worker=None, label="torch_spmd"):
     ]
     for p in procs:
         p.start()
+    return world, procs, results, time.monotonic() + (timeout or SPMD_TIMEOUT_S)
+
+
+def _collect_gloo(started, label):
+    """Each rank's result of a :func:`_start_gloo` run; every wait is
+    bounded by the run's deadline, and the children are killed on it."""
+
+    import queue
+
+    world, procs, results, deadline = started
     got = {}
-    deadline = time.monotonic() + SPMD_TIMEOUT_S
     try:
-        while len(got) < world and time.monotonic() < deadline:
-            try:
-                rank, status, result = results.get(timeout=5.0)
+        while len(got) < world:
+            remaining = deadline - time.monotonic()
+            try:  # past the deadline, only what has already come
+                rank, status, result = results.get(timeout=min(max(remaining, 0.1), 5.0))
             except queue.Empty:
-                if not any(p.is_alive() for p in procs):
+                if remaining <= 0 or not any(p.is_alive() for p in procs):
                     break
                 continue
             check(status == "ok", f"{label} gloo rank {rank} of {world} failed:\n{result}")
@@ -1184,14 +1219,26 @@ def _spawn_gloo(world, payload, workdir, worker=None, label="torch_spmd"):
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
+        _stop(procs)
     check(sorted(got) == list(range(world)),
           f"{label} gloo: ranks {sorted(set(range(world)) - set(got))} of {world} "
-          f"gave no result in {SPMD_TIMEOUT_S} s (killed)")
+          f"gave no result in time (killed)")
     return got
+
+
+def _stop(procs):
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+
+
+def _spawn_gloo(world, payload, workdir, worker=None, label="torch_spmd"):
+    """Run ``worker`` (``_spmd_worker`` by default) on ``world`` spawned
+    processes, each given ``payload``; every wait is bounded by
+    ``SPMD_TIMEOUT_S`` and the children are killed on it."""
+
+    return _collect_gloo(_start_gloo(world, payload, workdir, worker), label)
 
 
 def spmd_phase(torch, smi):
@@ -2646,6 +2693,7 @@ def serve_phase(torch):
         "decode_device_events_per_step": n_events / (SERVE_NEW_TOKENS - 1),
     }
     emit("serve: " + json.dumps(row))
+    PHASE7.update(tokens=results[0].tokens.cpu(), decode_ms_median=statistics.median(decode_ms))
     del params, cache, results, plain
     torch.cuda.empty_cache()
     return launches
@@ -2702,8 +2750,10 @@ def _step_readings(p0, got, ref, b1):
         return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
 
     def f64(t):
-        # on the device of ``got`` (the card), where either side lies
-        return t.to(dev, torch.float64)
+        # on the device of ``got`` (the card), where either side lies: moved
+        # in its own dtype, widened there (exact either way; a host-side
+        # widening of a whole-model leaf is the slow part)
+        return t.to(dev).to(torch.float64)
 
     worst, where = {}, {}
 
@@ -3012,7 +3062,10 @@ def train_phase(torch):
         params, opt_state, _ = step_fn(params, opt_state, batch)
 
     busy_ms, prof_wall_ms, n_events = _profiled_run(torch, one_step)
-    del params, opt_state, res, batch
+    state = {"params": params, "opt": opt_state}
+    del params, opt_state, res
+    _launch_train_check(torch, cfg, opt, state, batch)  # phase 7h (b)
+    del state, batch
     torch.cuda.empty_cache()
 
     attn_fwd_ms, attn_bwd_ms = _train_attention_ms(torch, cfg)
@@ -4080,12 +4133,593 @@ def _train_family(torch, smi, cell, arch, layers, rows, seq, steps):
     emit(f"train family {arch}: {time.perf_counter() - t_phase:.1f} s")
 
 
-def family_train_phase(torch, smi):
+def family_train_phase(torch, smi, cells):
     """Phase 7g: whisper-medium, mamba2-2.7b and deepseek-moe-16b (depth
     cut) trained on the card."""
 
-    for cell, arch, layers, rows, seq, steps in FAMILY_TRAIN:
+    for cell, arch, layers, rows, seq, steps in cells:
         _train_family(torch, smi, cell, arch, layers, rows, seq, steps)
+
+
+# ---------------------------------------------------------------------- #
+# Phase 7h: the launch layer on DeviceMesh and DTensor
+# ---------------------------------------------------------------------- #
+
+LAUNCH_FAMILIES = ("yi_6b", "deepseek_moe_16b", "mamba2_2_7b", "whisper_medium")
+# (b) runs on phase 7b's trained state cut to its first 10 of 40 layers:
+# each layer runs the same sharded code, and DTensor's host dispatch makes
+# a full-depth sharded step ~10 s on one rank
+LAUNCH_TRAIN_LAYERS = 10
+LAUNCH_TOL = 1e-5  # the sharded f32 step against the unsharded one
+# (arch, shape, multi-pod): the 16 x 16 mesh, and the (2, 16, 16) one once
+LAUNCH_DRYRUNS = (
+    ("mamba2_2_7b", "decode_32k", False),
+    ("granite_3_2b", "train_4k", False),
+    ("mamba2_2_7b", "decode_32k", True),
+)
+# the smoke lowers granite's train cell at 2 microbatches: a quarter of the
+# deployment's 8's DTensor dispatch on fake tensors (~0.8 s a layer and
+# microbatch on the host); the reduction count is the same at any count
+LAUNCH_DRYRUN_MICROBATCHES = 2
+LAUNCH_BG_TIMEOUT_S = 600  # the host-side runs', from their start
+LAUNCH_TURNS = 2  # decode turns (plain, sharded, then sharded, plain)
+LAUNCH_TURN_STEPS = 8
+PHASE7 = {}  # phase 7's first wave, for phase 7h (a)
+
+
+class _world1_nccl:
+    """A world-size-1 NCCL default group (``file://`` store in a temp
+    dir) for the duration of a ``with``."""
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+
+        self._dir = tempfile.TemporaryDirectory()
+        dist.init_process_group(
+            "nccl", init_method=f"file://{self._dir.name}/store", rank=0, world_size=1
+        )
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self._dir.cleanup()
+        return False
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _launch_worker(rank, world, init_file, meshes, results):
+    """One gloo rank of phase 7h (c): on each (data, model) mesh, every
+    family's smoke config in f32 — the sharded train step (microbatches 1
+    and 4 with FSDP gradient shardings, and 4 with ``seq_shard``) against
+    the unsharded one, the gradient reductions over the data axis, the
+    collectives by kind, and prefill + greedy decode."""
+
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import dataclasses
+
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch import tree as tree_lib
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import hlo_analysis, sharding, steps
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models import model_zoo
+        from repro_torch.optim.optimizer import AdamW, AdamWState
+
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            # Adam's first step is g / (|g| + eps): eps 1e-3 bounds how far a
+            # rounding difference in a near-zero gradient moves the update
+            opt = AdamW(warmup_steps=1, eps=1e-3)
+            out = {}
+            t0 = time.perf_counter()
+            for shape in meshes:
+                mesh = make_debug_mesh(*shape, device_type="cpu")
+                data = hlo_analysis.group_names(mesh, ["data"])
+                for arch in LAUNCH_FAMILIES:
+                    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+                    params = model_zoo.init(cfg, device="cpu", seed=SEED)
+                    ost = opt.init(params)
+                    g = torch.Generator().manual_seed(SEED + 1)
+                    tokens = torch.randint(0, cfg.vocab_size, (16, 16), generator=g)
+                    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+                    if cfg.family == "encdec":
+                        batch["frame_embeds"] = torch.randn(
+                            16, cfg.encoder.num_frames, cfg.d_model, generator=g)
+                    zs = sharding.named(mesh, sharding.zero1_pspecs(cfg, mesh, params))
+                    dp = sharding.distribute(
+                        params, sharding.named(mesh, sharding.params_pspecs(cfg, mesh, params)))
+                    do = AdamWState(ost.step, sharding.distribute(ost.mu, zs),
+                                    sharding.distribute(ost.nu, zs))
+                    db = sharding.distribute(
+                        batch, sharding.named(mesh, sharding.batch_pspecs(cfg, mesh, batch)))
+                    row = {}
+                    for k, seq in ((1, False), (4, False), (4, True)):
+                        ref_p, _, ref_m = steps.make_train_step(cfg, opt, microbatches=k)(
+                            params, ost, batch)
+                        fn = steps.make_train_step(cfg, opt, microbatches=k, mesh=mesh,
+                                                   grad_shardings=zs, seq_shard=seq)
+                        with _sited(hlo_analysis.CollectiveMode()) as mode:
+                            new_p, _, m = fn(dp, do, db)
+                        on_data = hlo_analysis.collective_stats(mode, data).counts
+                        row[f"k{k}" + ("_seq" if seq else "")] = {
+                            "loss": abs(float(_whole(m["loss"])) - float(ref_m["loss"])),
+                            "grad_norm": abs(float(_whole(m["grad_norm"])) - float(ref_m["grad_norm"])),
+                            "params": max(float((_whole(a) - b).abs().max()) for a, b in
+                                          zip(tree_lib.leaves(new_p), tree_lib.leaves(ref_p))),
+                            "grad_reductions": on_data.get("all-reduce", 0)
+                            + on_data.get("reduce-scatter", 0),
+                            "collectives": hlo_analysis.collective_stats(mode).counts,
+                            "data_sites": {f"{kind} {site}": n for (kind, group, site), n
+                                           in mode.sites.items() if group in data},
+                        }
+                    row["greedy_equal"] = _launch_greedy(torch, cfg, params, dp, mesh)
+                    out[f"{arch} {shape}"] = row
+            out["pod_split"] = _launch_pod_split(torch, world)
+            out["seconds"] = time.perf_counter() - t0
+            results.put((rank, "ok", out))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _sited(mode):
+    """``mode`` (a ``CollectiveMode``) also counting each collective by
+    (kind, group, the innermost ``repro_torch`` line that issued it), in
+    ``mode.sites``: where the data axis's reductions come from."""
+
+    import collections
+    import traceback
+
+    mode.sites = collections.Counter()
+    seen = mode.records
+    dispatch = type(mode).__torch_dispatch__
+
+    def sited(self, func, types, args=(), kwargs=None):
+        n = len(seen)
+        out = dispatch(self, func, types, args, kwargs)
+        if len(seen) > n:
+            frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
+            site = f"{Path(frames[-1].filename).name}:{frames[-1].lineno}" if frames else "?"
+            self.sites[(seen[-1][0], seen[-1][3], site)] += 1
+        return out
+
+    mode.__class__ = type("SitedCollectiveMode", (type(mode),), {"__torch_dispatch__": sited})
+    return mode
+
+
+def _launch_pod_split(torch, world):
+    """Whether the microbatch split over two data axes ("pod", "data")
+    gives the reference's reshape, each microbatch split over both."""
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import _microbatched
+
+    mesh = init_device_mesh("cpu", (2, world // 2, 1), mesh_dim_names=("pod", "data", "model"))
+    x = torch.arange(48, dtype=torch.int32).reshape(16, 3)
+    dx = sharding.distribute(x, sharding.NamedSharding(mesh, sharding.P(("pod", "data"), None)))
+    return all(torch.equal(_microbatched(dx, k, mesh).full_tensor(), x.reshape(k, 16 // k, 3))
+               for k in (2, 4))
+
+
+def _launch_greedy(torch, cfg, params, dp, mesh, B=4, S=8, N=4):
+    """Whether the sharded prefill and N-1 greedy decode steps give the
+    unsharded tokens."""
+
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import model_zoo
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn(B, cfg.encoder.num_frames, cfg.d_model, generator=g)
+    pre, dec = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    tok = sharding.named(mesh, sharding.batch_pspecs(cfg, mesh, {"t": torch.zeros(B, 1)}))["t"]
+
+    def gen(p, b, c, place):
+        logits, c = pre(p, b, c)
+        cur = torch.argmax(_whole(logits)[:, -1, :], -1).to(torch.int32)[:, None]
+        out = [cur]
+        for t in range(N - 1):
+            cur, c = dec(p, place(cur), c, S + t)
+            out.append(_whole(cur))
+        return torch.cat(out, 1)
+
+    ref = gen(params, batch, model_zoo.init_cache(cfg, B, S + N, device="cpu"), lambda t: t)
+    cache = model_zoo.init_cache(cfg, B, S + N, device="cpu")
+    dc = sharding.distribute(cache, sharding.named(mesh, sharding.cache_pspecs(cfg, mesh, cache)))
+    db = sharding.distribute(batch, sharding.named(mesh, sharding.batch_pspecs(cfg, mesh, batch)))
+    got = gen(dp, db, dc, lambda t: sharding.distribute(_whole(t), tok))
+    return bool(torch.equal(ref, got))
+
+
+class LaunchBackground:
+    """Phase 7h's host-only parts, side by side: (c) the gloo worlds of 2
+    and 4 and (d) the dry runs and ``pp_lowering.main`` as subprocesses.
+    They start after phase 7g's host-bound cell and run beside its
+    device-bound ones; phase 7h reads them before it times anything.
+    ``stop()`` ends whatever is still running."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+        self.gloo = [
+            (2, _start_gloo(2, [(2, 1), (1, 2)], self.dir, _launch_worker,
+                            timeout=LAUNCH_BG_TIMEOUT_S)),
+            (4, _start_gloo(4, [(2, 2)], self.dir, _launch_worker,
+                            timeout=LAUNCH_BG_TIMEOUT_S)),
+        ]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        self.t0 = time.monotonic()
+        self.procs = {}
+        for arch, shape, multi_pod in LAUNCH_DRYRUNS:
+            self.procs[f"{arch}__{shape}__{multi_pod}"] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--out", self.dir,
+                 "--microbatches", str(LAUNCH_DRYRUN_MICROBATCHES)]
+                + (["--multi-pod"] if multi_pod else []),
+                cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )
+        self.procs["pp_lowering"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.runtime.pp_lowering"],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+
+    def stop(self):
+        import shutil
+
+        for _, started in self.gloo:
+            _stop(started[1])
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _launch_gloo_checks(bg):
+    """Phase 7h (c): the gloo worlds' readings, printed, then checked."""
+
+    failures = []
+    for world, started in bg.gloo:
+        got = _collect_gloo(started, f"phase 7h world {world}")
+        for rank, res in got.items():
+            secs = res.pop("seconds")
+            if not res.pop("pod_split"):
+                failures.append(f"world {world} rank {rank}: the (pod, data) split is not the reshape")
+            for key, row in res.items():
+                for name in ("k1", "k4", "k4_seq"):
+                    r = row[name]
+                    worst = max(r["loss"], r["grad_norm"], r["params"])
+                    if worst > LAUNCH_TOL:
+                        failures.append(f"{key} {name} rank {rank}: {worst} above {LAUNCH_TOL}")
+                n1, n4 = row["k1"]["grad_reductions"], row["k4"]["grad_reductions"]
+                if n1 != n4:
+                    diff = {s: (row["k1"]["data_sites"].get(s, 0), row["k4"]["data_sites"].get(s, 0))
+                            for s in set(row["k1"]["data_sites"]) | set(row["k4"]["data_sites"])
+                            if row["k1"]["data_sites"].get(s) != row["k4"]["data_sites"].get(s)}
+                    failures.append(f"{key} rank {rank}: {n1} gradient reductions at "
+                                    f"microbatches 1, {n4} at 4; by site {diff}")
+                if not row["greedy_equal"]:
+                    failures.append(f"{key} rank {rank}: greedy tokens differ")
+        emit("launch gloo: " + json.dumps({
+            "world": world, "seconds_rank0": secs,
+            "rows": {k: {n: {"max_err": max(v[n]["loss"], v[n]["grad_norm"], v[n]["params"]),
+                             "grad_reductions": v[n]["grad_reductions"],
+                             "collectives": v[n]["collectives"]}
+                         for n in ("k1", "k4", "k4_seq")} | {"greedy_equal": v["greedy_equal"]}
+                     for k, v in got[0].items()},
+        }))
+    check(not failures, "launch gloo:\n" + "\n".join(failures))
+
+
+def _launch_dryrun_checks(bg):
+    """Phase 7h (d): the dry-run records and ``pp_lowering.main``'s line."""
+
+    for name, p in bg.procs.items():
+        left = max(1.0, LAUNCH_BG_TIMEOUT_S - (time.monotonic() - bg.t0))
+        try:
+            out, err = p.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            check(False, f"launch {name}: no result in {LAUNCH_BG_TIMEOUT_S} s (killed)")
+        check(p.returncode == 0, f"launch {name}: exit {p.returncode}\n{err[-3000:]}")
+        if name == "pp_lowering":
+            line = next((l for l in out.splitlines() if l.startswith("hand-offs")), "")
+            check("pp lowering: OK" in out and line.startswith("hand-offs per microbatch step: 1 "),
+                  f"pp_lowering: {out[-2000:]}")
+            emit("launch pp_lowering: " + line)
+    for arch, shape, multi_pod in LAUNCH_DRYRUNS:
+        from repro_torch.configs import get_config
+
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        rec_file = Path(bg.dir) / f"{get_config(arch).name}__{shape}__{mesh}.json"
+        r = json.loads(rec_file.read_text())
+        check(r["memory"]["peak_bytes"] < 80e9,
+              f"dry run {arch} {shape}: peak {r['memory']['peak_bytes']} bytes a card")
+        emit("launch dryrun: " + json.dumps({
+            k: r[k] for k in ("arch", "shape", "mesh", "chips", "microbatches", "lower_s",
+                              "memory", "collectives", "roofline", "roofline_analytic",
+                              "hardware", "n_total_params", "n_active_params",
+                              "tokens_per_step")
+        }))
+
+
+def _launch_serve(torch, smi):
+    """Phase 7h (a): yi-6b at full width served on a world-1 NCCL mesh
+    under ``cell_shardings``' placements, phase 7's first wave: greedy
+    tokens equal phase 7's, every flash launch through ``local_map``, the
+    decode step timed beside the plain one in turns.  Returns the flash
+    launches."""
+
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hlo_analysis, input_specs, sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve_lm import make_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model_zoo, sharded
+    from repro_torch.optim.optimizer import AdamW
+
+    cfg = get_config(SERVE_ARCH)
+    params = model_zoo.init(cfg, device="cuda", seed=SEED)
+    batch = make_batch(cfg, SERVE_SLOTS, SERVE_PROMPT, device="cuda", seed=SEED + 1)
+    total = SERVE_PROMPT + SERVE_NEW_TOKENS
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    with _world1_nccl():
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        cell = input_specs.cell_shardings(
+            cfg, ShapeConfig("phase7_wave", SERVE_PROMPT, SERVE_SLOTS, "prefill"), mesh, AdamW())
+        dp = sharding.distribute(params, cell["params"])
+        db = sharding.distribute(batch, cell["batch"])
+        cache = model_zoo.init_cache(cfg, SERVE_SLOTS, total, device="cuda")
+        dc = sharding.distribute(cache, sharding.named(mesh, sharding.cache_pspecs(cfg, mesh, cache)))
+        tok = sharding.named(mesh, sharding.batch_pspecs(cfg, mesh, {"t": batch["tokens"][:, :1]}))["t"]
+
+        def place(t):
+            return sharding.distribute(_whole(t), tok)
+
+        calls = [0]
+        through = sharded.attention
+
+        def counted(fn, q, *kvs):
+            calls[0] += sharded.is_dtensor(q)
+            return through(fn, q, *kvs)
+
+        _reset_counts()
+        with mock.patch.object(sharded, "attention", counted):
+            logits, dc = prefill(dp, db, dc)
+            launches, routes, matmul_launches = _read_counts()
+            prefill_calls = calls[0]
+            cur = torch.argmax(_whole(logits)[:, -1, :], dim=-1)[:, None].to(torch.int32)
+            out = [cur]
+            for i in range(SERVE_NEW_TOKENS - 1):
+                cur, dc = step(dp, place(cur), dc, SERVE_PROMPT + i)
+                out.append(_whole(cur))
+        tokens = torch.cat(out, 1).cpu()
+        check(launches == cfg.num_layers and routes["tma_wgmma"] == launches,
+              f"launch serve: {launches} flash launches {routes}, expected {cfg.num_layers} tma_wgmma")
+        check(prefill_calls == launches,
+              f"launch serve: {prefill_calls} attention calls through local_map for {launches} launches")
+        check(torch.equal(tokens, PHASE7["tokens"]),
+              f"launch serve: greedy tokens differ from phase 7's in "
+              f"{int((tokens != PHASE7['tokens']).sum())} places")
+        with hlo_analysis.CollectiveMode() as mode:
+            step(dp, place(cur), dc, total - 1)
+        step_collectives = hlo_analysis.collective_stats(mode).counts
+
+        # the decode step, plain and sharded in turns, each from its cache
+        cur_plain = _whole(cur).clone()
+        times = {"plain": [], "sharded": []}
+        for turn in range(LAUNCH_TURNS):
+            for name in (("plain", "sharded") if turn % 2 == 0 else ("sharded", "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(LAUNCH_TURN_STEPS):
+                    if name == "plain":
+                        step(params, cur_plain, cache, SERVE_PROMPT + i)
+                    else:
+                        step(dp, place(cur), dc, SERVE_PROMPT + i)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3 / LAUNCH_TURN_STEPS)
+    row = {
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+        "mesh": "world-1 NCCL (data 1, model 1)",
+        "slots": SERVE_SLOTS, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_NEW_TOKENS,
+        "flash_launches": launches, "flash_routes": routes,
+        "attention_calls_through_local_map_in_prefill": prefill_calls,
+        "attention_calls_through_local_map": calls[0],
+        "pipelined_matmul_launches": matmul_launches,
+        "greedy_tokens_equal_phase7": True,
+        "decode_step_collectives": step_collectives,
+        "decode_ms_per_step_plain": times["plain"],
+        "decode_ms_per_step_sharded": times["sharded"],
+        "decode_ms_per_step_phase7_median": PHASE7["decode_ms_median"],
+        "card": smi,
+    }
+    emit("launch serve: " + json.dumps(row))
+    del params, dp, cache, dc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _launch_train_check(torch, cfg, opt, state, batch):
+    """Phase 7h (b), run inside phase 7b on its resident state, cut to its
+    first ``LAUNCH_TRAIN_LAYERS`` layers: two ``make_train_step(...,
+    mesh=, grad_shardings=, microbatches=2)`` steps (7b's AdamW) on a
+    world-1 NCCL mesh, each against the unsharded microbatch-2 step from
+    the same state, within phase 7b's parity limits; the gradient
+    reductions per step.  One rank shards nothing, so the steps should
+    agree bit for bit: each leaf is compared with ``torch.equal``, and 7b's
+    f64 readings are taken only where a leaf or a metric differs."""
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hlo_analysis, input_specs, sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizer import AdamWState
+
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=LAUNCH_TRAIN_LAYERS)
+
+    def cut(tree):
+        return dict(tree, blocks=tree["blocks"][:LAUNCH_TRAIN_LAYERS])
+
+    def leaves(p, o):
+        return tree_lib.leaves(p) + tree_lib.leaves(o.mu) + tree_lib.leaves(o.nu)
+
+    params = cut(state["params"])
+    opt_state = AdamWState(state["opt"].step, cut(state["opt"].mu), cut(state["opt"].nu))
+    plain_fn = make_train_step(cfg, opt, microbatches=2)
+    rows = []
+    with _world1_nccl():
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        cell = input_specs.cell_shardings(
+            cfg, ShapeConfig("phase7b", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh, opt)
+        fn = make_train_step(cfg, opt, microbatches=2, mesh=mesh,
+                             grad_shardings=cell["grad_shardings"])
+        db = sharding.distribute(batch, cell["batch"])
+        data = hlo_analysis.group_names(mesh, ["data"])
+        dp = sharding.distribute(params, cell["params"])
+        do = AdamWState(opt_state.step, sharding.distribute(opt_state.mu, cell["opt_state"].mu),
+                        sharding.distribute(opt_state.nu, cell["opt_state"].nu))
+        for k in range(2):
+            ref = plain_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hlo_analysis.CollectiveMode() as mode:
+                dp, do, m = fn(dp, do, db)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            got_p = tree_lib.tree_map(lambda t: t.to_local(), dp)
+            got_o = AdamWState(_whole(do.step), *(tree_lib.tree_map(lambda t: t.to_local(), x)
+                                                 for x in (do.mu, do.nu)))
+            got_m = {n: _whole(v) for n, v in m.items()}
+            pairs = list(zip(leaves(got_p, got_o), leaves(ref[0], ref[1])))
+            unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+            metrics_equal = all(float(got_m[n]) == float(ref[2][n]) for n in ref[2])
+            if unequal or not metrics_equal:
+                readings = _step_readings(params, (got_p, got_o, got_m), ref, opt.b1)
+            else:
+                readings = {n: 0.0 for n in TRAIN_PARITY_TOL}
+            n_params = len(tree_lib.leaves(got_p))
+            diff = max([float((pairs[i][0].float() - pairs[i][1].float()).abs().max())
+                        for i in unequal if i < n_params], default=0.0)
+            on_data = hlo_analysis.collective_stats(mode, data).counts
+            rows.append({
+                "step": k + 1, "readings": readings, "params_max_abs_diff": diff,
+                "bit_equal": not unequal and metrics_equal,
+                "unequal_leaves": len(unequal), "leaves": len(pairs), "step_ms": step_ms,
+                "grad_reductions": on_data.get("all-reduce", 0) + on_data.get("reduce-scatter", 0),
+                "collectives": hlo_analysis.collective_stats(mode).counts,
+                "loss": float(got_m["loss"]),
+            })
+            over = {n: readings[n] for n in TRAIN_PARITY_TOL if readings[n] > TRAIN_PARITY_TOL[n]}
+            check(not over, f"launch train step {k + 1}: {over} above {TRAIN_PARITY_TOL}")
+            del ref, pairs
+            params, opt_state = got_p, got_o
+    del dp, do, params, opt_state
+    torch.cuda.empty_cache()
+    emit("launch train: " + json.dumps({
+        "arch": cfg.name, "layers": cfg.num_layers, "of_layers": len(state["params"]["blocks"]),
+        "microbatches": 2, "mesh": "world-1 NCCL (data 1, model 1)",
+        "grad_shardings": "zero1 specs", "limits": TRAIN_PARITY_TOL, "steps": rows,
+        "seconds": time.perf_counter() - t_phase,
+    }))
+
+
+def _launch_repairs(torch):
+    """Phase 7h (e): internlm2's smoke config (hd 8) served on the card
+    through the flash kernel (zero-padded to hd 16) against the same
+    weights on the CPU, and transposed operands through the matmul kernel
+    against its plain version."""
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.pipelined_matmul import ops as matmul_ops
+    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model_zoo
+
+    cfg = get_smoke_config("internlm2_20b").scaled(dtype="float32")
+    check(cfg.head_dim == 8, f"internlm2 smoke: hd {cfg.head_dim}")
+    params = model_zoo.init(cfg, device="cpu", seed=SEED)
+    batch = serve_lm.make_batch(cfg, 2, 24, device="cpu", seed=SEED + 1)
+    on_cpu = serve_lm.generate(params, cfg, batch, 6)
+    _reset_counts()
+    on_cuda = serve_lm.generate(tree_to(params, "cuda"), cfg, tree_to(batch, "cuda"), 6)
+    launches, routes, _ = _read_counts()
+    err = (on_cuda.prefill_logits.cpu() - on_cpu.prefill_logits).abs().max().item()
+    check(launches == cfg.num_layers, f"internlm2 smoke: {launches} flash launches")
+    check(err <= 1e-4, f"internlm2 smoke: logits {err} off the CPU's")
+    rows = {"internlm2_smoke_hd8": {"flash_launches": launches, "flash_routes": routes,
+                                    "prefill_logits_max_abs_err": err, "limit": 1e-4,
+                                    "tokens_equal": bool(torch.equal(on_cuda.tokens.cpu(),
+                                                                     on_cpu.tokens))}}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        a = torch.randn(264, 192, device="cuda").to(dt).t()
+        b = torch.randn(136, 264, device="cuda").to(dt).t()
+        before = matmul_ops.matmul.launches
+        out = matmul_ops.matmul(a, b)
+        torch.cuda.synchronize()
+        ref = matmul_ref(a.contiguous(), b.contiguous())
+        ratio = limit_ratio(out, ref, a.shape[1], TOL[name])
+        check(matmul_ops.matmul.launches == before + 1, "transposed matmul: no launch")
+        check(ratio <= 1, f"transposed matmul {name}: {ratio} of the limit")
+        rows[f"transposed_matmul_{name}"] = {"shape": [192, 264, 136], "limit_share": ratio}
+    emit("launch repairs: " + json.dumps(rows))
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def launch_phase(torch, smi, bg):
+    """Phase 7h: first (c) the gloo worlds and (d) the dry runs and
+    ``pp_lowering.main``, read from ``bg`` (waited for, so that nothing
+    runs beside what follows), then (a) sharded serving and (e) the two
+    repairs on the card; (b) runs inside phase 7b.  Returns (a)'s flash
+    launches."""
+
+    t0 = time.perf_counter()
+    _launch_gloo_checks(bg)
+    _launch_dryrun_checks(bg)
+    t_wait = time.perf_counter() - t0
+    t_host = time.monotonic() - bg.t0
+    t1 = time.perf_counter()
+    launches = _launch_serve(torch, smi)
+    t_serve = time.perf_counter() - t1
+    _launch_repairs(torch)
+    emit(f"launch_phase: {time.perf_counter() - t0:.1f} s (host-side runs {t_host:.1f} s "
+         f"from their start, {t_wait:.1f} s of it waited for here; serving {t_serve:.1f} s)")
+    return launches
 
 
 def whisper_entries(shapes):
@@ -4112,7 +4746,7 @@ def whisper_entries(shapes):
 def flash_entries(rows, serve_launches, phase_launches):
     """The kernels-line entries of the flash kernels, one per route taken:
     ``tma_wgmma`` at the shape the serving phase gives it (its launches are
-    the serving runs' of phases 7 and 7c-7e), ``tma_wgmma_tf32x3`` at the f32 prefill, and
+    the serving runs' of phases 7, 7c-7f and 7h), ``tma_wgmma_tf32x3`` at the f32 prefill, and
     ``cp_async_mma`` and ``ffma`` at the unaligned hd-32 case (their
     launches are phase 6's main run's)."""
 
@@ -4219,8 +4853,10 @@ def main() -> int:
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
     flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
+    t0 = time.perf_counter()
     flash_launches = serve_phase(torch)  # phase 7
-    train_phase(torch)  # phase 7b
+    emit(f"serve_phase: {time.perf_counter() - t0:.1f} s")
+    train_phase(torch)  # phase 7b, and 7h (b) on its state
     for phase in (moe_serve_phase, mamba_serve_phase):  # phases 7c, 7d
         t0 = time.perf_counter()
         flash_launches += phase(torch)
@@ -4232,9 +4868,17 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_launches += batching_phase(torch, smi)  # phase 7f
     emit(f"batching_phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    family_train_phase(torch, smi)  # phase 7g
-    emit(f"family_train_phase: {time.perf_counter() - t0:.1f} s")
+    bg = None
+    try:
+        t0 = time.perf_counter()
+        family_train_phase(torch, smi, FAMILY_TRAIN[:FAMILY_TRAIN_ALONE])  # phase 7g
+        bg = LaunchBackground()  # phase 7h (c) and (d)
+        family_train_phase(torch, smi, FAMILY_TRAIN[FAMILY_TRAIN_ALONE:])
+        emit(f"family_train_phase: {time.perf_counter() - t0:.1f} s")
+        flash_launches += launch_phase(torch, smi, bg)  # phase 7h
+    finally:
+        if bg is not None:
+            bg.stop()
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
     entries.extend(whisper_entries(whisper_rows))
     entries.append(split_entry)

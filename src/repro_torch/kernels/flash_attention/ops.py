@@ -43,6 +43,7 @@ from typing import Optional, Sequence, Tuple
 
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bshd_ref,
+    pad_head_dim,
     split_kv_tf32_ref,
 )
 from repro_torch.kernels.pipelined_matmul.ops import (
@@ -299,7 +300,8 @@ def _check(rc: int, path: str, q, k, depth) -> None:
     raise RuntimeError(f"flash attention launch failed ({path}): cudaError {rc} ({shape})")
 
 
-def _launch(q, k, v, o, causal: bool, window: Optional[int], q_offset: int) -> None:
+def _launch(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
+            scale: Optional[float] = None) -> None:
     """``flash_attention.cu`` (bf16 mma.sync, f32 FFMA)."""
 
     import ctypes
@@ -316,14 +318,14 @@ def _launch(q, k, v, o, causal: bool, window: Optional[int], q_offset: int) -> N
         0 if q.dtype == torch.float32 else 1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dims, strides, int(causal), 0 if window is None else int(window),
-        int(q_offset), hd**-0.5,
+        int(q_offset), hd**-0.5 if scale is None else scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(rc, FFMA if q.dtype == torch.float32 else CP_ASYNC_MMA, q, k, RING_DEPTH)
 
 
 def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
-                sched) -> None:
+                sched, scale: Optional[float] = None) -> None:
     """``tma_wgmma_flash.cu``, with the tensor maps of :func:`tensor_map` and
     the plan's two waits as its flags."""
 
@@ -345,7 +347,7 @@ def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
     rc = _tma_entry_point()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dims, maps, o_strides, int(causal), 0 if window is None else int(window),
-        int(q_offset), hd**-0.5 * math.log2(math.e),
+        int(q_offset), (hd**-0.5 if scale is None else scale) * math.log2(math.e),
         sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -429,7 +431,7 @@ split_kv_tf32.launches = 0
 
 
 def _launch_tf32x3(q, k, v, o, causal: bool, window: Optional[int],
-                   q_offset: int, sched) -> None:
+                   q_offset: int, sched, scale: Optional[float] = None) -> None:
     """``tma_wgmma_flash_tf32x3.cu``'s one host call: the pre-pass of k and
     v into a workspace, then the product, with Q's tensor map and the
     plan's two waits as its flags.  Both launches are counted: the
@@ -449,12 +451,20 @@ def _launch_tf32x3(q, k, v, o, causal: bool, window: Optional[int],
         _kv_strides(k, v),
         (ctypes.c_longlong * 3)(*o.stride()[:3]),
         int(causal), 0 if window is None else int(window), int(q_offset),
-        hd**-0.5 * math.log2(math.e),
+        (hd**-0.5 if scale is None else scale) * math.log2(math.e),
         sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(rc, TMA_WGMMA_TF32X3, q, k, sched.depth)
     split_kv_tf32.launches += 1
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim a CUDA call with ``hd`` runs at: ``hd`` itself when a
+    kernel is built for it (or it is above them all, where the call
+    raises), else the next of :data:`HEAD_DIMS`."""
+
+    return next((h for h in HEAD_DIMS if h >= hd), hd)
 
 
 def _check_live_keys(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -553,9 +563,14 @@ def flash_attention(
     window: Optional[int] = None,
     depth: Optional[int] = None,
     q_offset: int = 0,
+    _scale: Optional[float] = None,
 ):
     """Softmax attention ``softmax(q kᵀ · hd**-0.5 + mask) v`` with f32
     softmax state, over q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)``.
+    A head dim below 128 that no kernel is built for runs on the next one
+    that is (:data:`HEAD_DIMS`): q, k and v zero-padded, the scale of the
+    true hd, the output sliced back — exact, since the padding adds 0 to
+    every score and fills only the sliced-away columns.
 
     ``causal`` masks keys after the query position, ``window`` keys at or
     before ``q_pos - window``; query i sits at position ``q_offset + i``
@@ -608,6 +623,14 @@ def flash_attention(
         return flash_attention_bshd_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset
         )
+    to = padded_head_dim(hd)
+    if to != hd:
+        o = flash_attention(
+            *(pad_head_dim(t, to) for t in (q, k, v)),
+            causal=causal, window=window, depth=depth, q_offset=q_offset,
+            _scale=hd**-0.5,
+        )
+        return o[..., :hd].contiguous()
     _check_kernel_call(q, k, v, window, q_offset, causal)
     if sched is None:
         _check_schedule()
@@ -617,11 +640,11 @@ def flash_attention(
     if k.shape[1] == 0:
         return o.zero_()
     if path == TMA_WGMMA:
-        _launch_tma(q, k, v, o, causal, window, q_offset, sched)
+        _launch_tma(q, k, v, o, causal, window, q_offset, sched, _scale)
     elif path == TMA_WGMMA_TF32X3:
-        _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched)
+        _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched, _scale)
     else:
-        _launch(q, k, v, o, causal, window, q_offset)
+        _launch(q, k, v, o, causal, window, q_offset, _scale)
     flash_attention.launches += 1
     flash_attention.routes[path] += 1
     return o

@@ -42,12 +42,15 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     q_offset: int = 0,
+    scale: Optional[float] = None,
 ):
+    """``scale`` multiplies the scores: ``hd**-0.5`` by default."""
+
     import torch
 
     hd = q.shape[-1]
     s = torch.einsum("bqk,bsk->bqs", q.float(), k.float())
-    s = s * hd**-0.5
+    s = s * (hd**-0.5 if scale is None else scale)
     mask = _keep(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -71,14 +74,15 @@ def _fold(q, k, v):
 
 
 def flash_attention_bshd_ref(
-    q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0
+    q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+    scale: Optional[float] = None,
 ):
     """The same function over the wrapper's layout: q ``(B, Sq, H, hd)``,
     k/v ``(B, Sk, KV, hd)`` with GQA."""
 
     B, Sq, H, hd = q.shape
     of = flash_attention_ref(
-        *_fold(q, k, v), causal=causal, window=window, q_offset=q_offset
+        *_fold(q, k, v), causal=causal, window=window, q_offset=q_offset, scale=scale
     )
     return of.reshape(B, H, Sq, hd).transpose(1, 2)
 
@@ -151,3 +155,13 @@ def split_kv_tf32_ref(k, v):
         hi = rna_tf32_ref(x)
         out += [hi, rna_tf32_ref(x - hi)]
     return tuple(out)
+
+
+def pad_head_dim(x, to: int):
+    """``x (..., hd)`` with zeros appended to ``to`` along the head dim: a
+    query or key of zeros there adds 0 to every score, a value of zeros
+    there fills output columns that are sliced away."""
+
+    import torch
+
+    return torch.nn.functional.pad(x, (0, to - x.shape[-1]))

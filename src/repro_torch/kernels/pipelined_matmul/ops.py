@@ -447,7 +447,8 @@ def matmul(
     ``blk_m/n/k`` keep the reference wrapper's signature; the kernels'
     tiles are their own (bf16 TMA: 128 x 256, K step 64; 3xTF32: 128 x
     128, K step 32; cp.async: 128 x 128, K step 16 in f32 and 32 in bf16).
-    The 3xTF32 route first splits A, and B transposed, into TF32 halves
+    Operands of any layout are taken (copied row-major first, as the
+    kernels read them).  The 3xTF32 route first splits A, and B transposed, into TF32 halves
     (:func:`split_tf32`, two launches counted there), then launches the
     product.  A CPU tensor takes the plain version; a CUDA tensor takes its
     route's kernel or raises.
@@ -470,6 +471,9 @@ def matmul(
         )
     M, K = a.shape
     N = b.shape[1]
+    # the kernels read row-major operands: any other layout is copied so
+    # (the route reads the copies' addresses)
+    a, b = a.contiguous(), b.contiguous()
     path = route(a.dtype, K, N, a.data_ptr(), b.data_ptr())
     sched = _schedule(path, depth)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -479,8 +483,6 @@ def matmul(
             f"matmul operands must both be on the CPU or on one CUDA device; "
             f"got {a.device} and {b.device}"
         )
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul takes row-major contiguous operands")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return out

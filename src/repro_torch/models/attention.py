@@ -20,11 +20,13 @@ would move the whole cache.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models.layers import apply_rope, normal  # noqa: F401
 from repro_torch.obs import metrics
 
@@ -47,18 +49,31 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
+def _einsum(spec: str, x, w):
+    """``torch.einsum(spec, x, w)``; on DTensors a local product
+    (:func:`repro_torch.models.sharded.product`)."""
+
+    return sharded.product(lambda a, b: torch.einsum(spec, a, b), spec, x, w)
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B,S,d) · (d,H,hd) → (B,S,H,hd)."""
+
+    return _einsum("bsd,dhk->bshk", x, w)
+
+
 def qkv_project(
     params: dict, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     kv_x = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_x, params["wv"])
+    q = project(x, params["wq"])
+    k = project(kv_x, params["wk"])
+    v = project(kv_x, params["wv"])
     return q, k, v
 
 
 def out_project(params: dict, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    return _einsum("bshk,hkd->bsd", o, params["wo"])
 
 
 def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -142,9 +157,20 @@ def chunked_attention(
     inputs require grad (grad enabled) takes :func:`chunked_attention_plain`
     under autograd on any device, counted in ``attention.train_plain_calls``;
     otherwise CPU tensors take the plain version and CUDA tensors the flash
-    kernel, whose tiles replace ``chunk``.
+    kernel, whose tiles replace ``chunk``.  DTensor operands run this on
+    their local shards (:func:`repro_torch.models.sharded.attention`), so
+    the kernel sees plain tensors.
     """
 
+    return sharded.attention(
+        functools.partial(
+            _chunked_attention, causal=causal, window=window, chunk=chunk, q_offset=q_offset
+        ),
+        q, k, v,
+    )
+
+
+def _chunked_attention(q, k, v, *, causal, window, chunk, q_offset):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         # the kernel has no backward (nor has the reference's Pallas kernel)
         TRAIN_PLAIN_CALLS.inc()
@@ -220,8 +246,17 @@ def decode_attention(
     ``cache_len`` (an int, a 0-d tensor or a (B,) tensor) marks the filled
     prefix (the new token's KV must already be written at cache_len-1).
     Grouped-GQA contraction: the cache is never repeated to H heads.
+    DTensor operands run on their local shards unless the cache splits its
+    sequence (then DTensor's rules reduce the softmax across shards).
     """
 
+    body = functools.partial(_decode_attention, cache_len=cache_len, window=window)
+    if sharded.seq_sharded(k_cache):
+        return body(q, k_cache, v_cache)
+    return sharded.attention(body, q, k_cache, v_cache)
+
+
+def _decode_attention(q, k_cache, v_cache, *, cache_len, window):
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -252,9 +287,13 @@ def update_kv_cache(
     (in place); returns the caches."""
 
     i = _start(start, k_new.shape[1], k_cache.shape[1])
-    k_cache[:, i : i + k_new.shape[1]] = k_new.to(k_cache.dtype)
-    v_cache[:, i : i + v_new.shape[1]] = v_new.to(v_cache.dtype)
+    sharded.write_cache(_write, [k_cache, v_cache], [k_new, v_new], i)
     return k_cache, v_cache
+
+
+def _write(caches, news, i: int) -> None:
+    for c, n in zip(caches, news):
+        c[:, i : i + n.shape[1]] = n.to(c.dtype)
 
 
 # ---------------------------------------------------------------------- #
@@ -284,11 +323,19 @@ def decode_attention_q(
     """One-step attention against the int8 cache without a dequantized
     copy: the per-(token,head) scales factor out of the head_dim
     contraction (applied to the scores for K, folded into the
-    probabilities for V)."""
+    probabilities for V).  DTensor operands run as
+    :func:`decode_attention`'s do."""
 
+    body = functools.partial(_decode_attention_q, cache_len=cache_len, window=window)
+    parts = (cache["k_q"], cache["k_s"], cache["v_q"], cache["v_s"])
+    if sharded.seq_sharded(cache["k_q"]):
+        return body(q, *parts)
+    return sharded.attention(body, q, *parts)
+
+
+def _decode_attention_q(q, kq, ks, vq, vs, *, cache_len, window):
+    # kq, vq (B,S,KV,hd) int8; ks, vs (B,S,KV,1) scales
     B, _, H, hd = q.shape
-    kq, ks = cache["k_q"], cache["k_s"]  # (B,S,KV,hd), (B,S,KV,1)
-    vq, vs = cache["v_q"], cache["v_s"]
     Smax, KV = kq.shape[1], kq.shape[2]
     G = H // KV
     qg = q.float().reshape(B, 1, KV, G, hd)
@@ -312,9 +359,6 @@ def update_kv_cache_q(
     kq, ks = quantize_kv(k_new)
     vq, vs = quantize_kv(v_new)
     i = _start(start, k_new.shape[1], cache["k_q"].shape[1])
-    j = i + k_new.shape[1]
-    cache["k_q"][:, i:j] = kq
-    cache["k_s"][:, i:j] = ks.to(cache["k_s"].dtype)
-    cache["v_q"][:, i:j] = vq
-    cache["v_s"][:, i:j] = vs.to(cache["v_s"].dtype)
+    names = ("k_q", "k_s", "v_q", "v_s")
+    sharded.write_cache(_write, [cache[n] for n in names], [kq, ks, vq, vs], i)
     return cache

@@ -26,6 +26,7 @@ from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.sharded import residual
 from repro_torch.models.layers import (
     cdtype,
     embed,
@@ -118,9 +119,9 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
         h = rmsnorm(lp["norm1"], xc, cfg.norm_eps)
         q, k, v = attn_lib.qkv_project(lp["attn"], h)
         o = attn_lib.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        xc = xc + attn_lib.out_project(lp["attn"], o)
+        xc = residual(xc, attn_lib.out_project(lp["attn"], o))
         h = rmsnorm(lp["norm2"], xc, cfg.norm_eps)
-        return xc + mlp(lp["mlp"], h)
+        return residual(xc, mlp(lp["mlp"], h))
 
     for lp in params["enc_blocks"]:
         x = _remat(layer, cfg, lp, x)
@@ -155,29 +156,35 @@ def _dec_layer(
         if cache is not None:  # prefill
             attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, 0)
         o = attn_lib.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    x = x + attn_lib.out_project(lp["self_attn"], o)
+    x = residual(x, attn_lib.out_project(lp["self_attn"], o))
 
     # cross attention
     h = rmsnorm(lp["norm_x"], x, cfg.norm_eps)
-    qx = torch.einsum("bsd,dhk->bshk", h, lp["cross_attn"]["wq"])
+    qx = attn_lib.project(h, lp["cross_attn"]["wq"])
     if mode == "decode":
         ck, cv = cache["ck"], cache["cv"]
     else:
         assert enc_out is not None
-        ck = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross_attn"]["wk"])
-        cv = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross_attn"]["wv"])
+        ck = attn_lib.project(enc_out, lp["cross_attn"]["wk"])
+        cv = attn_lib.project(enc_out, lp["cross_attn"]["wv"])
         if cache is not None:
-            cache["ck"].copy_(ck)
-            cache["cv"].copy_(cv)
+            attn_lib.update_kv_cache(cache["ck"], cache["cv"], ck, cv, 0)
     o = attn_lib.chunked_attention(qx, ck, cv, causal=False, chunk=cfg.attn_chunk)
-    x = x + attn_lib.out_project(lp["cross_attn"], o)
+    x = residual(x, attn_lib.out_project(lp["cross_attn"], o))
 
     # mlp
     h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h)
+    return residual(x, mlp(lp["mlp"], h))
 
 
-def _run_decoder(params, x, cfg, mode, cache, cache_len, enc_out) -> torch.Tensor:
+def _run_decoder(
+    params, x, cfg, mode, cache, cache_len, enc_out, act_constrain=None
+) -> torch.Tensor:
+    """The decoder layers in order; ``act_constrain`` relayouts the
+    residual stream on entry and after every layer."""
+
+    constrain = act_constrain or (lambda t: t)
+    x = constrain(x)
     for i, lp in enumerate(params["dec_blocks"]):
         lc = cache[i] if cache is not None else None
         if mode == "train":
@@ -187,6 +194,7 @@ def _run_decoder(params, x, cfg, mode, cache, cache_len, enc_out) -> torch.Tenso
             )
         else:
             x = _dec_layer(lp, x, cfg, mode, lc, cache_len, enc_out)
+        x = constrain(x)
     return x
 
 
@@ -195,13 +203,16 @@ def _run_decoder(params, x, cfg, mode, cache, cache_len, enc_out) -> torch.Tenso
 # ---------------------------------------------------------------------- #
 
 def forward(
-    params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig
+    params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+    *, act_constrain=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward: (logits (B,S,V), aux=0)."""
+    """Training forward: (logits (B,S,V), aux=0).  ``act_constrain``
+    relayouts the decoder's residual stream at layer boundaries (the
+    reference's encoder-decoder takes no such hook)."""
 
     enc_out = encode(params, frames, cfg)
     x = embed(params["embed"], tokens).to(cdtype(cfg))
-    x = _run_decoder(params, x, cfg, "train", None, None, enc_out)
+    x = _run_decoder(params, x, cfg, "train", None, None, enc_out, act_constrain)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params["embed"], x, cfg), aux

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 
 NEG_INF = -1e30
 
@@ -94,7 +95,7 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+    return sharded.embed(params["tok"], tokens)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -102,9 +103,11 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     they never win argmax and carry ~0 softmax mass."""
 
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["tok"].t())
+        logits = sharded.product(
+            lambda a, w: torch.matmul(a, w.t()), "bsd,vd->bsv", x, params["tok"]
+        )
     else:
-        logits = torch.matmul(x, params["head"])
+        logits = sharded.product(torch.matmul, "bsd,dv->bsv", x, params["head"])
     V, Vp = cfg.vocab_size, cfg.padded_vocab_size
     if Vp != V:
         padded = torch.arange(Vp, device=logits.device) >= V
@@ -127,10 +130,14 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype) -> dict
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = torch.matmul(x, params["w_gate"])
-    up = torch.matmul(x, params["w_up"])
+    """Under a mesh the ff dim follows the weights and the output is a
+    ``Partial`` sum where ``w_down`` is ff-sharded
+    (:func:`repro_torch.models.sharded.product`)."""
+
+    gate = sharded.product(torch.matmul, "bsd,df->bsf", x, params["w_gate"])
+    up = sharded.product(torch.matmul, "bsd,df->bsf", x, params["w_up"])
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return torch.matmul(act, params["w_down"])
+    return sharded.product(torch.matmul, "bsf,fd->bsd", act, params["w_down"])
 
 
 # ---------------------------------------------------------------------- #
@@ -143,6 +150,8 @@ def softmax_cross_entropy(
     """Mean next-token loss in f32.  logits (..., V), labels (...) int."""
 
     logits = logits.float()
+    if sharded.is_dtensor(logits):
+        return sharded.nll_mean(logits, labels, mask)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models.layers import cdtype, normal
 
 NEG_INF = -1e30
@@ -177,12 +178,15 @@ def _project(params: dict, x: torch.Tensor):
 
 
 def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, dtype):
-    """Mamba2's gated RMS norm before the out projection."""
+    """Mamba2's gated RMS norm before the out projection.  On DTensors the
+    mean runs over the sharded inner dim by DTensor's rules (one
+    all-reduce) and the projection is local
+    (:func:`repro_torch.models.sharded.product`)."""
 
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm"]
-    return torch.matmul(y.to(dtype), params["out"])
+    return sharded.product(torch.matmul, "bsi,id->bsd", y.to(dtype), params["out"])
 
 
 def _write_state(state: Optional[dict], h: torch.Tensor, tail: torch.Tensor) -> dict:
@@ -195,20 +199,14 @@ def _write_state(state: Optional[dict], h: torch.Tensor, tail: torch.Tensor) -> 
     return state
 
 
-def mamba_apply(
-    params: dict,
-    x: torch.Tensor,
-    cfg: ModelConfig,
-    state: Optional[dict] = None,
-) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence (train/prefill) Mamba2 mixer starting from ``state``
-    (zeros when None).  Returns (y, new_state); a given ``state`` is
-    updated in place."""
+def _mix(params: dict, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict]):
+    """The full-sequence mixer up to the gated norm: (y (B,S,H·P) f32, z,
+    new state), for the heads ``params`` holds."""
 
     assert cfg.mamba is not None
     mc = cfg.mamba
-    B_, S, d = x.shape
-    H, P = mc.num_heads(d), mc.head_dim
+    B_, S, _ = x.shape
+    H, P = params["A_log"].shape[0], mc.head_dim
 
     z, xin, dt_raw, Bm, Cm = _project(params, x)
     conv_tail = state["conv"] if state is not None else None
@@ -220,20 +218,17 @@ def mamba_apply(
     h0 = state["ssm"] if state is not None else None
     y, h = ssd_chunked(xh, dt, A, Bm, Cm, mc.chunk, h0)
     y = y + xh.float() * params["D"][None, None, :, None]
-    out = _gated_out(params, y.reshape(B_, S, H * P), z, cfg, x.dtype)
-    return out, _write_state(state, h, new_tail)
+    return y.reshape(B_, S, H * P), z, _write_state(state, h, new_tail)
 
 
-def mamba_decode_step(
-    params: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
-) -> Tuple[torch.Tensor, dict]:
-    """One-token step.  x (B,1,d); state {'ssm': (B,H,P,N), 'conv':
-    (B,K-1,di)}, updated in place."""
+def _mix_decode(params: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    """The one-token mixer up to the gated norm: (y (B,1,H·P) f32, z,
+    state), the state updated in place."""
 
     assert cfg.mamba is not None
     mc = cfg.mamba
-    B_, _, d = x.shape
-    H, P = mc.num_heads(d), mc.head_dim
+    B_ = x.shape[0]
+    H, P = params["A_log"].shape[0], mc.head_dim
 
     z, xin, dt_raw, Bm, Cm = _project(params, x)
     xin, new_tail = _causal_conv(xin, params["conv_x"], state["conv"])
@@ -248,8 +243,36 @@ def mamba_decode_step(
     h = state["ssm"].float()
     h = h * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bf[:, None, None, :]
     y = torch.matmul(h, Cf[:, None, :, None])[..., 0] + xh * params["D"][None, :, None]
-    out = _gated_out(params, y.reshape(B_, 1, H * P), z, cfg, x.dtype)
-    return out, _write_state(state, h, new_tail)
+    return y.reshape(B_, 1, H * P), z, _write_state(state, h, new_tail)
+
+
+def mamba_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[dict] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence (train/prefill) Mamba2 mixer starting from ``state``
+    (zeros when None).  Returns (y, new_state); a given ``state`` is
+    updated in place.  DTensor operands run the mixer on their local heads
+    (:func:`repro_torch.models.sharded.mamba_mix`)."""
+
+    y, z, new = sharded.mamba_mix(
+        lambda p, xl, st: _mix(p, xl, cfg, st), params, x, state
+    )
+    return _gated_out(params, y, z, cfg, x.dtype), new
+
+
+def mamba_decode_step(
+    params: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
+) -> Tuple[torch.Tensor, dict]:
+    """One-token step.  x (B,1,d); state {'ssm': (B,H,P,N), 'conv':
+    (B,K-1,di)}, updated in place."""
+
+    y, z, _ = sharded.mamba_mix(
+        lambda p, xl, st: _mix_decode(p, xl, cfg, st), params, x, state
+    )
+    return _gated_out(params, y, z, cfg, x.dtype), state
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, device) -> dict:

@@ -61,23 +61,33 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 
 def forward_logits(
-    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+    act_constrain=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``act_constrain`` (optional, launch-layer injected) relayouts the
+    residual stream at block boundaries (:mod:`repro_torch.launch.steps`'s
+    ``seq_shard``)."""
+
     if cfg.family == "encdec":
-        return encdec.forward(params, batch["frame_embeds"], batch["tokens"], cfg)
+        return encdec.forward(
+            params, batch["frame_embeds"], batch["tokens"], cfg,
+            act_constrain=act_constrain,
+        )
     return transformer.forward(
-        params, batch["tokens"], cfg, prefix_embeds=batch.get("patch_embeds")
+        params, batch["tokens"], cfg, prefix_embeds=batch.get("patch_embeds"),
+        act_constrain=act_constrain,
     )
 
 
 def loss_fn(
-    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+    params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+    act_constrain=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"nll", "aux"}): the mean next-token NLL in f32 over the text
     positions (``loss_mask`` weights them when given) plus the weighted MoE
     aux loss (zero without MoE)."""
 
-    logits, aux = forward_logits(params, batch, cfg)
+    logits, aux = forward_logits(params, batch, cfg, act_constrain)
     labels = batch["labels"]
     if cfg.frontend == "vision" and cfg.num_patches:
         # loss over text positions only (patch prefix produces no targets)
@@ -91,6 +101,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     if cfg.family == "encdec":
         return encdec.init_cache(cfg, batch, max_len, resolve_device(device))
     return transformer.init_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache tree as ``meta`` tensors (the reference's
+    ``abstract_cache``)."""
+
+    meta = torch.device("meta")
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, meta)
+    return transformer.init_cache(cfg, batch, max_len, meta)
 
 
 def prefill(

@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import sharded
 from repro_torch.models.layers import cdtype, mlp, mlp_init, normal
 
 
@@ -85,22 +86,20 @@ def _experts(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.bmm(act, params["w_down"]).reshape(expert_in.shape)
 
 
-def moe_apply(
-    params: dict, x: torch.Tensor, cfg: ModelConfig
+def _routed(
+    params: dict, x: torch.Tensor, cfg: ModelConfig, G: int, e0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) → (y (B,S,d), aux_loss scalar f32).
-
-    The aux loss is the load-balancing term: the mean over groups of
-    sum_e(fraction of tokens routed to e × mean router prob of e) × E."""
+    """The routed experts' output and the aux loss over the token groups
+    of ``x`` (groups of ``G``), for the experts ``params`` holds: all of
+    them, or (expert-parallel) ``params["w_gate"].shape[0]`` of them from
+    expert ``e0`` on, whose output is then a partial sum."""
 
     assert cfg.moe is not None
     mc = cfg.moe
     B, S, d = x.shape
     E = mc.num_experts
-    tokens = B * S
-    G = min(mc.group_size, tokens)
-    n = tokens // G
-    assert n * G == tokens, (tokens, G)
+    El = params["w_gate"].shape[0]
+    n = B * S // G
     C = _capacity(mc, G)
 
     xg = x.reshape(n, G, d)
@@ -112,28 +111,49 @@ def moe_apply(
     slots = torch.arange(C, device=x.device)
     pos_oh = (pos[..., None] == slots).float()  # (n,G,K,C)
     to_experts = onehot.transpose(2, 3)  # (n,G,E,K)
+    if El != E:
+        to_experts = to_experts[:, :, e0 : e0 + El]
     dispatch = torch.matmul(to_experts, pos_oh * keep[..., None])
     combine = torch.matmul(to_experts, pos_oh * top_p[..., None])
 
     # expert_in[e, n, c] = the token of group n in expert e's slot c
     expert_in = torch.bmm(
-        dispatch.to(x.dtype).permute(0, 2, 3, 1).reshape(n, E * C, G), xg
-    ).reshape(n, E, C, d).transpose(0, 1)  # (E,n,C,d)
+        dispatch.to(x.dtype).permute(0, 2, 3, 1).reshape(n, El * C, G), xg
+    ).reshape(n, El, C, d).transpose(0, 1)  # (E,n,C,d)
     expert_out = _experts(params, expert_in)
     yg = torch.matmul(
-        combine.to(x.dtype).reshape(n, G, E * C),
-        expert_out.permute(1, 0, 2, 3).reshape(n, E * C, d),
+        combine.to(x.dtype).reshape(n, G, El * C),
+        expert_out.permute(1, 0, 2, 3).reshape(n, El * C, d),
     )  # (n,G,d)
-
-    y = yg.reshape(B, S, d)
-    if mc.num_shared:
-        y = y + mlp(params["shared"], x)
 
     # aux load-balancing loss
     density = onehot.sum(dim=2).mean(dim=1)  # (n,E) token fraction
     router_prob = probs.mean(dim=1)  # (n,E)
     aux = (density * router_prob).sum(-1).mean() * E
-    return y, aux.float()
+    return yg.reshape(B, S, d), aux.float()
+
+
+def moe_apply(
+    params: dict, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) → (y (B,S,d), aux_loss scalar f32).
+
+    The aux loss is the load-balancing term: the mean over groups of
+    sum_e(fraction of tokens routed to e × mean router prob of e) × E.
+    DTensor operands run the dispatch on their local shards
+    (:func:`repro_torch.models.sharded.moe`)."""
+
+    assert cfg.moe is not None
+    mc = cfg.moe
+    B, S, d = x.shape
+    tokens = B * S
+    G = min(mc.group_size, tokens)
+    assert (tokens // G) * G == tokens, (tokens, G)
+
+    y, aux = sharded.moe(lambda p, xl, e0: _routed(p, xl, cfg, G, e0), params, x, G)
+    if mc.num_shared:
+        y = y + mlp(params["shared"], x)
+    return y, aux
 
 
 def moe_reference(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

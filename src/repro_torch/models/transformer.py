@@ -36,6 +36,7 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.sharded import accumulate, residual
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
@@ -205,16 +206,16 @@ def _apply_layer(
             o, new_cache = mamba_lib.mamba_decode_step(p["mamba"], h, cfg, cache)
     else:
         raise ValueError(pos.mixer)
-    x = x + o
+    x = residual(x, o)
 
     # --- mlp ---
     if pos.mlp == MLP_DENSE and "mlp" in p:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h)
+        x = residual(x, mlp(p["mlp"], h))
     elif pos.mlp == MLP_MOE:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
-        x = x + y
+        x = residual(x, y)
     return x, new_cache, aux
 
 
@@ -246,7 +247,7 @@ def _checkpointed_block(
         aux = torch.zeros((), dtype=torch.float32, device=xb.device)
         for i, pos in enumerate(cfg.block):
             xb, _, a = _apply_layer(bp[f"pos{i}"], xb, pos, cfg, "train", None, None)
-            aux = aux + a
+            aux = accumulate(aux, a)
         return xb, aux
 
     kwargs = {}
@@ -266,20 +267,26 @@ def _run_stack(
     mode: str,
     cache: Optional[dict],
     cache_len,
+    act_constrain=None,
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The blocks in order, then the remainder layers; returns (x, new
     cache, the aux loss summed over every layer).  In train mode with
     grad enabled and ``cfg.remat`` other than ``"none"`` each block runs
     under a checkpoint (:func:`_checkpointed_block`); the remainder layers
-    run plain, as the reference unrolls them outside its scan."""
+    run plain, as the reference unrolls them outside its scan.
+    ``act_constrain`` relayouts the residual stream on entry and after
+    every block, as the reference constrains its scan carry."""
 
     new_cache: Dict[str, Any] = {"blocks": [], "rem": {}}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
+    constrain = act_constrain or (lambda t: t)
+    x = constrain(x)
     for b, bp in enumerate(params["blocks"]):
         if remat:
             x, a = _checkpointed_block(bp, x, cfg)
-            aux = aux + a
+            x = constrain(x)
+            aux = accumulate(aux, a)
             continue
         nbc = {}
         block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -288,15 +295,16 @@ def _run_stack(
             x, nbc[f"pos{i}"], a = _apply_layer(
                 bp[f"pos{i}"], x, pos, cfg, mode, pc, cache_len
             )
-            block_aux = block_aux + a
-        aux = aux + block_aux
+            block_aux = accumulate(block_aux, a)
+        x = constrain(x)
+        aux = accumulate(aux, block_aux)
         new_cache["blocks"].append(nbc)
     for i in range(cfg.remainder_layers):
         pc = cache["rem"][f"layer{i}"] if cache is not None else None
         x, new_cache["rem"][f"layer{i}"], a = _apply_layer(
             params["rem"][f"layer{i}"], x, cfg.block[i], cfg, mode, pc, cache_len
         )
-        aux = aux + a
+        aux = accumulate(aux, a)
     return x, (new_cache if cache is not None else None), aux
 
 
@@ -317,13 +325,17 @@ def forward(
     cfg: ModelConfig,
     *,
     prefix_embeds: Optional[torch.Tensor] = None,
+    act_constrain=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode forward.  Returns (logits (B,S,V), aux_loss), the aux loss
     the MoE layers' summed (zero without MoE).  ``prefix_embeds`` (B,P,d)
-    are prepended (VLM patch embeddings)."""
+    are prepended (VLM patch embeddings); ``act_constrain`` as in
+    :func:`_run_stack`."""
 
     x = _embed_inputs(params, tokens, cfg, prefix_embeds)
-    x, _, aux = _run_stack(params, x, cfg, "train", None, None)
+    x, _, aux = _run_stack(
+        params, x, cfg, "train", None, None, act_constrain=act_constrain
+    )
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), aux
 

@@ -15,9 +15,11 @@ microbatch m-(S-1)'s output at row m and zeros in its first S-1 rows.  The
 reference returns device 0's accumulator (``out_specs=P()``), which is all
 zeros for S > 1; each rank here returns its own.
 
-The reference's ``main`` (an AOT compile on the production mesh counting
-collective-permutes in the HLO) needs the mesh and HLO analysis, which are
-not ported.
+``main`` is the reference's check on the production mesh: the stages are
+the 16 ranks of its "model" dimension (this process is rank 0 of a
+``"fake"`` group of 512, so the hand-offs move nothing), and the count is
+read from ``pp.handoffs`` where the reference counts collective-permutes
+in the compiled HLO.  Run as ``python -m repro_torch.runtime.pp_lowering``.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ from repro_torch.obs import metrics
 HANDOFFS = "pp.handoffs"
 
 
-def _stage_group(dev: torch.device) -> Tuple[int, int]:
-    """(rank, world size) of the default group, whose backend must move
-    tensors of ``dev``: gloo CPU ones, NCCL CUDA ones."""
+def _stage_group(dev: torch.device, group=None) -> Tuple[int, int]:
+    """(rank, size) in ``group`` (the default group when None), whose
+    backend must move tensors of ``dev``: gloo CPU ones, NCCL CUDA ones (a
+    ``"fake"`` group moves nothing and takes either)."""
 
     import torch.distributed as dist
 
@@ -44,15 +47,15 @@ def _stage_group(dev: torch.device) -> Tuple[int, int]:
             "build_pipeline_step needs a process group: one rank per stage "
             "(torch.distributed.init_process_group)"
         )
-    backend = str(dist.get_backend()).lower()
-    reaches = {"cuda": ("nccl",), "cpu": ("gloo", "mpi")}[dev.type]
+    backend = str(dist.get_backend(group)).lower()
+    reaches = {"cuda": ("nccl", "fake"), "cpu": ("gloo", "mpi", "fake")}[dev.type]
     if not any(b in backend for b in reaches):
         raise ValueError(
             f"pipeline step: the process group's backend {backend!r} cannot "
             f"move tensors on {dev}; use an NCCL group for 'cuda' and a gloo "
             "group for 'cpu'"
         )
-    return dist.get_rank(), dist.get_world_size()
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def build_pipeline_step(
@@ -61,8 +64,10 @@ def build_pipeline_step(
     skips: Tuple[Tuple[int, int], ...] = (),
     *,
     device="cuda",
+    group=None,
 ):
-    """A pipeline step in which this rank is one stage.
+    """A pipeline step in which this rank is one stage of ``group`` (the
+    default group when None; e.g. a mesh dimension's group).
 
     Stage s applies its own weight matrix; the payload carries both the
     chain activation AND the skip values the transitive reduction proved
@@ -76,7 +81,8 @@ def build_pipeline_step(
     import torch.distributed as dist
 
     dev = resolve_device(device)
-    rank, S = _stage_group(dev)
+    rank, S = _stage_group(dev, group)
+    peer = (lambda r: r) if group is None else (lambda r: dist.get_global_rank(group, r))
     plan = plan_pipeline_sync(
         StageGraph(num_stages=S, num_microbatches=num_microbatches, skips=skips)
     )
@@ -121,8 +127,8 @@ def build_pipeline_step(
             if S > 1:
                 moved = torch.empty_like(payload)
                 for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, payload, (rank + 1) % S),
-                    dist.P2POp(dist.irecv, moved, (rank - 1) % S),
+                    dist.P2POp(dist.isend, payload, peer((rank + 1) % S), group),
+                    dist.P2POp(dist.irecv, moved, peer((rank - 1) % S), group),
                 ]):
                     req.wait()
                 handoffs.inc()
@@ -134,3 +140,32 @@ def build_pipeline_step(
         return outs
 
     return step, plan
+
+
+def main() -> None:
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    fake_world(512)
+    mesh = make_production_mesh(device_type="cpu")
+    S = mesh.size(mesh.mesh_dim_names.index("model"))
+    skips = tuple((0, d) for d in range(2, 8))  # 6 fan-out edges
+    M, B, d = 4, 8, 128
+    step, plan = build_pipeline_step(
+        M, d, skips, device="cpu", group=mesh.get_group("model")
+    )
+    handoffs = metrics.counter(HANDOFFS)
+    before = handoffs.value
+    step(torch.zeros((d, d)), torch.zeros((M, B, d)))
+    per_step = (handoffs.value - before) / M
+    print("sync plan:", plan.summary())
+    naive = (S - 1) + len(skips)
+    print(
+        f"hand-offs per microbatch step: {per_step:g} on {S} stages "
+        f"(naive one-per-dependence schedule: {naive})"
+    )
+    assert per_step <= 2, "piggybacked schedule must hand off O(1) times a step"
+    print("pp lowering: OK")
+
+
+if __name__ == "__main__":
+    main()

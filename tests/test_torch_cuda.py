@@ -370,10 +370,24 @@ def test_ffma_helper_runs_the_ffma_kernel_uncounted(cuda):
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
     a = torch.randn(32, 16, device=cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(a, torch.randn(32, 16, device=cuda).t())
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.matmul(a, torch.randn(16, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_takes_transposed_operands(cuda, dtype):
+    """Transposed (column-major) operands reach the kernel, copied
+    row-major, and agree with the plain version."""
+
+    a = torch.randn(264, 192, device=cuda).to(dtype).t()  # (192, 264)
+    b = torch.randn(136, 264, device=cuda).to(dtype).t()  # (264, 136)
+    assert not (a.is_contiguous() or b.is_contiguous())
+    before = ops.matmul.launches
+    out = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.matmul.launches == before + 1
+    ref = matmul_ref(a.contiguous(), b.contiguous())
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype] * 16, rtol=TOL[dtype])
 
 
 # ---------------------------------------------------------------------- #
@@ -763,18 +777,21 @@ def test_chunked_attention_on_cuda_is_the_kernel(cuda):
     assert flash_ops.flash_attention.launches == before + 2
     ref = attention.chunked_attention_plain(qc, k, v, causal=True, window=16, q_offset=16)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    # hd 8 runs on the hd-16 kernel, zero-padded, at hd 8's scale
     q8, k8, v8 = _flash_inputs(cuda, 1, 16, 16, 2, 2, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="hd=8"):
-        attention.chunked_attention(q8, k8, v8)
-    assert flash_ops.flash_attention.launches == before + 2
+    out = attention.chunked_attention(q8, k8, v8)
+    assert flash_ops.flash_attention.launches == before + 3
+    assert out.shape == q8.shape
+    ref = attention.chunked_attention_plain(q8, k8, v8)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "gemma3_27b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "gemma3_27b", "internlm2_20b"])
 def test_smoke_size_serving_on_cuda_goes_through_the_kernel(cuda, arch):
     """The smoke configuration served on the card agrees with the same
     weights served on the CPU (logits within 1e-4 in f32: the two devices
     sum in other orders), with one kernel launch per attention layer per
-    prefill."""
+    prefill (internlm2's hd 8 on the zero-padded hd-16 kernel)."""
 
     cfg = get_smoke_config(arch).scaled(dtype="float32")
     params = model_zoo.init(cfg, device="cpu", seed=0)
@@ -1526,5 +1543,31 @@ def test_pipeline_step_refuses_a_gloo_group_with_the_card(cuda, tmp_path):
         step, _ = build_pipeline_step(2, 8, device="cpu")  # gloo moves CPU tensors
         w, xs = torch.eye(8), torch.ones((2, 3, 8))
         assert torch.equal(step(w, xs), torch.tanh(xs))  # one stage, nothing moved
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_attention_reaches_the_kernel_through_local_map(cuda, tmp_path):
+    """DTensor q, k, v on a one-rank NCCL mesh reach the flash kernel as
+    their local shards (``models/sharded.attention``), one launch, equal
+    to the plain tensors' call bit for bit."""
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+
+    q, k, v = _flash_inputs(cuda, 2, 128, 128, 8, 2, 64, torch.bfloat16)
+    want = attention.chunked_attention(q, k, v, causal=True)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_debug_mesh(device_type="cuda")
+        sh = sharding.NamedSharding(mesh, sharding.P("data", None, "model", None))
+        dq, dk, dv = (sharding.distribute(t, sh) for t in (q, k, v))
+        before = flash_ops.flash_attention.launches
+        got = attention.chunked_attention(dq, dk, dv, causal=True)
+        assert flash_ops.flash_attention.launches == before + 1
+        assert torch.equal(got.full_tensor(), want)
     finally:
         dist.destroy_process_group()

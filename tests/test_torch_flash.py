@@ -424,3 +424,37 @@ def test_one_hot_probe_refuses_a_first_pick_its_row_does_not_keep():
 
     with pytest.raises(ValueError, match="first_picks"):
         one_hot_probe(1, 4, 8, 1, 1, 16, causal=True, first_picks=[3])
+
+
+@pytest.mark.parametrize("hd,to", [(8, 16), (16, 16), (24, 32), (48, 64), (100, 128), (160, 160)])
+def test_padded_head_dim_rule(hd, to):
+    """A CUDA call runs at the next head dim a kernel is built for; one
+    above them all keeps its own (and the kernel contract raises)."""
+
+    assert ops.padded_head_dim(hd) == to
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [8, 24, 48])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 8)])
+def test_zero_padded_plain_version_is_bit_equal(hd, dtype, causal, window):
+    """The wrapper's padding, on the plain version: q, k and v zero-padded
+    to the next built head dim at the true hd's scale, the output sliced
+    back, equal the unpadded call bit for bit (the zeros add nothing to
+    any score)."""
+
+    from repro_torch.kernels.flash_attention.ref import pad_head_dim
+
+    g = torch.Generator().manual_seed(hd)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, 24, 4, hd, generator=g).to(dt)
+    k = torch.randn(2, 24, 2, hd, generator=g).to(dt)
+    v = torch.randn(2, 24, 2, hd, generator=g).to(dt)
+    to = ops.padded_head_dim(hd)
+    padded = flash_attention_bshd_ref(
+        *(pad_head_dim(t, to) for t in (q, k, v)),
+        causal=causal, window=window, scale=hd**-0.5,
+    )
+    assert padded.shape[-1] == to and not padded[..., hd:].any()
+    plain = flash_attention_bshd_ref(q, k, v, causal=causal, window=window)
+    assert torch.equal(padded[..., :hd], plain)

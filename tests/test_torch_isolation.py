@@ -43,7 +43,15 @@ VERBATIM = [
     "runtime/__init__.py",
     "runtime/fault_tolerance.py",
     "runtime/pipeline.py",
+    "runtime/pp_lowering.py",
     "calibrate/__init__.py",
+    "launch/analytic.py",
+    "launch/mesh.py",
+    "launch/sharding.py",
+    "launch/input_specs.py",
+    "launch/hlo_analysis.py",
+    "launch/dryrun.py",
+    "launch/steps.py",
 ]
 
 # The copies that differ beyond the rename, and why.
@@ -88,6 +96,46 @@ DIFFERING = {
         "default profile's fingerprint is 'default' (no CUDA query per "
         "plan); under a process group rank 0 measures or loads and "
         "broadcasts; the cache dir is repro-torch-calibrate"
+    ),
+    "runtime/pp_lowering.py": (
+        "the stages are ranks of a torch.distributed group (the default one "
+        "or a mesh dimension's), one batch_isend_irecv pair a microbatch step "
+        "counted in pp.handoffs, in place of shard_map and a ppermute; main "
+        "runs on a fake group of 512 ranks and reads the hand-offs where the "
+        "reference counts collective-permutes in the HLO"
+    ),
+    "launch/mesh.py": (
+        "DeviceMesh in place of jax.make_mesh (init_device_mesh, or the "
+        "default group's first ranks), the device type a knob (default "
+        "'cuda'), and fake_world for the device-free dry run"
+    ),
+    "launch/sharding.py": (
+        "specs are the port's P objects; the rules run on the reference's "
+        "leaf (reference_leaf maps the port's per-block leaves to the "
+        "reference's stacked ones) and drop the stack entry; placements / "
+        "NamedSharding / distribute turn specs into DTensor placements"
+    ),
+    "launch/input_specs.py": (
+        "meta tensors in place of ShapeDtypeStructs and NamedSharding trees "
+        "of the port's P; argument_bytes sums a rank's local shards"
+    ),
+    "launch/hlo_analysis.py": (
+        "collectives read from CommDebugMode (CollectiveMode, "
+        "collective_stats) in place of HLO text; H100 SXM constants in place "
+        "of v5e's; no f32 / tpu_adjusted correction (the dtypes are real)"
+    ),
+    "launch/dryrun.py": (
+        "a fake process group and FakeTensorMode in place of XLA_FLAGS host "
+        "devices and an AOT compile: memory from local shard sizes and a "
+        "live-tensor peak, cost from flop formulas and unfused op bytes over "
+        "the local ops, train cells lowered once at the deployment "
+        "microbatch count"
+    ),
+    "launch/steps.py": (
+        "eager steps (autograd.grad, a Python loop over microbatches); under "
+        "a mesh the microbatch split is an all-to-all, gradients stay "
+        "Partial across microbatches and are reduced once (to grad_shardings "
+        "when given), and updated state returns to its input placements"
     ),
 }
 
@@ -224,6 +272,12 @@ assert run.waves == 1 and len(run.done[0].generated) == 2
 runner = PipelineRunner([lambda x: x + 1.0] * 3, num_microbatches=2)
 outs, stats = runner.run([torch.zeros(2), torch.ones(2)])
 assert stats.handoffs == 4 and all(torch.equal(a, b) for a, b in zip(outs, runner.run_reference([torch.zeros(2), torch.ones(2)])))
+# a dry-run cell on the production mesh (a fake group of 512 ranks)
+from repro_torch.launch import dryrun
+
+with tempfile.TemporaryDirectory() as d:
+    rec = dryrun.run_cell("mamba2_2_7b", "decode_32k", False, __import__("pathlib").Path(d))
+assert rec["chips"] == 256 and rec["memory"]["argument_bytes"] > 0
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro")

@@ -302,9 +302,44 @@ class TestEntryPoints:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_loop(CFG, DC, total_steps=1)
 
-    def test_train_step_refuses_the_spmd_knobs(self):
-        from repro_torch.launch.steps import make_train_step
+    @pytest.mark.parametrize("knob", ["mesh", "seq_shard", "grad_shardings"])
+    def test_train_step_takes_the_spmd_knobs(self, knob):
+        """Each SPMD knob on a one-rank gloo mesh: DTensor params, state
+        and batch, and a step bit-equal to the unsharded one (a mesh of
+        size-1 dims runs the plain code on whole tensors)."""
 
-        for kw in ({"mesh": object()}, {"seq_shard": True}, {"grad_shardings": {}}):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                make_train_step(CFG, SMOKE_OPT, **kw)
+        import torch.distributed as dist
+
+        from repro_torch import tree as tree_lib
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import sharding
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import model_zoo
+        from repro_torch.optim.optimizer import AdamWState
+
+        assert not dist.is_initialized()
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.make_debug_mesh(device_type="cpu")
+            params = model_zoo.init(CFG, device="cpu", seed=0)
+            state = SMOKE_OPT.init(params)
+            batch = make_batch(DataConfig(global_batch=4, seq_len=8), CFG, DataState(seed=0, step=0))
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            zs = sharding.named(mesh, sharding.zero1_pspecs(CFG, mesh, params))
+            kw = {"mesh": mesh, "seq_shard": knob == "seq_shard"}
+            if knob == "grad_shardings":
+                kw["grad_shardings"] = zs
+            dp = sharding.distribute(
+                params, sharding.named(mesh, sharding.params_pspecs(CFG, mesh, params))
+            )
+            ds = AdamWState(state.step, sharding.distribute(state.mu, zs), sharding.distribute(state.nu, zs))
+            db = sharding.distribute(batch, sharding.named(mesh, sharding.batch_pspecs(CFG, mesh, batch)))
+            got_p, got_s, got_m = make_train_step(CFG, SMOKE_OPT, microbatches=2, **kw)(dp, ds, db)
+            want_p, want_s, want_m = make_train_step(CFG, SMOKE_OPT, microbatches=2)(params, state, batch)
+            for a, b in zip(tree_lib.leaves(got_p), tree_lib.leaves(want_p)):
+                assert torch.equal(a.full_tensor(), b)
+            for a, b in zip(tree_lib.leaves(got_s.mu), tree_lib.leaves(want_s.mu)):
+                assert torch.equal(a.full_tensor(), b)
+            assert torch.equal(got_m["loss"].full_tensor(), want_m["loss"])
+        finally:
+            dist.destroy_process_group()
