@@ -99,7 +99,17 @@ non-zero:
    prefill the bf16 TMA kernel at ring depths 1, 2 and its default, the
    cp.async kernel and SDPA are timed in turns, and so are the 3xTF32
    route at every depth, the FFMA kernel and SDPA, with its other key
-   tile timed against its default;
+   tile timed against its default; then the few-row route
+   ``flash_decode`` (``DECODE_CASES``: whisper's cross shapes, yi-6b's
+   and granite's decode positions at 1, 4 and 16 rows, with and without a
+   window): the kernel against ``flash_decode_ref``'s steps at its key
+   ranges, a range dropped and the last live key dropped as planted
+   faults, the probes on the last range's edges, its single-launch time
+   in turns with ``tma_wgmma`` forced and SDPA, the device time alone
+   (a sleep kernel holds the device, the L2 flushed before each launch)
+   and the host's enqueue time of each, the plain version and the bound;
+   the crossover against ``tma_wgmma`` at Sq 1, 4, 16, 32 and 64 over
+   1500 keys that sets the route's threshold; the combine kernel alone;
 7. yi-6b at full width (32 layers, bf16, random weights from a seed)
    serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
    tokens each, through ``repro_torch.launch``'s step functions: one flash
@@ -143,14 +153,19 @@ non-zero:
    launch a prefill, both cache kinds filled, the logits and layer checks;
 7e. whisper-medium at full size (24 + 24 layers, 1500 random frame
    embeddings a request, a 4-token decoder prompt, 32 new tokens, 8
-   requests in waves of 4): 72 launches a prefill and 24 a decode step, all
-   on the TMA route; the logits check; the encoder's 1500 x 1500, the
-   prefill cross-attention's 4 x 1500 and the decode step's 1 x 1500 calls
-   on the wave's own activations against the plain version, each timed with
-   SDPA and the plain version beside its bound; at the two cross shapes the
-   one-hot probes (and with V = I) on the TMA route, their first rows on
-   the last ragged tile's 28 keys, exact, and the plain version with the
-   last key dropped must miss them;
+   requests in waves of 4): 72 launches a prefill and 24 a decode step,
+   the encoder's on the TMA route, the decoder's (its prompt's 4 x 4 self
+   and 4 x 1500 cross attention, each step's 1 x 1500) on flash_decode;
+   the logits check; the encoder's 1500 x 1500, the prefill
+   cross-attention's 4 x 1500 and the decode step's 1 x 1500 calls on the
+   wave's own activations against the plain version, each timed with SDPA
+   and the plain version (and, on flash_decode, tma_wgmma forced) beside
+   its bound; at the two cross shapes the one-hot probes (and with V = I)
+   on both routes, their first rows on the last ragged tile's 28 keys or
+   on the last key range's edges, exact, and the plain version with the
+   last key dropped must miss them; the decode step with flash_decode and
+   with tma_wgmma forced in alternating waves, with each one's idle
+   share;
 7f. the continuous-batching server (``repro_torch.launch.serve``)
    at yi-6b's full size: 16 requests of 2048 prompt tokens in 4 slots (4
    waves), 32 new tokens, each wave's four sync plans through the default
@@ -197,6 +212,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -231,6 +247,7 @@ TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TMA_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash.cu"
 TF32X3_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash_tf32x3.cu"
+DECODE_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, dtype): yi-6b's prefill
@@ -265,6 +282,7 @@ FLASH_Q_OFFSET_CASES = [
     (1, 256, 2048, 32, 4, 128, True, 1024, 1792, "f32"),
     (1, 193, 401, 4, 4, 32, True, None, 208, "bf16"),
     (1, 193, 401, 4, 4, 32, True, 100, 208, "f32"),
+    (1, 4, 2048, 32, 4, 128, True, 256, 2044, "bf16"),  # flash_decode
 ]
 # (B, Sq, Sk, H, KV, hd, keyword arguments): the one-hot probes on both TMA
 # routes, bf16 and f32 (repro_torch.kernels.flash_attention.probe), several
@@ -276,6 +294,45 @@ FLASH_PROBES = [
     (2, 1024, 1024, 8, 2, 64, dict(causal=True)),
     (1, 193, 201, 4, 4, 64, dict(causal=False, identity_v=True)),
 ]
+
+# (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset): the flash_decode
+# route (bf16, at most DECODE_MAX_SQ query rows): whisper-medium's cross
+# attention (16 heads of 64, 1500 frames; decode 1 row, prompt 4) and 16
+# rows there; yi-6b's decode position (32 heads, GQA 4, hd 128, 2048 cache
+# positions) at 1, 4 and 8 rows (8 to 64 rows a KV head), and with gemma3's
+# 1024 window; granite's
+# hd 64 with GQA 4 (32 heads, 8 KV heads), causal and windowed; hd 128
+# without GQA over 1500 keys
+DECODE_CASES = [
+    ("whisper decode cross", 4, 1, 1500, 16, 16, 64, False, None, 0),
+    ("whisper prompt cross", 4, 4, 1500, 16, 16, 64, False, None, 0),
+    ("whisper 16 rows", 4, 16, 1500, 16, 16, 64, False, None, 0),
+    ("yi-6b decode", 4, 1, 2048, 32, 4, 128, True, None, 2047),
+    ("yi-6b 4 rows", 4, 4, 2048, 32, 4, 128, True, None, 2044),
+    ("yi-6b 8 rows", 4, 8, 2048, 32, 4, 128, True, None, 2040),
+    ("yi-6b decode, window 1024", 4, 1, 2048, 32, 4, 128, True, 1024, 2047),
+    ("granite decode", 4, 1, 2048, 32, 8, 64, True, None, 2047),
+    ("granite 16 rows, window 1024", 4, 16, 2048, 32, 8, 64, True, 1024, 2032),
+    ("hd 128 MHA 4 rows", 4, 4, 1500, 16, 16, 128, False, None, 0),
+]
+# the query rows at which flash_decode and tma_wgmma are timed at
+# whisper's cross shape (Sk 1500, 16 heads of 64) and at yi-6b's decode
+# position (GQA 4: 8 query rows a KV head a row): where the route rule's
+# limits come from
+DECODE_CROSSOVER_SQ = (1, 4, 16, 32, 64)
+DECODE_CROSSOVER_GQA_SQ = (1, 4, 8)
+# the route rule's limits, written out independently of ops.route
+DECODE_MAX_SQ = 16
+DECODE_MAX_ROWS = 64
+DECODE_REPS = 50
+# phase 7e's decode waves, each route in turn (A B B A A B)
+DECODE_AB_ORDER = ("flash_decode", "tma_wgmma", "tma_wgmma", "flash_decode", "flash_decode",
+                   "tma_wgmma")
+# read between timed launches, so that each reads K and V from HBM as each
+# decoder layer's call does: twice the H100's 50 MB L2.  Read, not written:
+# a written buffer leaves 50 MB of dirty lines whose write-back the timed
+# launch would pay for
+L2_FLUSH_BYTES = 100 * 2**20
 
 # the serving phase: yi-6b at full width, 8 requests in waves of 4 slots
 SERVE_ARCH = "yi_6b"
@@ -2001,25 +2058,28 @@ def matmul_phase(torch):
 # Phase 6: the flash-attention kernel
 # ---------------------------------------------------------------------- #
 
-def live_pairs(Sq, Sk, causal, window):
+def live_pairs(Sq, Sk, causal, window, q_offset=0):
     """The (query, key) pairs the mask keeps: the work the kernel must do."""
 
     import numpy as np
 
-    q = np.arange(Sq, dtype=np.int64)
+    q = q_offset + np.arange(Sq, dtype=np.int64)
     hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk, np.int64)
     lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(Sq, np.int64)
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt, route=None):
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt, route=None,
+                q_offset=0, live_keys=None):
     """(bound ms, what bounds it, FLOP): each input read once and the
-    output written once over the memory rate; QK^T and PV on the live pairs
-    (2 FLOP per multiply-add each) over the peak rate of the type, and on
-    the 3xTF32 route three TF32 products of each at the TF32 rate."""
+    output written once over the memory rate (K and V: the ``live_keys``
+    some row keeps, by default all Sk); QK^T and PV on the live pairs (2
+    FLOP per multiply-add each) over the peak rate of the type, and on the
+    3xTF32 route three TF32 products of each at the TF32 rate."""
 
-    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * elt
-    flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+    kv_rows = Sk if live_keys is None else live_keys
+    nbytes = (2 * B * Sq * H * hd + 2 * B * kv_rows * KV * hd) * elt
+    flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window, q_offset)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if route == "tma_wgmma_tf32x3":
         t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
@@ -2112,12 +2172,14 @@ def _sdpa(torch, q, k, v, causal, window):
     )
 
 
-def expected_flash_route(dt, hd):
+def expected_flash_route(dt, hd, sq=None, group=1):
     """The flash route rule, written out independently of ``ops.route``:
     the operands here are fresh allocations, so 16-byte aligned."""
 
     if dt == "f32":
         return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
+    if hd in (64, 128) and sq is not None and sq <= DECODE_MAX_SQ and sq * group <= DECODE_MAX_ROWS:
+        return "flash_decode"
     return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
 
 
@@ -2266,7 +2328,8 @@ def _q_offset_checks(torch, ops):
 def flash_phase(torch):
     """The kernels against their plain version at every listed shape;
     returns the numbers of each shape keyed by case, the launches of each
-    route in the main run, and the split pre-pass's kernels-line entry."""
+    route in the main run, the split pre-pass's kernels-line entry and the
+    flash_decode rows (:func:`_decode_rows`)."""
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
@@ -2282,32 +2345,52 @@ def flash_phase(torch):
             torch.randn(shape, device="cuda", generator=gen).to(dtypes[dt])
             for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))
         )
+    for case in DECODE_CASES:
+        label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+        inputs[case] = tuple(
+            torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))
+        )
 
     # the main path: every count set to 0 just before, read just after
     ops.flash_attention.launches = 0
     ops.flash_attention.routes = dict.fromkeys(ops.flash_attention.routes, 0)
     ops.split_kv_tf32.launches = 0
+    ops.combine_splits.launches = 0
     outs, routes = {}, {}
-    for case in FLASH_CASES:
+    for case in FLASH_CASES + DECODE_CASES:
         q, k, v = inputs[case]
+        kw = dict(causal=case[7], window=case[8])
+        if case in DECODE_CASES:
+            kw["q_offset"] = case[9]
         before = dict(ops.flash_attention.routes)
-        outs[case] = ops.flash_attention(q, k, v, causal=case[7], window=case[8])
+        outs[case] = ops.flash_attention(q, k, v, **kw)
         took = [r for r, n in ops.flash_attention.routes.items() if n != before[r]]
         routes[case] = took[0] if len(took) == 1 else took
     torch.cuda.synchronize()
     total, by_route = ops.flash_attention.launches, dict(ops.flash_attention.routes)
     splits = ops.split_kv_tf32.launches
-    check(total == len(FLASH_CASES), f"flash: {total} launches in the main run, expected {len(FLASH_CASES)}")
+    combines = ops.combine_splits.launches
+    n_cases = len(FLASH_CASES) + len(DECODE_CASES)
+    check(total == n_cases, f"flash: {total} launches in the main run, expected {n_cases}")
     for case in FLASH_CASES:
-        want = expected_flash_route(case[9], case[6])
+        want = expected_flash_route(case[9], case[6], case[2], case[4] // case[5])
         check(routes[case] == want, f"flash {case}: took route {routes[case]}, expected {want}")
+    for case in DECODE_CASES:
+        want = expected_flash_route("bf16", case[6], case[2], case[4] // case[5])
+        check(routes[case] == want == "flash_decode",
+              f"flash {case}: took route {routes[case]}, expected {want}")
     check(sum(by_route.values()) == total, f"flash: routes {by_route} do not sum to {total}")
     check(all(n > 0 for n in by_route.values()), f"flash: a route took no launch: {by_route}")
     check(
         splits == by_route["tma_wgmma_tf32x3"],
         f"flash: {splits} split launches for {by_route['tma_wgmma_tf32x3']} 3xTF32 launches",
     )
-    emit("flash routes in the main run: " + json.dumps(by_route) + f", split_kv_tf32 launches {splits}")
+    emit("flash routes in the main run: " + json.dumps(by_route)
+         + f", split_kv_tf32 launches {splits}, combine_splits launches {combines}")
+    decode = _decode_rows(torch, ops, inputs, outs)
+    check(combines == sum(r["splits"] > 1 for r in decode["rows"].values()),
+          f"flash_decode: {combines} combine launches in the main run")
 
     checks = {}
     for case in FLASH_CASES:
@@ -2433,7 +2516,7 @@ def flash_phase(torch):
         emit("flash: " + json.dumps(row))
     del inputs, q, k, v
     torch.cuda.empty_cache()
-    return rows, by_route, split_entry
+    return rows, by_route, split_entry, decode
 
 
 def _host_path(torch, ops, q, k, v, causal, window, reps):
@@ -2483,6 +2566,271 @@ def _host_path(torch, ops, q, k, v, causal, window, reps):
         "while the host enqueues",
     )
     return med
+
+
+def _tma_call(ops, q, k, v, **kw):
+    """``ops.flash_attention`` with flash_decode's rule switched off, so
+    that a few-row call takes ``tma_wgmma`` (the wrapper's private switch,
+    set here and nowhere else)."""
+
+    ops._decode_route = False
+    try:
+        return ops.flash_attention(q, k, v, **kw)
+    finally:
+        ops._decode_route = True
+
+
+def _sdpa_at(torch, q, k, v, causal, window, q_offset):
+    """A call of SDPA computing the same function as the kernel at a query
+    offset: an explicit mask where some key is masked, none where every key
+    is live (a decode step); the mask is built here, outside the call."""
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import _keep
+
+    keep = _keep(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    mask = None if bool(keep.all()) else keep
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _held_times(torch, fns, reps, flush, host_calls=5):
+    """For each of ``fns`` (name -> call), in turns a round: the host's
+    time to enqueue one call (``host_calls`` calls back to back, while a
+    sleep kernel holds the device, so that none waits on the device: what
+    a host-bound decode step pays a call) and the device time of one call
+    alone (CUDA events around it, enqueued while another sleep holds the
+    device, each after ``flush`` is read, so that the host's gaps do not
+    show and K and V come from HBM as each decoder layer's do).  Medians of
+    ``reps`` rounds, after two."""
+
+    Event = torch.cuda.Event
+    host = {n: [] for n in fns}
+    dev = {n: [] for n in fns}
+    held = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(host_calls):
+                fn()
+            host[name].append((time.perf_counter() - t0) * 1e3 / host_calls)
+        torch.cuda.synchronize()
+        h0, h1 = Event(enable_timing=True), Event(enable_timing=True)
+        h0.record()
+        torch.cuda._sleep(HOLD_CYCLES)
+        h1.record()
+        marks = []
+        for name, fn in fns.items():
+            flush.amax()
+            a, b = Event(enable_timing=True), Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            marks.append((name, a, b))
+        marks[-1][2].synchronize()
+        held.append(h0.elapsed_time(h1))
+        for name, a, b in marks:
+            dev[name].append(a.elapsed_time(b))
+    out = {n: {"device_ms": statistics.median(dev[n][2:]),
+               "host_ms": statistics.median(host[n][2:])} for n in fns}
+    held_ms = statistics.median(held[2:])
+    check(held_ms > 2 * sum(t["host_ms"] for t in out.values()),
+          f"held times: the sleep ({held_ms} ms) does not hold the device while the host enqueues")
+    return out
+
+
+def _decode_crossover(torch, ops, flush):
+    """flash_decode (forced where the rule would not send the call) and
+    tma_wgmma (forced) at whisper's cross shape (non-causal over 1500
+    keys) for each of ``DECODE_CROSSOVER_SQ`` query rows and at yi-6b's
+    decode position (GQA 4, hd 128, 2048 keys) for each of
+    ``DECODE_CROSSOVER_GQA_SQ``: device and host times in the same rounds,
+    SDPA's beside them, each kernel's output against the plain version;
+    the rule's route at each."""
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    table = []
+    for label, (B, Sk, H, KV, hd, causal), rows in (
+        ("whisper cross", (4, 1500, 16, 16, 64, False), DECODE_CROSSOVER_SQ),
+        ("yi-6b decode", (4, 2048, 32, 4, 128, True), DECODE_CROSSOVER_GQA_SQ),
+    ):
+        k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).bfloat16()
+                for _ in range(2))
+        for Sq in rows:
+            q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).bfloat16()
+            kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
+            ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
+            dec, tma = ops._flash_decode(q, k, v, **kw), _tma_call(ops, q, k, v, **kw)
+            errs = {"flash_decode": row_rel_err(dec, ref), "tma_wgmma": row_rel_err(tma, ref)}
+            del ref, dec, tma
+            check(max(errs.values()) <= ROW_TOL["bf16"], f"flash crossover {label} {Sq}: {errs}")
+            times = _held_times(torch, {
+                "flash_decode": lambda: ops._flash_decode(q, k, v, **kw),
+                "tma_wgmma": lambda: _tma_call(ops, q, k, v, **kw),
+                "library": _sdpa_at(torch, q, k, v, causal, None, kw["q_offset"]),
+            }, DECODE_REPS, flush)
+            table.append({
+                "case": label, "Sq": Sq, "rows_a_kv_head": Sq * H // KV,
+                "rule": ops._route_of(q, k, v),
+                "expected_rule": expected_flash_route("bf16", hd, Sq, H // KV),
+                "faster": min(("flash_decode", "tma_wgmma"), key=lambda n: times[n]["device_ms"]),
+                **{f"{n}_{m}": t[m] for n, t in times.items() for m in ("device_ms", "host_ms")},
+                "max_row_rel_err": errs,
+            })
+            check(table[-1]["rule"] == table[-1]["expected_rule"], f"flash crossover: {table[-1]}")
+    return table
+
+
+def _decode_rows(torch, ops, inputs, outs):
+    """The flash_decode route at every ``DECODE_CASES`` row, on the main
+    run's outputs: the kernel against the plain version
+    (``flash_decode_ref``'s steps at the kernel's key ranges, f32 out,
+    largest row-relative error within ``ROW_TOL["bf16"]``), two planted
+    faults that must read above it (one key range dropped, the last live
+    key dropped), the one-hot probes (and V = I) at the row's shape
+    non-causal with their first picks on the last range's edges (rows of
+    at most 4 query rows), and the single-launch time (in turns with
+    tma_wgmma forced and SDPA), the device time alone and the host's
+    enqueue time (:func:`_held_times`), the plain version's time and the
+    bound; then the crossover table (:func:`_decode_crossover`) and the
+    combine kernel alone against its plain version."""
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe, split_edge_picks
+    from repro_torch.kernels.flash_attention.ref import (
+        combine_splits_ref,
+        decode_partials_ref,
+        flash_decode_ref,
+        live_span,
+    )
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for case in DECODE_CASES:
+        label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+        q, k, v = inputs[case]
+        out = outs.pop(case)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+        splits = ops.decode_splits(B, KV, hi - lo, sms)
+        m, l, acc = decode_partials_ref(q, k, v, splits=splits, **kw)
+        ref = combine_splits_ref(m, l, acc, torch.float32)
+        err = (out.float() - ref).abs().max().item()
+        rel = row_rel_err(out, ref)
+        check(out.shape == q.shape and bool(torch.isfinite(out.float()).all()),
+              f"flash_decode {case}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out.float()).all())}")
+        check(rel <= ROW_TOL["bf16"], f"flash_decode {case}: row relative error {rel} > {ROW_TOL['bf16']}")
+        tma_rel = row_rel_err(_tma_call(ops, q, k, v, **kw), ref)
+        check(tma_rel <= ROW_TOL["bf16"], f"flash_decode {case}: tma_wgmma reads {tma_rel}")
+        del ref
+        faults = {}
+        if splits > 1:
+            s, m2, l2 = splits // 2, m.clone(), l.clone()
+            m2[s], l2[s] = -math.inf, 0.0
+            faults[f"range {s} of {splits} dropped"] = row_rel_err(
+                out, combine_splits_ref(m2, l2, acc, torch.float32))
+            del m2, l2
+        faults["last live key dropped"] = row_rel_err(out, combine_splits_ref(
+            *decode_partials_ref(q, k[:, :hi - 1], v[:, :hi - 1], splits=splits, **kw),
+            torch.float32))
+        del m, l, acc
+        for name, reading in faults.items():
+            check(reading > ROW_TOL["bf16"],
+                  f"flash_decode {case}: planted fault {name!r} reads {reading}, inside the "
+                  f"limit {ROW_TOL['bf16']}: the check cannot see it")
+        probes = None
+        if Sq <= 4:
+            probes = 0
+            nc_splits = ops.decode_splits(B, KV, Sk, sms)
+            for identity_v in (False, True):
+                pq, pk, pv, expected = one_hot_probe(
+                    B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=SEED,
+                    first_picks=(split_edge_picks(Sk, nc_splits, B * H * Sq)
+                                 if nc_splits > 1 else Sk - 1 - np.arange(2)),
+                )
+                pq, pk, pv = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (pq, pk, pv))
+                check(ops._route_of(pq, pk, pv) == "flash_decode", f"flash_decode probe {case}: route")
+                got = ops.flash_attention(pq, pk, pv, causal=False).float().cpu()
+                differ = int((got != torch.from_numpy(expected)).sum())
+                check(differ == 0, f"flash_decode probe {case} (V = I: {identity_v}): {differ} values differ")
+                probes += 1
+        bound_ms, bound_by, flops = flash_bound(
+            B, Sq, Sk, H, KV, hd, causal, window, "bf16", 2, q_offset=q_offset, live_keys=hi - lo)
+        kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        tma = lambda: _tma_call(ops, q, k, v, **kw)  # noqa: E731
+        library = _sdpa_at(torch, q, k, v, causal, window, q_offset)
+        ms, tma_ms, library_ms = _time_turns_ms(torch, [kernel, tma, library], DECODE_REPS)
+        held = _held_times(torch, {"flash_decode": kernel, "tma_wgmma": tma, "library": library},
+                           DECODE_REPS, flush)
+        plain_ms = _time_ms(torch, lambda: flash_decode_ref(q, k, v, splits=splits, **kw), 5)
+        row = {
+            "case": f"{label} {Sq}x{Sk}, bf16",
+            "kernel_route": "flash_decode",
+            "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                      "causal": causal, "window": window, "q_offset": q_offset},
+            "splits": splits,
+            "live_keys": hi - lo,
+            "max_abs_err": err,
+            "max_row_rel_err": rel,
+            "row_rel_limit": ROW_TOL["bf16"],
+            "tma_wgmma_max_row_rel_err": tma_rel,
+            "planted_faults": faults,
+            "one_hot_probes_exact": probes,
+            "ms": ms,
+            "tma_wgmma_ms": tma_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "device_ms": held["flash_decode"]["device_ms"],
+            "host_ms": held["flash_decode"]["host_ms"],
+            "tma_wgmma_device_ms": held["tma_wgmma"]["device_ms"],
+            "tma_wgmma_host_ms": held["tma_wgmma"]["host_ms"],
+            "library_device_ms": held["library"]["device_ms"],
+            "reps": DECODE_REPS,
+            "tflops": flops / ms / 1e9,
+            "timed_in_turns": ["ms", "tma_wgmma_ms", "library_ms"],
+            "timed_held_cold_l2": ["device_ms", "tma_wgmma_device_ms", "library_device_ms"],
+        }
+        rows[case] = row
+        emit("flash_decode: " + json.dumps(row))
+    crossover = _decode_crossover(torch, ops, flush)
+    emit("flash_decode crossover: " + json.dumps(crossover))
+
+    # the combine alone on the whisper decode row's ranges
+    case = DECODE_CASES[0]
+    q, k, v = inputs[case]
+    splits = rows[case]["splits"]
+    m, l, acc = decode_partials_ref(q, k, v, causal=False, window=None, q_offset=0, splits=splits)
+    got = ops.combine_splits(m, l, acc)
+    want = combine_splits_ref(m, l, acc, torch.bfloat16)
+    torch.cuda.synchronize()
+    combine = {
+        "splits": splits,
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "max_row_rel_err": row_rel_err(got, combine_splits_ref(m, l, acc, torch.float32)),
+        "ms": _time_back_to_back_ms(torch, lambda: ops.combine_splits(m, l, acc), 101),
+        "plain_ms": _time_ms(torch, lambda: combine_splits_ref(m, l, acc, torch.bfloat16), 11),
+        # m, l and acc read once, the bf16 output written once
+        "bound_ms": (4 * (m.numel() + l.numel() + acc.numel()) + 2 * got.numel())
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "reps": 101,
+        "timed_back_to_back": ["ms"],
+    }
+    check(combine["max_row_rel_err"] <= ROW_TOL["bf16"], f"combine_splits: {combine}")
+    emit("flash_decode combine: " + json.dumps(combine))
+    del flush, m, l, acc, got, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "crossover": crossover, "combine": combine}
 
 
 # ---------------------------------------------------------------------- #
@@ -3127,6 +3475,7 @@ def _reset_counts():
 
     flash_ops.flash_attention.launches = 0
     flash_ops.flash_attention.routes = dict.fromkeys(flash_ops.flash_attention.routes, 0)
+    flash_ops.combine_splits.launches = 0
     matmul_ops.matmul.launches = 0
 
 
@@ -3205,13 +3554,15 @@ def _logit_rel(a, b, vocab) -> float:
 
 
 def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
-                  flash_per_prefill, flash_per_step, tally=None, logits_fault_held=True):
+                  flash_per_prefill, flash_per_step, tally=None, logits_fault_held=True,
+                  flash_routes=None):
     """Phase 7's serving run for one configuration at full width: random
     bf16 weights from ``SEED``, ``requests`` prompts in waves of ``slots``
     through ``generate`` (the main path: every count set to 0 just before,
     read just after), the flash launches it must make (``flash_per_prefill``
-    a prefill, ``flash_per_step`` a decode step, all on ``tma_wgmma``) and
-    no pipelined-matmul launch; where it launches the kernel, the first
+    a prefill, ``flash_per_step`` a decode step, all on ``tma_wgmma`` unless
+    ``flash_routes`` gives the launches of each route) and no
+    pipelined-matmul launch; where it launches the kernel, the first
     wave's prefill logits against a rerun whose attention is the plain
     version and one with a planted fault (:func:`_attention_fault`); one
     decode wave timed, and its first ``PROFILED_STEPS`` steps profiled for
@@ -3223,6 +3574,7 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
     per-layer check holds the fault instead).  Returns (row, params, waves,
     cache, results)."""
 
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.serve_lm import generate, make_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model_zoo
@@ -3250,11 +3602,13 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
             results = [generate(params, cfg, b, new_tokens, cache=cache) for b in waves]
     wall_s = time.perf_counter() - t0
     launches, routes, matmul_launches = _read_counts()
+    combine_launches = flash_ops.combine_splits.launches
     peak = torch.cuda.max_memory_allocated()
     expect = len(waves) * (flash_per_prefill + (new_tokens - 1) * flash_per_step)
     check(launches == expect, f"{label}: {launches} flash launches, expected {expect}")
-    check(routes["tma_wgmma"] == launches,
-          f"{label}: flash routes {routes}, expected all {launches} on tma_wgmma")
+    want_routes = {"tma_wgmma": launches} if flash_routes is None else flash_routes
+    check({r: n for r, n in routes.items() if n} == {r: n for r, n in want_routes.items() if n},
+          f"{label}: flash routes {routes}, expected {want_routes}")
     check(matmul_launches == 0, f"{label}: {matmul_launches} pipelined-matmul launches, expected none")
     for r in results:
         check(tuple(r.tokens.shape) == (slots, new_tokens), f"{label}: tokens of shape {tuple(r.tokens.shape)}")
@@ -3276,6 +3630,7 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
         "new_tokens": new_tokens,
         "flash_launches": launches,
         "flash_routes": routes,
+        "combine_splits_launches": combine_launches,
         "pipelined_matmul_launches": matmul_launches,
         "prefill_ms": prefill_ms,
         "decode_ms_per_step_median": statistics.median(decode_ms),
@@ -3641,10 +3996,13 @@ def mamba_serve_phase(torch):
 def _whisper_shapes(torch, cfg, params, batch, cache):
     """The three new call shapes on the first wave's own activations (the
     first encoder call, the first prefill cross-attention call and the
-    first decode step's): the kernel against the plain version (largest
-    row-relative error within ``ROW_TOL["bf16"]``, with phase 6's planted
-    64-key tile drop above it), then the kernel, SDPA and the plain version
-    timed in turns beside the kernel's bound."""
+    first decode step's): the kernel of each one's route against the plain
+    version (largest row-relative error within ``ROW_TOL["bf16"]``, with
+    phase 6's planted 64-key tile drop above it), the edge probes on both
+    routes at the two cross shapes, then the kernel, SDPA, the plain
+    version and, where the route is flash_decode, tma_wgmma forced timed in
+    turns beside the kernel's bound, and their device and host times
+    (:func:`_held_times`)."""
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
@@ -3664,11 +4022,13 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
         make_serve_step(cfg)(params, first, cache, ENCDEC_PROMPT)
     names = {cfg.encoder.num_frames: "encoder", ENCDEC_PROMPT: "cross prefill", 1: "cross decode"}
     check(sorted(seen) == sorted(names), f"encdec: non-causal calls of {sorted(seen)} query rows")
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     rows = {}
     for sq, name in names.items():
         q, k, v = seen[sq]
         B, Sq, H, hd = q.shape
         Sk, KV = k.shape[1], k.shape[2]
+        route = ops._route_of(q, k, v)
         out = ops.flash_attention(q, k, v, causal=False)
         ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=False)
         err = (out.float() - ref).abs().max().item()
@@ -3686,14 +4046,19 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
         probes = _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd) if Sq < 64 else None
         bound_ms, bound_by, flops = flash_bound(B, Sq, Sk, H, KV, hd, False, None, "bf16", 2)
         reps = 20 if Sq > 64 else 100
-        ms, library_ms, plain_ms = _time_turns_ms(torch, [
-            lambda: ops.flash_attention(q, k, v, causal=False),
-            lambda: _sdpa(torch, q, k, v, False, None),
-            lambda: flash_attention_bshd_ref(q, k, v, causal=False),
-        ], reps)
+        fns = {
+            route: lambda: ops.flash_attention(q, k, v, causal=False),
+            "library": lambda: _sdpa(torch, q, k, v, False, None),
+        }
+        if route == "flash_decode":
+            fns["tma_wgmma"] = lambda: _tma_call(ops, q, k, v, causal=False)
+        turns = _time_turns_ms(
+            torch, [*fns.values(), lambda: flash_attention_bshd_ref(q, k, v, causal=False)], reps)
+        ms, library_ms, plain_ms = turns[0], turns[1], turns[-1]
+        held = _held_times(torch, fns, DECODE_REPS, flush)
         rows[name] = {
             "case": f"whisper-medium {name} {Sq}x{Sk}, bf16",
-            "kernel_route": ops._route_of(q, k, v),
+            "kernel_route": route,
             "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                       "causal": False, "window": None},
             "max_abs_err": err,
@@ -3706,55 +4071,136 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
+            "device_ms": held[route]["device_ms"],
+            "host_ms": held[route]["host_ms"],
+            "library_device_ms": held["library"]["device_ms"],
             "reps": reps,
             "tflops": flops / ms / 1e9,
             "timed_in_turns": ["ms", "library_ms", "plain_ms"],
+            "timed_held_cold_l2": ["device_ms", "library_device_ms"],
         }
+        if route == "flash_decode":
+            rows[name].update(tma_wgmma_ms=turns[2], timed_in_turns=["ms", "library_ms",
+                              "tma_wgmma_ms", "plain_ms"],
+                              tma_wgmma_device_ms=held["tma_wgmma"]["device_ms"],
+                              tma_wgmma_host_ms=held["tma_wgmma"]["host_ms"],
+                              timed_held_cold_l2=["device_ms", "library_device_ms",
+                                                  "tma_wgmma_device_ms"])
         emit("flash: " + json.dumps(rows[name]))
+    del flush
+    torch.cuda.empty_cache()
     return rows
 
 
 def _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd):
     """Phase 6's one-hot probes (and with V = I) at a whisper cross shape,
-    non-causal, on the ``tma_wgmma`` route, their first rows on the last
-    ragged tile's keys (Sk % 64 of them) and the key before it: exact; and
+    non-causal, on both routes: on flash_decode their first rows on the
+    key before the last key range, its first key and its last tile's keys
+    (:func:`probe.split_edge_picks`); on tma_wgmma (forced) on the last
+    ragged tile's keys (Sk % 64 of them) and the key before it.  Exact; and
     the plain version with the last key dropped, a planted one-key edge,
     must miss on at least the row that picked it."""
 
     import numpy as np
 
-    from repro_torch.kernels.flash_attention.probe import one_hot_probe
+    from repro_torch.kernels.flash_attention.probe import one_hot_probe, split_edge_picks
 
-    edge = Sk % 64 + 1
-    out = {"ragged_tile_keys": Sk % 64, "rows": B * H * Sq}
-    for identity_v in (False, True):
-        q, k, v, expected = one_hot_probe(
-            B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=SEED,
-            first_picks=Sk - 1 - np.arange(edge),
-        )
-        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q, k, v))
-        expected = torch.from_numpy(expected)
-        label = f"{Sq}x{Sk}{', V = I' if identity_v else ''}"
-        check(ops._route_of(q, k, v) == "tma_wgmma", f"edge probe {label}: not on tma_wgmma")
-        differ = int((ops.flash_attention(q, k, v, causal=False).float().cpu() != expected).sum())
-        check(differ == 0, f"edge probe {label}: {differ} values differ")
-        dropped = masked_attention(
-            torch, q, k, v, keep_mask(torch, Sq, Sk, False, None, q.device, edge=-1)
-        ).cpu()
-        missed = int((dropped != expected).any(-1).sum())
-        check(missed >= 1, f"edge probe {label}: the last key dropped passes the probe")
-        out["V = I" if identity_v else "one-hot"] = {
-            "exact": True, "planted_last_key_dropped_rows_missed": missed,
-        }
+    splits = ops.decode_splits(B, KV, Sk, torch.cuda.get_device_properties(0).multi_processor_count)
+    picks = {
+        "flash_decode": split_edge_picks(Sk, splits, B * H * Sq),
+        "tma_wgmma": Sk - 1 - np.arange(Sk % 64 + 1),
+    }
+    out = {"ragged_tile_keys": Sk % 64, "splits": splits, "rows": B * H * Sq}
+    for route, first_picks in picks.items():
+        call = ops.flash_attention if route == "flash_decode" else functools.partial(_tma_call, ops)
+        for identity_v in (False, True):
+            q, k, v, expected = one_hot_probe(
+                B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=SEED,
+                first_picks=first_picks,
+            )
+            q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q, k, v))
+            expected = torch.from_numpy(expected)
+            label = f"{Sq}x{Sk}{', V = I' if identity_v else ''} on {route}"
+            before = dict(ops.flash_attention.routes)
+            got = call(q, k, v, causal=False).float().cpu()
+            took = [r for r, n in ops.flash_attention.routes.items() if n != before[r]]
+            check(took == [route], f"edge probe {label}: took {took}")
+            differ = int((got != expected).sum())
+            check(differ == 0, f"edge probe {label}: {differ} values differ")
+            dropped = masked_attention(
+                torch, q, k, v, keep_mask(torch, Sq, Sk, False, None, q.device, edge=-1)
+            ).cpu()
+            missed = int((dropped != expected).any(-1).sum())
+            check(missed >= 1, f"edge probe {label}: the last key dropped passes the probe")
+            out[f"{route}, {'V = I' if identity_v else 'one-hot'}"] = {
+                "exact": True, "planted_last_key_dropped_rows_missed": missed,
+            }
+    return out
+
+
+def _decode_ab(torch, cfg, params, batch, cache):
+    """Whisper's decode step with flash_decode and, in alternating waves
+    in the same process, with tma_wgmma forced (the wrapper's private
+    switch): ms a step (a wave's wall time over its steps) in waves in the
+    order ``DECODE_AB_ORDER``, each wave's launches on its route; then
+    ``PROFILED_STEPS`` steps of each under the profiler for the idle
+    share."""
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    logits, cache = prefill_step(params, batch, _zeroed(cache))
+    first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+    steps = SERVE_NEW_TOKENS - 1
+
+    def wave(n=steps):
+        cur, c = first, cache
+        for i in range(n):
+            cur, c = serve_step(params, cur, c, ENCDEC_PROMPT + i)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"flash_decode": {"ms_per_step": []}, "tma_wgmma": {"ms_per_step": []}}
+    try:
+        for route in DECODE_AB_ORDER:
+            ops._decode_route = route == "flash_decode"
+            before = dict(ops.flash_attention.routes)
+            out[route]["ms_per_step"].append(timed(wave) / steps)
+            took = {r: n - before[r] for r, n in ops.flash_attention.routes.items() if n != before[r]}
+            check(took == {route: steps * cfg.num_layers}, f"decode A/B on {route}: launches {took}")
+        for route in out:
+            ops._decode_route = route == "flash_decode"
+            part_ms = timed(lambda: wave(PROFILED_STEPS))
+            busy_ms, prof_wall_ms, n_events = _profiled_run(torch, lambda: wave(PROFILED_STEPS))
+            out[route].update(
+                profiled_steps_wall_ms=part_ms, profiled_steps_device_busy_ms=busy_ms,
+                idle_share=(1.0 - busy_ms / part_ms if busy_ms is not None else None),
+                device_events_per_step=n_events / PROFILED_STEPS,
+                ms_per_step_median=statistics.median(out[route]["ms_per_step"]),
+            )
+    finally:
+        ops._decode_route = True
+    out["ratio_flash_decode_over_tma_wgmma"] = (
+        out["flash_decode"]["ms_per_step_median"] / out["tma_wgmma"]["ms_per_step_median"])
     return out
 
 
 def encdec_serve_phase(torch):
     """Phase 7e: whisper-medium at full size (24 + 24 layers, 1500 random
     frame embeddings a request), a 4-token decoder prompt, 32 new tokens,
-    8 requests in waves of 4."""
+    8 requests in waves of 4: the encoder's calls on tma_wgmma, the
+    decoder's (the prompt's self attention, its cross attention and the
+    decode steps' cross attention) on flash_decode.  Returns the
+    tma_wgmma launches, the shapes' rows and the combine's launches."""
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.attention import chunked_attention
 
     t_phase = time.perf_counter()
@@ -3762,29 +4208,43 @@ def encdec_serve_phase(torch):
     calls = {}
 
     def tally(q, k, v, *, causal=True, **kw):
-        key = (q.shape[1], k.shape[1], causal)
+        key = (q.shape[1], k.shape[1], causal, ops._route_of(q, k, v))
         calls[key] = calls.get(key, 0) + 1
         return chunked_attention(q, k, v, causal=causal, **kw)
 
-    row, params, waves, cache, results = _family_serve(
+    waves, L, F = SERVE_REQUESTS // SERVE_SLOTS, cfg.num_layers, cfg.encoder.num_frames
+    row, params, waves_, cache, results = _family_serve(
         torch, "encdec", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=ENCDEC_PROMPT,
-        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=3 * cfg.num_layers,
-        flash_per_step=cfg.num_layers, tally=tally,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=3 * L, flash_per_step=L, tally=tally,
+        flash_routes={"tma_wgmma": waves * L,
+                      "flash_decode": waves * (2 * L + (SERVE_NEW_TOKENS - 1) * L)},
     )
     check(sum(calls.values()) == row["flash_launches"],
           f"encdec: {sum(calls.values())} attention calls for {row['flash_launches']} launches")
-    shapes = _whisper_shapes(torch, cfg, params, waves[0], cache)
-    F = cfg.encoder.num_frames
-    launches = {"encoder": calls[(F, F, False)], "cross prefill": calls[(ENCDEC_PROMPT, F, False)],
-                "cross decode": calls[(1, F, False)]}
-    for name, n in launches.items():
-        shapes[name]["launches"] = n
-    row.update(attention_calls={f"{sq}x{sk}{' causal' if c else ''}": n for (sq, sk, c), n in calls.items()},
-               phase_s=time.perf_counter() - t_phase)
+    launches = {
+        "encoder": (F, F, False, "tma_wgmma"),
+        "decoder self prefill": (ENCDEC_PROMPT, ENCDEC_PROMPT, True, "flash_decode"),
+        "cross prefill": (ENCDEC_PROMPT, F, False, "flash_decode"),
+        "cross decode": (1, F, False, "flash_decode"),
+    }
+    want = {"encoder": waves * L, "decoder self prefill": waves * L, "cross prefill": waves * L,
+            "cross decode": waves * (SERVE_NEW_TOKENS - 1) * L}
+    check(sorted(calls) == sorted(launches.values())
+          and all(calls[launches[n]] == want[n] for n in want),
+          f"encdec: calls {calls}, expected {want} on {launches}")
+    check(row["combine_splits_launches"] == want["cross prefill"] + want["cross decode"],
+          f"encdec: {row['combine_splits_launches']} combine launches")
+    shapes = _whisper_shapes(torch, cfg, params, waves_[0], cache)
+    for name in shapes:
+        shapes[name]["launches"] = calls[launches[name]]
+    row.update(attention_calls={f"{sq}x{sk}{' causal' if c else ''} {r}": n
+                                for (sq, sk, c, r), n in calls.items()})
+    row["decode_ab"] = _decode_ab(torch, cfg, params, waves_[0], cache)
+    row["phase_s"] = time.perf_counter() - t_phase
     emit("serve encdec: " + json.dumps(row))
-    del params, cache, results, waves
+    del params, cache, results, waves_
     torch.cuda.empty_cache()
-    return row["flash_launches"], shapes
+    return row["flash_routes"]["tma_wgmma"], shapes, row["combine_splits_launches"]
 
 
 # ---------------------------------------------------------------------- #
@@ -4723,24 +5183,48 @@ def launch_phase(torch, smi, bg):
 
 
 def whisper_entries(shapes):
-    """The kernels-line entries of the flash kernel at whisper's three new
-    call shapes, with the main path's launches at each."""
+    """The kernels-line entries of the flash kernels at whisper's three new
+    call shapes, with the main path's launches at each: the encoder's on
+    tma_wgmma, the two cross shapes on flash_decode."""
 
+    sources = {"tma_wgmma": TMA_FLASH_SOURCE, "flash_decode": DECODE_FLASH_SOURCE}
+    want = {"encoder": "tma_wgmma", "cross prefill": "flash_decode", "cross decode": "flash_decode"}
     entries = []
-    for row in shapes.values():
-        check(row["kernel_route"] == "tma_wgmma", f"{row['case']}: took {row['kernel_route']}")
+    for name, row in shapes.items():
+        check(row["kernel_route"] == want[name], f"{row['case']}: took {row['kernel_route']}")
         check(row["launches"] > 0, f"{row['case']}: no launch on the main path")
         entries.append({
             "name": f"flash_attention[{row['case']}]",
             "route": "cuda",
             "kernel_route": row["kernel_route"],
-            "source": TMA_FLASH_SOURCE,
+            "source": sources[row["kernel_route"]],
             "replaces": FLASH_TPU_KERNEL,
             **{k: row[k] for k in ("launches", "max_abs_err", "max_row_rel_err", "row_rel_limit",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                   "reps", "tflops", "timed_in_turns")},
+                                   "device_ms", "host_ms", "library_device_ms", "reps", "tflops",
+                                   "timed_in_turns", "timed_held_cold_l2")},
+            **{k: row[k] for k in ("tma_wgmma_ms", "tma_wgmma_device_ms", "tma_wgmma_host_ms")
+               if k in row},
         })
     return entries
+
+
+def combine_entry(combine, launches):
+    """The kernels-line entry of flash_decode's combine kernel: phase 6's
+    reading at whisper's decode cross ranges, with phase 7e's launches."""
+
+    check(launches > 0, "combine_splits: no launch on the main path")
+    return {
+        "name": f"combine_splits[whisper decode cross, {combine['splits']} ranges]",
+        "route": "cuda",
+        "kernel_route": "flash_decode (combine of the key ranges)",
+        "source": DECODE_FLASH_SOURCE,
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": launches,
+        **{k: combine[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms", "reps",
+                                   "timed_back_to_back")},
+    }
 
 
 def flash_entries(rows, serve_launches, phase_launches):
@@ -4833,6 +5317,12 @@ def main() -> int:
                 "spill" in line and " 0 bytes spill" not in line
             ):
                 emit(f"  ptxas {kernel}: {line.strip()}")
+        if name == Path(DECODE_FLASH_SOURCE).name:
+            check(
+                all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                    for line in log.splitlines() if "spill" in line),
+                f"{name}: ptxas reports spills",
+            )
         if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
                     Path(TF32X3_SOURCE).name, Path(TF32X3_FLASH_SOURCE).name):
             # setmaxnreg must be honoured and the accumulators a consumer
@@ -4852,7 +5342,7 @@ def main() -> int:
     pipeline_phase(torch, smi)  # phase 3e
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
-    flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
+    flash_rows, flash_phase_launches, split_entry, decode = flash_phase(torch)  # phase 6
     t0 = time.perf_counter()
     flash_launches = serve_phase(torch)  # phase 7
     emit(f"serve_phase: {time.perf_counter() - t0:.1f} s")
@@ -4862,7 +5352,7 @@ def main() -> int:
         flash_launches += phase(torch)
         emit(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    encdec_launches, whisper_rows = encdec_serve_phase(torch)  # phase 7e
+    encdec_launches, whisper_rows, combine_launches = encdec_serve_phase(torch)  # phase 7e
     emit(f"encdec_serve_phase: {time.perf_counter() - t0:.1f} s")
     flash_launches += encdec_launches
     t0 = time.perf_counter()
@@ -4881,6 +5371,7 @@ def main() -> int:
             bg.stop()
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
     entries.extend(whisper_entries(whisper_rows))
+    entries.append(combine_entry(decode["combine"], combine_launches))
     entries.append(split_entry)
 
     emit(json.dumps({"kernels": entries}))  # phase 8

@@ -6,10 +6,18 @@ The layout is the reference wrapper's: q ``(B, Sq, H, hd)``, k and v
 three by stride and index the KV head as ``h // (H / KV)``, so the wrapper
 makes no transpose, repeat or padded copy.
 
-A CUDA call takes one of four kernels, by a rule on the operands
+A CUDA call takes one of five kernels, by a rule on the operands
 (:func:`route`), never as a fallback:
 
-    tma_wgmma         bf16, hd 64 or 128, that TMA can describe:
+    flash_decode      bf16, hd 64 or 128, that TMA could describe, with at
+                      most ``DECODE_MAX_SQ`` query rows (and at most
+                      ``DECODE_MAX_ROWS`` rows a KV head with GQA):
+                      ``csrc/flash_decode.cu`` (one block a KV head and a
+                      key range, all of the head's query rows at once, a
+                      cp.async K/V ring and mma.sync; the ranges' partial
+                      softmax states are merged by a second small kernel,
+                      :func:`combine_splits`)
+    tma_wgmma         other bf16, hd 64 or 128, that TMA can describe:
                       ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
                       producer warpgroup, wgmma QKᵀ and PV on two consumer
                       warpgroups)
@@ -29,8 +37,9 @@ the synchronization compiler derives, as the pipelined matmul's do:
 producer warpgroup issues and loads, consumer warpgroups compute; its two
 retained dependences are the full and empty mbarriers) for the TMA kernels,
 :func:`~repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
-``RING_DEPTH`` for ``flash_attention.cu``.  The wrapper raises on a plan
-whose retained dependences a kernel has no wait for.
+``RING_DEPTH`` for ``flash_attention.cu`` and ``flash_decode.cu``.  The
+wrapper raises on a plan whose retained dependences a kernel has no wait
+for.
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.kernels.flash_attention.ref import (
+    combine_splits_ref,
     flash_attention_bshd_ref,
+    live_span,
     pad_head_dim,
     split_kv_tf32_ref,
 )
@@ -59,9 +70,28 @@ from repro_torch.kernels.pipelined_matmul.ops import (
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash.cu"
 TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash_tf32x3.cu"
+DECODE_SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # flash_attention.cu: the instantiated HD values
-RING_DEPTH = 2  # flash_attention.cu: STAGES
-KERNEL_WAITS = ("issue", "arrival")  # flash_attention.cu: ISSUE(i) and the arrival wait
+RING_DEPTH = 2  # flash_attention.cu and flash_decode.cu: STAGES
+# flash_attention.cu and flash_decode.cu: ISSUE(i) and the arrival wait
+KERNEL_WAITS = ("issue", "arrival")
+
+FLASH_DECODE = "flash_decode"
+# flash_decode.cu: a block takes the Sq * H / KV query rows of one KV head
+# (at most DECODE_MAX_ROWS: four 16-row mma tiles) over one key range, in
+# K/V tiles of DECODE_BK keys; the route takes calls of at most
+# DECODE_MAX_SQ query rows, where phase 6 of chip_smoke.py measured it
+# faster than tma_wgmma.  decode_splits lays out at most DECODE_BLOCKS_PER_SM
+# blocks an SM: every instantiation keeps two resident, so the grid runs in
+# one wave (a third block an SM measured slower at every shape timed)
+DECODE_MAX_SQ = 16
+DECODE_MAX_ROWS = 64
+DECODE_BK = 64
+DECODE_BLOCKS_PER_SM = 2
+LOG2E = math.log2(math.e)
+# chip_smoke.py clears this to time tma_wgmma on the calls the rule sends to
+# flash_decode; nothing else sets it
+_decode_route = True
 
 # tma_wgmma_flash.cu: 128-row Q tiles, 128-key K/V tiles, loaded as boxes of
 # 64 hd columns (128 bytes, the widest a 128-byte swizzle takes); a stage
@@ -147,17 +177,21 @@ def tensor_map(shape: Sequence[int], stride: Sequence[int], rows: int,
 
 
 def route(dtype, hd: int, strides: Sequence[Sequence[int]],
-          addresses: Sequence[int]) -> str:
+          addresses: Sequence[int], sq: Optional[int] = None, group: int = 1) -> str:
     """Which kernel a CUDA call takes, from the operands' dtype, head dim,
-    the (batch, sequence, head) element strides of q, k and v and their
-    base addresses.
+    the (batch, sequence, head) element strides of q, k and v, their base
+    addresses, the query rows ``sq`` (None where there are none, as for the
+    split pre-pass of k and v alone) and the GQA group ``H / KV``.
 
-    TMA (and the f32 route's split pass, which reads k and v 16 bytes at a
-    time) needs 16-byte aligned bases and strides that are positive
-    multiples of 16 bytes; both TMA kernels are instantiated at hd 64 and
-    128.  Such operands take the TMA kernel of their dtype whatever Sq and
-    Sk are (ragged ends are zero-filled and masked); other bf16 operands
-    take the cp.async kernel, other f32 operands FFMA."""
+    TMA (and the f32 route's split pass, and flash_decode's 16-byte
+    cp.async, which read 16 bytes at a time) needs 16-byte aligned bases
+    and strides that are positive multiples of 16 bytes; the TMA kernels
+    and flash_decode are instantiated at hd 64 and 128.  Such bf16
+    operands with at most ``DECODE_MAX_SQ`` query rows and at most
+    ``DECODE_MAX_ROWS`` rows a KV head take flash_decode; other such
+    operands take the TMA kernel of their dtype whatever Sq and Sk are
+    (ragged ends are zero-filled and masked); other bf16 operands take the
+    cp.async kernel, other f32 operands FFMA."""
 
     import torch
 
@@ -169,19 +203,33 @@ def route(dtype, hd: int, strides: Sequence[Sequence[int]],
     )
     if dtype == torch.float32:
         return TMA_WGMMA_TF32X3 if tma else FFMA
+    if tma and sq is not None and sq <= DECODE_MAX_SQ and sq * group <= DECODE_MAX_ROWS:
+        return FLASH_DECODE
     return TMA_WGMMA if tma else CP_ASYNC_MMA
 
 
-def _check_schedule() -> None:
+def decode_splits(B: int, KV: int, Sk: int, sms: int) -> int:
+    """The key ranges of a flash_decode call over ``Sk`` live keys: as
+    many as keep the ``B * KV * splits`` blocks within
+    ``DECODE_BLOCKS_PER_SM`` an SM of ``sms`` (one range at least), no more
+    ranges than ``DECODE_BK``-key tiles, none empty (the ranges are
+    ``ceil(Sk / splits)`` keys, the last one short)."""
+
+    want = DECODE_BLOCKS_PER_SM * sms // max(1, B * KV)
+    splits = max(1, min(want, -(-Sk // DECODE_BK)))
+    return -(-Sk // -(-Sk // splits)) if Sk > 0 else 1
+
+
+def _check_schedule(path: str = CP_ASYNC_MMA) -> None:
     """Raise unless the K-loop plan at ``RING_DEPTH`` asks for exactly the
-    waits the kernel has."""
+    waits the cp.async kernels (``path``) have."""
 
     sched = kernel_schedule(RING_DEPTH)
     if sorted(sched.waits) != sorted(KERNEL_WAITS):
         raise NotImplementedError(
-            f"flash attention kernel: the K-loop plan at depth {RING_DEPTH} "
-            f"asks for waits {sched.waits}; the kernel has the waits "
-            f"{KERNEL_WAITS}"
+            f"flash attention kernel ({path}): the K-loop plan at depth "
+            f"{RING_DEPTH} asks for waits {sched.waits}; the kernel has the "
+            f"waits {KERNEL_WAITS}"
         )
 
 
@@ -282,6 +330,58 @@ def _tf32x3_entry_point(name: str):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_entry_point(name: str):
+    """The two launchers of ``flash_decode.cu``: ``fa_decode(q, k, v, o,
+    ws, dims[10], strides[12], causal, window, q_offset, scale_log2,
+    stream)`` (the split kernel, then the combine where there are two
+    ranges or more) and ``fa_decode_combine(acc, m, l, o, dims[5],
+    o_strides[3], stream)`` (the combine alone), each returning a
+    ``cudaError_t``."""
+
+    import ctypes
+
+    from repro_torch.kernels._build import load
+
+    fn = getattr(load(DECODE_SOURCE), name)
+    fn.restype = ctypes.c_int
+    arrays = [ctypes.POINTER(ctypes.c_longlong)]
+    if name == "fa_decode":
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + arrays * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p]
+        )
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 4 + arrays * 2 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _decode_plan(shape: Tuple[int, ...], strides: Tuple[int, ...], lo: int, hi: int,
+                 sms: int):
+    """flash_decode's launch parameters for one call shape, built once:
+    ``(dims, strides, splits, workspace floats)``, the first two as the
+    ctypes arrays ``fa_decode`` takes.  ``shape`` is ``(B, Sq, H, KV, Sk,
+    hd)``, ``strides`` the (batch, sequence, head) strides of q, k, v and
+    o, ``[lo, hi)`` the live keys (:func:`ref.live_span`)."""
+
+    import ctypes
+
+    B, Sq, H, KV, Sk, hd = shape
+    splits = decode_splits(B, KV, hi - lo, sms)
+    chunk = -(-(hi - lo) // splits)
+    dims = (ctypes.c_longlong * 10)(B, H, KV, Sq, Sk, hd, lo, hi, chunk, splits)
+    ws = 0 if splits == 1 else splits * B * H * Sq * (hd + 2)
+    return dims, (ctypes.c_longlong * 12)(*strides), splits, ws
+
+
 def _check(rc: int, path: str, q, k, depth) -> None:
     """Raise for a failed launch, naming the route and the shape."""
 
@@ -352,6 +452,90 @@ def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(rc, TMA_WGMMA, q, k, sched.depth)
+
+
+def _launch_decode(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
+                   scale: Optional[float] = None) -> int:
+    """``flash_decode.cu``'s one host call: the split kernel over the key
+    ranges of :func:`decode_splits`, then, with two ranges or more, the
+    combine (counted in ``combine_splits.launches``) from an f32 workspace
+    of the ranges' ``(m, l, acc)``.  Returns the number of ranges."""
+
+    import torch
+
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+    dims, strides, splits, ws_floats = _decode_plan(
+        (B, Sq, H, KV, Sk, hd),
+        (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]),
+        lo, hi, _sm_count(q.device.index),
+    )
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device) if ws_floats else None
+    rc = _decode_entry_point("fa_decode")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if ws is None else ws.data_ptr(), dims, strides,
+        int(causal), 0 if window is None else int(window), int(q_offset),
+        (hd**-0.5 if scale is None else scale) * LOG2E,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(rc, FLASH_DECODE, q, k, RING_DEPTH)
+    if splits > 1:
+        combine_splits.launches += 1
+    return splits
+
+
+def combine_splits(m, l, acc):
+    """The flash_decode route's combine over the key ranges' ``m``, ``l``
+    ``(splits, B, H, Sq)`` and ``acc`` ``(splits, B, H, Sq, hd)`` in f32
+    (``m`` in natural-log units): the output ``(B, Sq, H, hd)`` in bf16.
+    CPU tensors take :func:`ref.combine_splits_ref`; contiguous CUDA
+    tensors at hd 64 or 128 launch the kernel or raise.  The route launches
+    it inside its own call (:func:`_launch_decode`); this is the combine
+    alone."""
+
+    import ctypes
+
+    import torch
+
+    S, B, H, Sq = m.shape
+    hd = acc.shape[-1]
+    if not (m.dtype == l.dtype == acc.dtype == torch.float32) or l.shape != m.shape or (
+        acc.shape != (S, B, H, Sq, hd)
+    ):
+        raise TypeError(
+            f"combine_splits takes float32 m, l (splits, B, H, Sq) and acc (.., hd); got "
+            f"{m.dtype} {tuple(m.shape)}, {l.dtype} {tuple(l.shape)}, {acc.dtype} "
+            f"{tuple(acc.shape)}"
+        )
+    if all(t.device.type == "cpu" for t in (m, l, acc)):
+        return combine_splits_ref(m, l, acc, torch.bfloat16)
+    if hd not in TMA_HEAD_DIMS or not all(
+        t.device == m.device and t.device.type == "cuda" and t.is_contiguous()
+        for t in (m, l, acc)
+    ):
+        raise ValueError(
+            f"combine_splits: hd={hd}, devices {m.device} / {l.device} / {acc.device}: it "
+            "reads contiguous CUDA tensors at hd 64 or 128"
+        )
+    o = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device=m.device)
+    if o.numel() == 0:
+        return o
+    rc = _decode_entry_point("fa_decode_combine")(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+        (ctypes.c_longlong * 5)(S, B, H, Sq, hd), (ctypes.c_longlong * 3)(*o.stride()[:3]),
+        torch.cuda.current_stream(m.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"combine_splits launch failed on route {FLASH_DECODE}: cudaError {rc} "
+            f"(splits={S}, B={B}, H={H}, Sq={Sq}, hd={hd})"
+        )
+    combine_splits.launches += 1
+    return o
+
+
+combine_splits.launches = 0
 
 
 def _split_workspace(k):
@@ -535,6 +719,8 @@ def _route_of(q, k, v) -> str:
     return route(
         q.dtype, q.shape[-1], [t.stride()[:3] for t in (q, k, v)],
         [t.data_ptr() for t in (q, k, v)],
+        sq=q.shape[1] if _decode_route else None,
+        group=q.shape[2] // max(1, k.shape[2]),
     )
 
 
@@ -551,6 +737,32 @@ def _flash_cu(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     _check_schedule()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, o, causal, window, q_offset)
+    return o
+
+
+def _flash_decode(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0):
+    """``flash_decode.cu`` on bf16 operands of hd 64 or 128 that its
+    cp.async can read, whatever route :func:`route` gives them (at most
+    ``DECODE_MAX_ROWS`` query rows a KV head, the kernel's four row tiles),
+    to check and time it beside ``tma_wgmma`` where the rule does not send
+    a call to it; not counted in the launch counts and no route of
+    :func:`flash_attention`."""
+
+    import torch
+
+    _check_kernel_call(q, k, v, window, q_offset, causal)
+    _check_schedule(FLASH_DECODE)
+    if q.dtype != torch.bfloat16 or route(
+        q.dtype, q.shape[-1], [t.stride()[:3] for t in (q, k, v)],
+        [t.data_ptr() for t in (q, k, v)], sq=1,
+    ) != FLASH_DECODE or q.shape[1] * (q.shape[2] // k.shape[2]) > DECODE_MAX_ROWS:
+        raise NotImplementedError(
+            f"flash_decode: q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}: it takes bf16 "
+            f"at hd 64 or 128, 16-byte aligned, at most {DECODE_MAX_ROWS} rows a KV head"
+        )
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_decode(q, k, v, o, causal, window, q_offset)
     return o
 
 
@@ -580,9 +792,11 @@ def flash_attention(
     the K/V ring depth of the TMA routes (default: the deepest ring that
     fits, :func:`default_depth` / :func:`tf32x3_default_depth`); the other
     routes have one depth, ``RING_DEPTH``.  The reference wrapper's
-    ``blk_q`` / ``blk_k`` have no counterpart: the Hopper kernels' tiles
-    are their own.  A CPU tensor takes the plain version; a CUDA tensor
-    takes its route's kernel or raises.
+    ``blk_q`` / ``blk_k`` pick its tiles; here the rule picks a kernel: a
+    call with few query rows, the reference's small-``blk_q`` case, takes
+    ``flash_decode`` (:func:`route`), whose blocks split the keys instead.
+    A CPU tensor takes the plain version; a CUDA tensor takes its route's
+    kernel or raises.
     """
 
     import torch
@@ -633,13 +847,15 @@ def flash_attention(
         return o[..., :hd].contiguous()
     _check_kernel_call(q, k, v, window, q_offset, causal)
     if sched is None:
-        _check_schedule()
+        _check_schedule(path)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o
     if k.shape[1] == 0:
         return o.zero_()
-    if path == TMA_WGMMA:
+    if path == FLASH_DECODE:
+        _launch_decode(q, k, v, o, causal, window, q_offset, _scale)
+    elif path == TMA_WGMMA:
         _launch_tma(q, k, v, o, causal, window, q_offset, sched, _scale)
     elif path == TMA_WGMMA_TF32X3:
         _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched, _scale)
@@ -651,4 +867,6 @@ def flash_attention(
 
 
 flash_attention.launches = 0
-flash_attention.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0}
+flash_attention.routes = {
+    FLASH_DECODE: 0, TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0,
+}

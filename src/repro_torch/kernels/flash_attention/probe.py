@@ -93,3 +93,19 @@ def one_hot_probe(
         v = (rng.integers(-128, 128, size=(B, Sk, KV, hd)) / 16.0).astype(np.float32)
     expected = v[b_idx, pick, kv_of[None, :, None]].transpose(0, 2, 1, 3)
     return q, k.astype(np.float32), v, np.ascontiguousarray(expected)
+
+
+def split_edge_picks(Sk: int, splits: int, rows: int, tile: int = 64) -> np.ndarray:
+    """First picks for :func:`one_hot_probe` on a non-causal call that the
+    ``flash_decode`` route cuts into ``splits`` key ranges of ``ceil(Sk /
+    splits)`` keys: the key before the last range, the range's first key,
+    then the keys of its last (ragged) ``tile``-key tile from the end, at
+    most ``rows`` of them (one a probe row)."""
+
+    chunk = -(-Sk // splits)
+    first = (splits - 1) * chunk
+    if splits < 2 or first >= Sk:
+        raise ValueError(f"split_edge_picks: {splits} ranges of {Sk} keys have no last range")
+    last_tile = first + (Sk - 1 - first) // tile * tile
+    picks = np.concatenate([[first - 1, first], np.arange(Sk - 1, last_tile - 1, -1)])
+    return picks[:rows]

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the flash-attention kernels: the reference's
 ``flash_attention_ref`` (quadratic softmax attention over ``(BH, S, hd)``
-in f32, cast back to the input dtype), its 3xTF32 emulation, and the
-3xTF32 route's K / V split."""
+in f32, cast back to the input dtype), its 3xTF32 emulation, the 3xTF32
+route's K / V split, and the ``flash_decode`` route's split-key partials
+and combine."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 NEG_INF = -1e30
@@ -165,3 +167,93 @@ def pad_head_dim(x, to: int):
     import torch
 
     return torch.nn.functional.pad(x, (0, to - x.shape[-1]))
+
+
+def live_span(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int):
+    """The keys ``[lo, hi)`` that some query row of a call keeps: rows sit
+    at positions ``q_offset .. q_offset + Sq - 1``, so the last row's causal
+    edge and the first row's window edge bound them."""
+
+    lo, hi = 0, Sk
+    if causal:
+        hi = max(0, min(Sk, q_offset + Sq))
+    if window is not None:
+        lo = min(hi, max(0, q_offset - window + 1))
+    return lo, hi
+
+
+def key_ranges(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int,
+               splits: int):
+    """The ``splits`` contiguous key ranges ``[k0, k1)`` of the
+    ``flash_decode`` route: the call's :func:`live_span` cut into ranges of
+    ``ceil(span / splits)`` keys, the last ones possibly short or empty."""
+
+    if splits < 1:
+        raise ValueError(f"splits={splits} < 1")
+    lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+    chunk = max(1, -(-(hi - lo) // splits))
+    return [(min(hi, lo + s * chunk), min(hi, lo + (s + 1) * chunk)) for s in range(splits)]
+
+
+def decode_partials_ref(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
+                        splits: int, scale: Optional[float] = None):
+    """The ``flash_decode`` route's first step over q ``(B, Sq, H, hd)`` and
+    k, v ``(B, Sk, KV, hd)``: for each range of :func:`key_ranges` and each
+    query row, the f32 max ``m`` of its scores (scaled by ``hd**-0.5``),
+    ``l`` the sum of ``p = exp(s - m)`` and ``acc = p v`` unnormalised, with
+    P rounded to the value dtype before the product (bf16 for bf16
+    operands, as ``chunked_attention`` casts p).  A range with no live key
+    for a row gives ``m = -inf``, ``l = 0`` and ``acc = 0``.  Returns ``(m,
+    l, acc)``: ``(splits, B, H, Sq)`` twice and ``(splits, B, H, Sq, hd)``,
+    f32."""
+
+    import torch
+
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = (t.float() for t in _fold(q, k, v))  # (B*H, S, hd)
+    s_all = torch.einsum("bqd,bkd->bqk", qf, kf) * (hd**-0.5 if scale is None else scale)
+    keep = _keep(Sq, Sk, causal, window, q_offset, q.device)
+    ms, ls, accs = [], [], []
+    for k0, k1 in key_ranges(Sq, Sk, causal, window, q_offset, splits):
+        s = s_all[:, :, k0:k1].masked_fill(~keep[None, :, k0:k1], -math.inf)
+        m = s.amax(dim=-1) if k1 > k0 else s.new_full(s.shape[:2], -math.inf)
+        base = torch.where(m == -math.inf, 0.0, m)
+        p = torch.exp(s - base[..., None])  # a masked score gives exp(-inf) = 0
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), vf[:, k0:k1])
+        ms.append(m.reshape(B, H, Sq))
+        ls.append(l.reshape(B, H, Sq))
+        accs.append(acc.reshape(B, H, Sq, hd))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_splits_ref(m, l, acc, dtype):
+    """The ``flash_decode`` route's combine: each range rescaled by
+    ``exp(m_s - M)`` (0 for a range with ``m_s = -inf``), summed and divided
+    by ``max(Σ l_s exp(m_s - M), 1e-30)``.  ``m``, ``l`` ``(splits, B, H,
+    Sq)`` and ``acc`` ``(splits, B, H, Sq, hd)`` in f32; returns the output
+    ``(B, Sq, H, hd)`` in ``dtype``.  A row with no live key in any range
+    comes out 0."""
+
+    import torch
+
+    M = m.amax(dim=0)
+    w = torch.exp(m - torch.where(M == -math.inf, 0.0, M))  # exp(-inf) = 0
+    L = (w * l).sum(dim=0)
+    o = (w[..., None] * acc).sum(dim=0) / L.clamp_min(1e-30)[..., None]
+    return o.transpose(1, 2).to(dtype)
+
+
+def flash_decode_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                     q_offset: int = 0, splits: int = 1, _scale: Optional[float] = None):
+    """The ``flash_decode`` route step by step (:func:`decode_partials_ref`
+    over ``splits`` key ranges, then :func:`combine_splits_ref`): the same
+    function as :func:`flash_attention_bshd_ref` wherever every row keeps a
+    key, whatever ``splits`` is."""
+
+    return combine_splits_ref(
+        *decode_partials_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                             splits=splits, scale=_scale),
+        q.dtype,
+    )

@@ -23,8 +23,10 @@ import repro_torch.core as tc
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import program_from_reference, store_from_reference
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.probe import one_hot_probe
+from repro_torch.kernels.flash_attention.probe import one_hot_probe, split_edge_picks
 from repro_torch.kernels.flash_attention.ref import (
+    combine_splits_ref,
+    decode_partials_ref,
     flash_attention_bshd_ref,
     flash_attention_tf32x3_ref,
     split_kv_tf32_ref,
@@ -412,9 +414,11 @@ FLASH_CASES = [
 ]
 
 
-def _flash_route(dtype, hd):
+def _flash_route(dtype, hd, sq=None, group=1):
     if dtype == torch.float32:
         return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
+    if hd in (64, 128) and sq is not None and sq <= 16 and sq * group <= 64:
+        return "flash_decode"
     return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
 
 
@@ -1409,7 +1413,7 @@ WHISPER_SHAPES = [(4, 1500, 1500), (4, 4, 1500), (4, 1, 1500)]
 def test_flash_kernel_at_whisper_shapes_on_cuda(cuda, B, Sq, Sk, dtype):
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, 16, 16, 64, dtype)
     out, took = _flash_counted(q, k, v, causal=False)
-    assert took == _flash_route(dtype, 64)
+    assert took == _flash_route(dtype, 64, Sq)
     ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=False)
     assert _row_err(out, ref) <= ROW_TOL[dtype]
 
@@ -1457,10 +1461,12 @@ def test_new_families_serve_on_cuda_through_the_kernel(cuda, arch, per_prefill, 
 
 @pytest.mark.parametrize("identity_v", [False, True])
 @pytest.mark.parametrize("Sq", [1, 4])
-def test_flash_tma_probes_hold_whisper_last_ragged_tile_on_cuda(cuda, Sq, identity_v):
+def test_flash_tma_probes_hold_whisper_last_ragged_tile_on_cuda(cuda, Sq, identity_v, monkeypatch):
     """The one-hot probes at whisper's cross shapes (Sk 1500, non-causal,
     hd 64: the last tile holds 28 keys), their first rows on those keys
-    and the one before: exact on the TMA route."""
+    and the one before: exact on the TMA route, which these shapes take
+    with flash_decode's rule switched off (flash_decode's own probes:
+    ``test_flash_decode_probes_hold_the_last_range_on_cuda``)."""
 
     B, Sk, H, KV, hd = 4, 1500, 16, 16, 64
     q, k, v, expected = one_hot_probe(
@@ -1468,6 +1474,7 @@ def test_flash_tma_probes_hold_whisper_last_ragged_tile_on_cuda(cuda, Sq, identi
         first_picks=Sk - 1 - np.arange(29),
     )
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    monkeypatch.setattr(flash_ops, "_decode_route", False)
     out, took = _flash_counted(q, k, v, causal=False)
     assert took == "tma_wgmma"
     assert torch.equal(out.float().cpu(), torch.from_numpy(expected))
@@ -1571,3 +1578,134 @@ def test_sharded_attention_reaches_the_kernel_through_local_map(cuda, tmp_path):
         assert torch.equal(got.full_tensor(), want)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------- #
+# The flash_decode route: few query rows, the keys split across blocks
+# ---------------------------------------------------------------------- #
+
+# B, Sq, Sk, H, KV, hd, causal, window, q_offset: whisper's three small
+# calls (decode cross, prompt cross, prompt self), yi-6b's decode position
+# (GQA 4, hd 128) at 1, 4 and 8 rows, with a window, granite's hd 64 GQA
+DECODE_CASES = [
+    (4, 1, 1500, 16, 16, 64, False, None, 0),
+    (4, 4, 1500, 16, 16, 64, False, None, 0),
+    (4, 4, 4, 16, 16, 64, True, None, 0),
+    (4, 1, 2048, 32, 4, 128, True, None, 2047),
+    (2, 4, 2048, 32, 4, 128, True, None, 2044),
+    (2, 8, 2048, 32, 4, 128, True, None, 2040),
+    (2, 4, 2048, 32, 4, 128, True, 300, 2044),
+    (2, 16, 999, 32, 8, 64, True, 64, 983),
+    (3, 7, 333, 6, 2, 128, False, None, 0),
+]
+
+
+def _decode_ref(q, k, v, splits, **kw):
+    """The route's plain version at the kernel's key ranges, f32 out (P
+    rounded to bf16 as the kernel rounds it), and its partial states."""
+
+    m, l, acc = decode_partials_ref(q, k, v, splits=splits, **kw)
+    return combine_splits_ref(m, l, acc, torch.float32), (m, l, acc)
+
+
+def _splits(q, k, causal, window, q_offset):
+    from repro_torch.kernels.flash_attention.ref import live_span
+
+    lo, hi = live_span(q.shape[1], k.shape[1], causal, window, q_offset)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return flash_ops.decode_splits(q.shape[0], k.shape[2], hi - lo, sms), hi
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_matches_its_plain_version_on_cuda(cuda, case):
+    """The kernel against ``flash_decode_ref``'s steps within the bf16 row
+    limit, with both planted faults above it: one key range dropped, the
+    last live key dropped."""
+
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=Sq + Sk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    combines = flash_ops.combine_splits.launches
+    out, took = _flash_counted(q, k, v, **kw)
+    assert took == "flash_decode" == _flash_route(torch.bfloat16, hd, Sq, H // KV)
+    splits, hi = _splits(q, k, causal, window, q_offset)
+    assert flash_ops.combine_splits.launches - combines == int(splits > 1)
+    ref, (m, l, acc) = _decode_ref(q, k, v, splits, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+    if splits > 1:
+        m[splits // 2], l[splits // 2] = -float("inf"), 0.0
+        assert _row_err(out, combine_splits_ref(m, l, acc, torch.float32)) > ROW_TOL[torch.bfloat16]
+    dropped, _ = _decode_ref(q, k[:, :hi - 1], v[:, :hi - 1], splits, **kw)
+    assert _row_err(out, dropped) > ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("identity_v", [False, True])
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_flash_decode_probes_hold_the_last_range_on_cuda(cuda, Sq, identity_v):
+    """The one-hot probes at whisper's cross shapes on flash_decode, their
+    first rows on the key before the last range, its first key and its
+    last tile's keys: exact."""
+
+    B, Sk, H, KV, hd = 4, 1500, 16, 16, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = flash_ops.decode_splits(B, KV, Sk, sms)
+    q, k, v, expected = one_hot_probe(
+        B, Sq, Sk, H, KV, hd, causal=False, identity_v=identity_v, seed=Sq,
+        first_picks=split_edge_picks(Sk, splits, B * H * Sq),
+    )
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    out, took = _flash_counted(q, k, v, causal=False)
+    assert took == "flash_decode"
+    assert torch.equal(out.float().cpu(), torch.from_numpy(expected))
+
+
+def test_flash_decode_forced_beyond_the_rule_and_the_combine_alone_on_cuda(cuda):
+    """``_flash_decode`` at 64 rows (uncounted), and ``combine_splits``
+    alone against its plain version on the kernel's own ranges."""
+
+    q, k, v = _flash_inputs(cuda, 4, 64, 1500, 16, 16, 64, torch.bfloat16, seed=3)
+    before = dict(flash_ops.flash_attention.routes)
+    out = flash_ops._flash_decode(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.routes == before
+    splits, _ = _splits(q, k, False, None, 0)
+    ref, (m, l, acc) = _decode_ref(q, k, v, splits, causal=False, window=None, q_offset=0)
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+    got = flash_ops.combine_splits(m, l, acc)
+    torch.cuda.synchronize()
+    assert _row_err(got, combine_splits_ref(m, l, acc, torch.float32)) <= ROW_TOL[torch.bfloat16]
+    with pytest.raises(NotImplementedError, match="flash_decode"):
+        flash_ops._flash_decode(q.float(), k.float(), v.float(), causal=False)
+
+
+def test_whisper_cross_attention_runs_on_flash_decode_on_cuda(cuda, monkeypatch):
+    """``models/encdec.py``'s cross attention on the card through the
+    kernel: whisper's smoke config in bf16, served for 4 steps; the
+    decoder's calls (its prompt's self and cross attention, each decode
+    step's cross attention) take flash_decode when their head dim is one
+    the route takes, and their launches are counted by route."""
+
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config("whisper_medium"), head_dim=64)
+    params = model_zoo.init(cfg, device=cuda, seed=0)
+    batch = serve_lm.make_batch(cfg, 2, 4, device=cuda, seed=1)
+    calls = []
+    real = attention.chunked_attention
+
+    def tally(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], flash_ops._route_of(q, k, v)))
+        return real(q, k, v, **kw)
+
+    before = dict(flash_ops.flash_attention.routes)
+    monkeypatch.setattr(attention, "chunked_attention", tally)
+    run = serve_lm.generate(params, cfg, batch, 4)
+    took = {r: n - before[r] for r, n in flash_ops.flash_attention.routes.items() if n != before[r]}
+    F = cfg.encoder.num_frames
+    decoder = [c for c in calls if c[0] != F]
+    assert decoder and all(r == "flash_decode" for *_, r in decoder)
+    assert took.get("flash_decode") == len(decoder)
+    assert sum(took.values()) == len(calls)
+    assert torch.isfinite(run.prefill_logits.float()).all()

@@ -295,7 +295,8 @@ def test_tma_route_refuses_a_schedule_without_both_waits(monkeypatch, waits):
     monkeypatch.setattr(ops, "hopper_schedule", lambda depth: _with_waits(depth, waits))
     with pytest.raises(NotImplementedError, match="full and the empty"):
         ops._tma_schedule(128, None)
-    q = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    # 128 query rows: above flash_decode's DECODE_MAX_SQ, so on tma_wgmma
+    q = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="full and the empty"):
         ops.flash_attention(q, q, q)  # the plan is read on the CPU too
     small = torch.zeros(1, 16, 2, 32)
@@ -328,7 +329,7 @@ def test_tma_route_takes_its_waits_from_the_kloop_plan(monkeypatch):
 
 
 def test_tma_route_refuses_a_ring_that_does_not_fit():
-    q = torch.zeros(1, 16, 2, 128, dtype=torch.bfloat16)
+    q = torch.zeros(1, 128, 2, 128, dtype=torch.bfloat16)  # tma_wgmma, not flash_decode
     with pytest.raises(NotImplementedError, match="ring depth 4 at hd=128"):
         ops.flash_attention(q, q, q, depth=4)
     with pytest.raises(NotImplementedError, match="ring depth 0"):
@@ -342,7 +343,7 @@ def test_tma_route_refuses_a_ring_that_does_not_fit():
 
 def test_routes_are_counted_beside_launches():
     assert set(ops.flash_attention.routes) == {
-        "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
+        "flash_decode", "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
     }
     (_, tq), (_, tk), (_, tv) = _inputs(8, (1, 16, 2, 64), (1, 16, 2, 64), "bfloat16")
     before = dict(ops.flash_attention.routes)

@@ -346,7 +346,7 @@ def test_tf32x3_route_takes_its_waits_from_the_kloop_plan():
 
 def test_routes_and_split_launches_are_counted_on_the_cpu_as_none():
     assert set(ops.flash_attention.routes) == {
-        "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
+        "flash_decode", "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
     }
     q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 16, 16, 2, 2, 64))
     before = dict(ops.flash_attention.routes), ops.split_kv_tf32.launches
