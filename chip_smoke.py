@@ -102,14 +102,17 @@ non-zero:
    tile timed against its default; then the few-row route
    ``flash_decode`` (``DECODE_CASES``: whisper's cross shapes, yi-6b's
    and granite's decode positions at 1, 4 and 16 rows, with and without a
-   window): the kernel against ``flash_decode_ref``'s steps at its key
-   ranges, a range dropped and the last live key dropped as planted
-   faults, the probes on the last range's edges, its single-launch time
-   in turns with ``tma_wgmma`` forced and SDPA, the device time alone
-   (a sleep kernel holds the device, the L2 flushed before each launch)
-   and the host's enqueue time of each, the plain version and the bound;
-   the crossover against ``tma_wgmma`` at Sq 1, 4, 16, 32 and 64 over
-   1500 keys that sets the route's threshold; the combine kernel alone;
+   window), one clustered launch a call: the kernel against ``flash_decode_ref``'s steps at its key
+   ranges, a peer's state left out of the merge and the last live key
+   dropped as planted faults, the probes on the last range's edges, its
+   ring depth and resident clusters, its single-launch time in turns with
+   ``tma_wgmma`` forced and SDPA, the device time alone (a sleep kernel
+   holds the device, the L2 flushed before each launch) and the host's
+   enqueue time of each, the plain version and the bound; the crossover
+   against ``tma_wgmma`` at Sq 1, 4, 16, 32 and 64 over 1500 keys that
+   sets the route's threshold; at whisper's decode cross shape the
+   kernel's time split into its loads, its products and its merge (timing
+   probes) and its kernels a call under the profiler;
 7. yi-6b at full width (32 layers, bf16, random weights from a seed)
    serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
    tokens each, through ``repro_torch.launch``'s step functions: one flash
@@ -155,12 +158,12 @@ non-zero:
    embeddings a request, a 4-token decoder prompt, 32 new tokens, 8
    requests in waves of 4): 72 launches a prefill and 24 a decode step,
    the encoder's on the TMA route, the decoder's (its prompt's 4 x 4 self
-   and 4 x 1500 cross attention, each step's 1 x 1500) on flash_decode;
-   the logits check; the encoder's 1500 x 1500, the prefill
-   cross-attention's 4 x 1500 and the decode step's 1 x 1500 calls on the
-   wave's own activations against the plain version, each timed with SDPA
-   and the plain version (and, on flash_decode, tma_wgmma forced) beside
-   its bound; at the two cross shapes the one-hot probes (and with V = I)
+   and 4 x 1500 cross attention, each step's 1 x 1500) on flash_decode,
+   one launch a call; the logits check; the encoder's 1500 x 1500, the prefill self
+   attention's 4 x 4, the prefill cross-attention's 4 x 1500 and the
+   decode step's 1 x 1500 calls on the wave's own activations against the
+   plain version, each timed with SDPA and the plain version (and, on
+   flash_decode, tma_wgmma forced) beside its bound; at the two cross shapes the one-hot probes (and with V = I)
    on both routes, their first rows on the last ragged tile's 28 keys or
    on the last key range's edges, exact, and the plain version with the
    last key dropped must miss them; the decode step with flash_decode and
@@ -2326,10 +2329,10 @@ def _q_offset_checks(torch, ops):
 
 
 def flash_phase(torch):
-    """The kernels against their plain version at every listed shape;
-    returns the numbers of each shape keyed by case, the launches of each
-    route in the main run, the split pre-pass's kernels-line entry and the
-    flash_decode rows (:func:`_decode_rows`)."""
+    """The kernels against their plain version at every listed shape, then
+    the flash_decode rows (:func:`_decode_rows`); returns the numbers of
+    each shape keyed by case, the launches of each route in the main run
+    and the split pre-pass's kernels-line entry."""
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
@@ -2356,7 +2359,6 @@ def flash_phase(torch):
     ops.flash_attention.launches = 0
     ops.flash_attention.routes = dict.fromkeys(ops.flash_attention.routes, 0)
     ops.split_kv_tf32.launches = 0
-    ops.combine_splits.launches = 0
     outs, routes = {}, {}
     for case in FLASH_CASES + DECODE_CASES:
         q, k, v = inputs[case]
@@ -2370,7 +2372,6 @@ def flash_phase(torch):
     torch.cuda.synchronize()
     total, by_route = ops.flash_attention.launches, dict(ops.flash_attention.routes)
     splits = ops.split_kv_tf32.launches
-    combines = ops.combine_splits.launches
     n_cases = len(FLASH_CASES) + len(DECODE_CASES)
     check(total == n_cases, f"flash: {total} launches in the main run, expected {n_cases}")
     for case in FLASH_CASES:
@@ -2387,10 +2388,8 @@ def flash_phase(torch):
         f"flash: {splits} split launches for {by_route['tma_wgmma_tf32x3']} 3xTF32 launches",
     )
     emit("flash routes in the main run: " + json.dumps(by_route)
-         + f", split_kv_tf32 launches {splits}, combine_splits launches {combines}")
-    decode = _decode_rows(torch, ops, inputs, outs)
-    check(combines == sum(r["splits"] > 1 for r in decode["rows"].values()),
-          f"flash_decode: {combines} combine launches in the main run")
+         + f", split_kv_tf32 launches {splits}")
+    _decode_rows(torch, ops, inputs, outs)
 
     checks = {}
     for case in FLASH_CASES:
@@ -2516,7 +2515,7 @@ def flash_phase(torch):
         emit("flash: " + json.dumps(row))
     del inputs, q, k, v
     torch.cuda.empty_cache()
-    return rows, by_route, split_entry, decode
+    return rows, by_route, split_entry
 
 
 def _host_path(torch, ops, q, k, v, causal, window, reps):
@@ -2642,6 +2641,92 @@ def _held_times(torch, fns, reps, flush, host_calls=5):
     return out
 
 
+def _kernel_spans(torch, fn, flush, reps, names):
+    """Each launch of ``fn`` under ``torch.profiler``, ``reps`` calls
+    enqueued while a sleep kernel holds the device, the L2 flushed before
+    each: the medians of each kernel's own span (ms, by the first of
+    ``names`` its name holds) and, for each later name, of the gap from the
+    end of the kernel before it in the call to its own start, over the
+    calls whose kernels the trace holds in full (``calls``: how many)."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HOLD_CYCLES)
+        for _ in range(reps):
+            flush.amax()
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, next(n for n in names if n in e.name))
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)
+    )
+    calls, i = [], 0
+    while i + len(names) <= len(spans):
+        window = spans[i:i + len(names)]
+        if [w[2] for w in window] == list(names):
+            calls.append(window)
+            i += len(names)
+        else:
+            i += 1
+    check(len(calls) >= reps // 2, f"kernel spans: {len(spans)} launches of {names}, "
+          f"{len(calls)} whole calls of {reps}")
+    out = {"calls": len(calls)}
+    for j, name in enumerate(names):
+        out[f"{name}_ms"] = statistics.median((c[j][1] - c[j][0]) / 1e3 for c in calls)
+        if j:
+            out[f"gap_before_{name}_ms"] = statistics.median(
+                (c[j][0] - c[j - 1][1]) / 1e3 for c in calls)
+    return out
+
+
+def _decode_split(torch, ops, case, q, k, v, flush):
+    """Where the few-row route's time goes at one call shape: device times
+    alone in the same rounds (:func:`_held_times`) of the route's launch
+    and of its two timing probes (``ops._decode_probe``: the K-loop without
+    the cluster merge, the loads without the products), then each one's
+    kernel span under the profiler (:func:`_kernel_spans`), against which
+    the events' times also hold what a launch between events costs; and the
+    kernels on the device of ``DECODE_REPS`` route calls under the
+    profiler, which must be one a call."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = torch.empty_like(q)
+    fns = {
+        "route": lambda: ops.flash_attention(q, k, v, **kw),
+        "loop_alone": lambda: ops._decode_probe(q, k, v, o, causal, window, q_offset, 1),
+        "loads_alone": lambda: ops._decode_probe(q, k, v, o, causal, window, q_offset, 2),
+    }
+    held = _held_times(torch, fns, DECODE_REPS, flush)
+    out = {"case": label, "splits": ops.decode_splits(B, KV, Sk, _sm_count()),
+           **{f"{n}_{t}": held[n][t] for n in fns for t in ("device_ms", "host_ms")}}
+    out["profiled_ms"] = {
+        n: _kernel_spans(torch, fn, flush, 20, ("flash_decode_kernel",))["flash_decode_kernel_ms"]
+        for n, fn in fns.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DECODE_REPS):
+            fns["route"]()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["kernels_a_call"] = len(kernels) / DECODE_REPS
+    check(len(kernels) == DECODE_REPS and all("flash_decode_kernel" in n for n in kernels),
+          f"flash_decode {label}: {len(kernels)} kernels for {DECODE_REPS} calls: "
+          f"{sorted(set(kernels))}")
+    return out
+
+
+def _sm_count():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _decode_crossover(torch, ops, flush):
     """flash_decode (forced where the rule would not send the call) and
     tma_wgmma (forced) at whisper's cross shape (non-causal over 1500
@@ -2691,14 +2776,16 @@ def _decode_rows(torch, ops, inputs, outs):
     run's outputs: the kernel against the plain version
     (``flash_decode_ref``'s steps at the kernel's key ranges, f32 out,
     largest row-relative error within ``ROW_TOL["bf16"]``), two planted
-    faults that must read above it (one key range dropped, the last live
-    key dropped), the one-hot probes (and V = I) at the row's shape
-    non-causal with their first picks on the last range's edges (rows of
-    at most 4 query rows), and the single-launch time (in turns with
+    faults that must read above it (a peer's state left out of the
+    cluster's merge, the last live key dropped), the one-hot probes (and V
+    = I) at the row's shape non-causal with their first picks on the last
+    range's edges (rows of at most 4 query rows), the launch's ring depth
+    and resident clusters, and the single-launch time (in turns with
     tma_wgmma forced and SDPA), the device time alone and the host's
     enqueue time (:func:`_held_times`), the plain version's time and the
-    bound; then the crossover table (:func:`_decode_crossover`) and the
-    combine kernel alone against its plain version."""
+    bound; then the crossover table (:func:`_decode_crossover`) and where
+    the time goes at whisper's decode cross shape
+    (:func:`_decode_split`)."""
 
     import numpy as np
 
@@ -2732,9 +2819,10 @@ def _decode_rows(torch, ops, inputs, outs):
         del ref
         faults = {}
         if splits > 1:
+            # a peer's state left out of the cluster's merge
             s, m2, l2 = splits // 2, m.clone(), l.clone()
             m2[s], l2[s] = -math.inf, 0.0
-            faults[f"range {s} of {splits} dropped"] = row_rel_err(
+            faults[f"peer {s} of {splits} left out of the merge"] = row_rel_err(
                 out, combine_splits_ref(m2, l2, acc, torch.float32))
             del m2, l2
         faults["last live key dropped"] = row_rel_err(out, combine_splits_ref(
@@ -2769,6 +2857,7 @@ def _decode_rows(torch, ops, inputs, outs):
         ms, tma_ms, library_ms = _time_turns_ms(torch, [kernel, tma, library], DECODE_REPS)
         held = _held_times(torch, {"flash_decode": kernel, "tma_wgmma": tma, "library": library},
                            DECODE_REPS, flush)
+        plan = ops._plan_of(q, k, v, out, causal, window, q_offset)
         plain_ms = _time_ms(torch, lambda: flash_decode_ref(q, k, v, splits=splits, **kw), 5)
         row = {
             "case": f"{label} {Sq}x{Sk}, bf16",
@@ -2776,6 +2865,9 @@ def _decode_rows(torch, ops, inputs, outs):
             "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                       "causal": causal, "window": window, "q_offset": q_offset},
             "splits": splits,
+            "depth": plan.sched.depth,
+            "clusters_resident": plan.clusters,
+            "clusters": B * KV,
             "live_keys": hi - lo,
             "max_abs_err": err,
             "max_row_rel_err": rel,
@@ -2794,6 +2886,7 @@ def _decode_rows(torch, ops, inputs, outs):
             "tma_wgmma_device_ms": held["tma_wgmma"]["device_ms"],
             "tma_wgmma_host_ms": held["tma_wgmma"]["host_ms"],
             "library_device_ms": held["library"]["device_ms"],
+            "library_host_ms": held["library"]["host_ms"],
             "reps": DECODE_REPS,
             "tflops": flops / ms / 1e9,
             "timed_in_turns": ["ms", "tma_wgmma_ms", "library_ms"],
@@ -2803,34 +2896,11 @@ def _decode_rows(torch, ops, inputs, outs):
         emit("flash_decode: " + json.dumps(row))
     crossover = _decode_crossover(torch, ops, flush)
     emit("flash_decode crossover: " + json.dumps(crossover))
-
-    # the combine alone on the whisper decode row's ranges
-    case = DECODE_CASES[0]
-    q, k, v = inputs[case]
-    splits = rows[case]["splits"]
-    m, l, acc = decode_partials_ref(q, k, v, causal=False, window=None, q_offset=0, splits=splits)
-    got = ops.combine_splits(m, l, acc)
-    want = combine_splits_ref(m, l, acc, torch.bfloat16)
-    torch.cuda.synchronize()
-    combine = {
-        "splits": splits,
-        "max_abs_err": (got.float() - want.float()).abs().max().item(),
-        "max_row_rel_err": row_rel_err(got, combine_splits_ref(m, l, acc, torch.float32)),
-        "ms": _time_back_to_back_ms(torch, lambda: ops.combine_splits(m, l, acc), 101),
-        "plain_ms": _time_ms(torch, lambda: combine_splits_ref(m, l, acc, torch.bfloat16), 11),
-        # m, l and acc read once, the bf16 output written once
-        "bound_ms": (4 * (m.numel() + l.numel() + acc.numel()) + 2 * got.numel())
-        / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": None,
-        "reps": 101,
-        "timed_back_to_back": ["ms"],
-    }
-    check(combine["max_row_rel_err"] <= ROW_TOL["bf16"], f"combine_splits: {combine}")
-    emit("flash_decode combine: " + json.dumps(combine))
-    del flush, m, l, acc, got, want
+    split = _decode_split(torch, ops, DECODE_CASES[0], *inputs[DECODE_CASES[0]], flush)
+    emit("flash_decode split: " + json.dumps(split))
+    del flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "crossover": crossover, "combine": combine}
+    return {"rows": rows, "crossover": crossover, "split": split}
 
 
 # ---------------------------------------------------------------------- #
@@ -3475,7 +3545,6 @@ def _reset_counts():
 
     flash_ops.flash_attention.launches = 0
     flash_ops.flash_attention.routes = dict.fromkeys(flash_ops.flash_attention.routes, 0)
-    flash_ops.combine_splits.launches = 0
     matmul_ops.matmul.launches = 0
 
 
@@ -3574,7 +3643,6 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
     per-layer check holds the fault instead).  Returns (row, params, waves,
     cache, results)."""
 
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.serve_lm import generate, make_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model_zoo
@@ -3602,7 +3670,6 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
             results = [generate(params, cfg, b, new_tokens, cache=cache) for b in waves]
     wall_s = time.perf_counter() - t0
     launches, routes, matmul_launches = _read_counts()
-    combine_launches = flash_ops.combine_splits.launches
     peak = torch.cuda.max_memory_allocated()
     expect = len(waves) * (flash_per_prefill + (new_tokens - 1) * flash_per_step)
     check(launches == expect, f"{label}: {launches} flash launches, expected {expect}")
@@ -3630,7 +3697,6 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
         "new_tokens": new_tokens,
         "flash_launches": launches,
         "flash_routes": routes,
-        "combine_splits_launches": combine_launches,
         "pipelined_matmul_launches": matmul_launches,
         "prefill_ms": prefill_ms,
         "decode_ms_per_step_median": statistics.median(decode_ms),
@@ -3994,14 +4060,14 @@ def mamba_serve_phase(torch):
 
 
 def _whisper_shapes(torch, cfg, params, batch, cache):
-    """The three new call shapes on the first wave's own activations (the
-    first encoder call, the first prefill cross-attention call and the
-    first decode step's): the kernel of each one's route against the plain
-    version (largest row-relative error within ``ROW_TOL["bf16"]``, with
-    phase 6's planted 64-key tile drop above it), the edge probes on both
-    routes at the two cross shapes, then the kernel, SDPA, the plain
-    version and, where the route is flash_decode, tma_wgmma forced timed in
-    turns beside the kernel's bound, and their device and host times
+    """Whisper's four call shapes on the first wave's own activations (the
+    first encoder call, the first prefill self- and cross-attention calls
+    and the first decode step's cross attention): the kernel of each one's
+    route against the plain version (largest row-relative error within
+    ``ROW_TOL["bf16"]``, with phase 6's planted 64-key tile drop above
+    it), the edge probes on both routes at the two cross shapes, then the
+    kernel, SDPA, the plain version and, where the route is flash_decode,
+    tma_wgmma forced timed in turns beside the kernel's bound, and their device and host times
     (:func:`_held_times`)."""
 
     from repro_torch.kernels.flash_attention import ops
@@ -4012,29 +4078,33 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
     seen = {}
 
     def record(q, k, v, *, causal=True, **kw):
-        if not causal and q.shape[1] not in seen:
-            seen[q.shape[1]] = (q.clone(), k.clone(), v.clone())
+        key = (q.shape[1], k.shape[1], causal)
+        if key not in seen:
+            seen[key] = (q.clone(), k.clone(), v.clone())
         return chunked_attention(q, k, v, causal=causal, **kw)
 
     with _attention_replaced(record), torch.inference_mode():
         logits, cache = make_prefill_step(cfg)(params, batch, _zeroed(cache))
         first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
         make_serve_step(cfg)(params, first, cache, ENCDEC_PROMPT)
-    names = {cfg.encoder.num_frames: "encoder", ENCDEC_PROMPT: "cross prefill", 1: "cross decode"}
-    check(sorted(seen) == sorted(names), f"encdec: non-causal calls of {sorted(seen)} query rows")
+    F, P = cfg.encoder.num_frames, ENCDEC_PROMPT
+    names = {(F, F, False): "encoder", (P, P, True): "decoder self prefill",
+             (P, F, False): "cross prefill", (1, F, False): "cross decode"}
+    check(sorted(seen) == sorted(names), f"encdec: calls of {sorted(seen)} (Sq, Sk, causal)")
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     rows = {}
-    for sq, name in names.items():
-        q, k, v = seen[sq]
+    for key, name in names.items():
+        q, k, v = seen[key]
+        causal = key[2]
         B, Sq, H, hd = q.shape
         Sk, KV = k.shape[1], k.shape[2]
         route = ops._route_of(q, k, v)
-        out = ops.flash_attention(q, k, v, causal=False)
-        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=False)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), causal=causal)
         err = (out.float() - ref).abs().max().item()
         rel = row_rel_err(out, ref)
         del ref
-        faults = planted_faults(torch, q, k, v, out, False, None)
+        faults = planted_faults(torch, q, k, v, out, causal, None)
         check(rel <= ROW_TOL["bf16"], f"encdec {name}: row relative error {rel} > {ROW_TOL['bf16']}")
         # the dropped 64-key tile is held here; one dropped key of 1500 is
         # printed (a decoder query's weight on one key is near 1/1500 at
@@ -4043,24 +4113,24 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
         check(faults[tile] > ROW_TOL["bf16"],
               f"encdec {name}: planted fault {tile!r} reads {faults[tile]}, inside the limit "
               f"{ROW_TOL['bf16']}: the check cannot see it")
-        probes = _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd) if Sq < 64 else None
-        bound_ms, bound_by, flops = flash_bound(B, Sq, Sk, H, KV, hd, False, None, "bf16", 2)
+        probes = _edge_probes(torch, ops, B, Sq, Sk, H, KV, hd) if Sq < 64 and not causal else None
+        bound_ms, bound_by, flops = flash_bound(B, Sq, Sk, H, KV, hd, causal, None, "bf16", 2)
         reps = 20 if Sq > 64 else 100
         fns = {
-            route: lambda: ops.flash_attention(q, k, v, causal=False),
-            "library": lambda: _sdpa(torch, q, k, v, False, None),
+            route: lambda: ops.flash_attention(q, k, v, causal=causal),
+            "library": lambda: _sdpa(torch, q, k, v, causal, None),
         }
         if route == "flash_decode":
-            fns["tma_wgmma"] = lambda: _tma_call(ops, q, k, v, causal=False)
+            fns["tma_wgmma"] = lambda: _tma_call(ops, q, k, v, causal=causal)
         turns = _time_turns_ms(
-            torch, [*fns.values(), lambda: flash_attention_bshd_ref(q, k, v, causal=False)], reps)
+            torch, [*fns.values(), lambda: flash_attention_bshd_ref(q, k, v, causal=causal)], reps)
         ms, library_ms, plain_ms = turns[0], turns[1], turns[-1]
         held = _held_times(torch, fns, DECODE_REPS, flush)
         rows[name] = {
-            "case": f"whisper-medium {name} {Sq}x{Sk}, bf16",
+            "case": f"whisper-medium {name} {Sq}x{Sk}{' causal' if causal else ''}, bf16",
             "kernel_route": route,
             "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
-                      "causal": False, "window": None},
+                      "causal": causal, "window": None},
             "max_abs_err": err,
             "max_row_rel_err": rel,
             "row_rel_limit": ROW_TOL["bf16"],
@@ -4080,12 +4150,12 @@ def _whisper_shapes(torch, cfg, params, batch, cache):
             "timed_held_cold_l2": ["device_ms", "library_device_ms"],
         }
         if route == "flash_decode":
-            rows[name].update(tma_wgmma_ms=turns[2], timed_in_turns=["ms", "library_ms",
-                              "tma_wgmma_ms", "plain_ms"],
-                              tma_wgmma_device_ms=held["tma_wgmma"]["device_ms"],
-                              tma_wgmma_host_ms=held["tma_wgmma"]["host_ms"],
-                              timed_held_cold_l2=["device_ms", "library_device_ms",
-                                                  "tma_wgmma_device_ms"])
+            rows[name].update(
+                tma_wgmma_ms=turns[2],
+                timed_in_turns=["ms", "library_ms", "tma_wgmma_ms", "plain_ms"],
+                tma_wgmma_device_ms=held["tma_wgmma"]["device_ms"],
+                tma_wgmma_host_ms=held["tma_wgmma"]["host_ms"],
+                timed_held_cold_l2=["device_ms", "library_device_ms", "tma_wgmma_device_ms"])
         emit("flash: " + json.dumps(rows[name]))
     del flush
     torch.cuda.empty_cache()
@@ -4196,8 +4266,8 @@ def encdec_serve_phase(torch):
     frame embeddings a request), a 4-token decoder prompt, 32 new tokens,
     8 requests in waves of 4: the encoder's calls on tma_wgmma, the
     decoder's (the prompt's self attention, its cross attention and the
-    decode steps' cross attention) on flash_decode.  Returns the
-    tma_wgmma launches, the shapes' rows and the combine's launches."""
+    decode steps' cross attention) on flash_decode, one launch a call.
+    Returns the tma_wgmma launches and the shapes' rows."""
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
@@ -4232,8 +4302,6 @@ def encdec_serve_phase(torch):
     check(sorted(calls) == sorted(launches.values())
           and all(calls[launches[n]] == want[n] for n in want),
           f"encdec: calls {calls}, expected {want} on {launches}")
-    check(row["combine_splits_launches"] == want["cross prefill"] + want["cross decode"],
-          f"encdec: {row['combine_splits_launches']} combine launches")
     shapes = _whisper_shapes(torch, cfg, params, waves_[0], cache)
     for name in shapes:
         shapes[name]["launches"] = calls[launches[name]]
@@ -4244,7 +4312,7 @@ def encdec_serve_phase(torch):
     emit("serve encdec: " + json.dumps(row))
     del params, cache, results, waves_
     torch.cuda.empty_cache()
-    return row["flash_routes"]["tma_wgmma"], shapes, row["combine_splits_launches"]
+    return row["flash_routes"]["tma_wgmma"], shapes
 
 
 # ---------------------------------------------------------------------- #
@@ -5183,12 +5251,14 @@ def launch_phase(torch, smi, bg):
 
 
 def whisper_entries(shapes):
-    """The kernels-line entries of the flash kernels at whisper's three new
-    call shapes, with the main path's launches at each: the encoder's on
-    tma_wgmma, the two cross shapes on flash_decode."""
+    """The kernels-line entries of the flash kernels at whisper's four call
+    shapes, with the main path's launches at each: the encoder's on
+    tma_wgmma, the decoder's prompt self attention and the two cross
+    shapes on flash_decode."""
 
     sources = {"tma_wgmma": TMA_FLASH_SOURCE, "flash_decode": DECODE_FLASH_SOURCE}
-    want = {"encoder": "tma_wgmma", "cross prefill": "flash_decode", "cross decode": "flash_decode"}
+    want = {"encoder": "tma_wgmma", "decoder self prefill": "flash_decode",
+            "cross prefill": "flash_decode", "cross decode": "flash_decode"}
     entries = []
     for name, row in shapes.items():
         check(row["kernel_route"] == want[name], f"{row['case']}: took {row['kernel_route']}")
@@ -5207,24 +5277,6 @@ def whisper_entries(shapes):
                if k in row},
         })
     return entries
-
-
-def combine_entry(combine, launches):
-    """The kernels-line entry of flash_decode's combine kernel: phase 6's
-    reading at whisper's decode cross ranges, with phase 7e's launches."""
-
-    check(launches > 0, "combine_splits: no launch on the main path")
-    return {
-        "name": f"combine_splits[whisper decode cross, {combine['splits']} ranges]",
-        "route": "cuda",
-        "kernel_route": "flash_decode (combine of the key ranges)",
-        "source": DECODE_FLASH_SOURCE,
-        "replaces": FLASH_TPU_KERNEL,
-        "launches": launches,
-        **{k: combine[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms", "reps",
-                                   "timed_back_to_back")},
-    }
 
 
 def flash_entries(rows, serve_launches, phase_launches):
@@ -5272,6 +5324,38 @@ def flash_entries(rows, serve_launches, phase_launches):
     return entries
 
 
+def report_build(build_log):
+    """Each kernel's ptxas lines (registers, spills, warnings) from the
+    build's log per source; fails on a spill in the flash_decode and TMA
+    sources, and on an ignored setmaxnreg in the TMA ones."""
+
+    for name, log in build_log.items():
+        kernel = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]  # the mangled kernel name
+            elif "registers" in line or "warning" in line.lower() or (
+                "spill" in line and " 0 bytes spill" not in line
+            ):
+                emit(f"  ptxas {kernel}: {line.strip()}")
+        if name == Path(DECODE_FLASH_SOURCE).name:
+            check(
+                all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                    for line in log.splitlines() if "spill" in line),
+                f"{name}: ptxas reports spills",
+            )
+        if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
+                    Path(TF32X3_SOURCE).name, Path(TF32X3_FLASH_SOURCE).name):
+            # setmaxnreg must be honoured and the accumulators a consumer
+            # thread holds must stay in registers
+            check("C7508" not in log, f"{name}: ptxas ignored setmaxnreg (C7508)")
+            check(
+                all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                    for line in log.splitlines() if "spill" in line),
+                f"{name}: ptxas reports spills",
+            )
+
+
 def main() -> int:
     import torch
 
@@ -5308,31 +5392,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build(sources())
     emit(f"build: {len(built)} source(s) in {time.perf_counter() - t0:.2f} s")
-    for name, log in _build.BUILD_LOG.items():
-        kernel = "?"
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]  # the mangled kernel name
-            elif "registers" in line or "warning" in line.lower() or (
-                "spill" in line and " 0 bytes spill" not in line
-            ):
-                emit(f"  ptxas {kernel}: {line.strip()}")
-        if name == Path(DECODE_FLASH_SOURCE).name:
-            check(
-                all(" 0 bytes spill stores, 0 bytes spill loads" in line
-                    for line in log.splitlines() if "spill" in line),
-                f"{name}: ptxas reports spills",
-            )
-        if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
-                    Path(TF32X3_SOURCE).name, Path(TF32X3_FLASH_SOURCE).name):
-            # setmaxnreg must be honoured and the accumulators a consumer
-            # thread holds must stay in registers
-            check("C7508" not in log, f"{name}: ptxas ignored setmaxnreg (C7508)")
-            check(
-                all(" 0 bytes spill stores, 0 bytes spill loads" in line
-                    for line in log.splitlines() if "spill" in line),
-                f"{name}: ptxas reports spills",
-            )
+    report_build(_build.BUILD_LOG)
 
     level_loop_phase(torch)  # phase 3
     operator_phase()
@@ -5342,7 +5402,7 @@ def main() -> int:
     pipeline_phase(torch, smi)  # phase 3e
     kloop_phase()  # phase 4
     entries = matmul_phase(torch)  # phase 5
-    flash_rows, flash_phase_launches, split_entry, decode = flash_phase(torch)  # phase 6
+    flash_rows, flash_phase_launches, split_entry = flash_phase(torch)  # phase 6
     t0 = time.perf_counter()
     flash_launches = serve_phase(torch)  # phase 7
     emit(f"serve_phase: {time.perf_counter() - t0:.1f} s")
@@ -5352,7 +5412,7 @@ def main() -> int:
         flash_launches += phase(torch)
         emit(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    encdec_launches, whisper_rows, combine_launches = encdec_serve_phase(torch)  # phase 7e
+    encdec_launches, whisper_rows = encdec_serve_phase(torch)  # phase 7e
     emit(f"encdec_serve_phase: {time.perf_counter() - t0:.1f} s")
     flash_launches += encdec_launches
     t0 = time.perf_counter()
@@ -5371,7 +5431,6 @@ def main() -> int:
             bg.stop()
     entries.extend(flash_entries(flash_rows, flash_launches, flash_phase_launches))
     entries.extend(whisper_entries(whisper_rows))
-    entries.append(combine_entry(decode["combine"], combine_launches))
     entries.append(split_entry)
 
     emit(json.dumps({"kernels": entries}))  # phase 8

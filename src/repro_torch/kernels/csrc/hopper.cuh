@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
-// memory mbarriers, named barriers, TMA tile loads (2-D and 4-D), wgmma
+// memory mbarriers, named barriers, TMA tile loads (2-D and 4-D) and bulk
+// copies, thread-block clusters (barriers, distributed shared memory), wgmma
 // shared-memory descriptors, warpgroup synchronization and the operand
 // lists of the wgmma shapes flash attention and the 3xTF32 matmul use, the
 // TF32 rounding, register rebalancing, and the host-side encoding of 2-D
@@ -107,6 +108,62 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from global memory at src into shared
+// memory at dst, both 16-byte aligned, without a tensor map; completion is
+// counted in bytes on mbarrier bar, as a TMA tile load's.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// -------------------------------------------------------------- clusters
+
+// The cluster barrier in two halves: every thread of every block of the
+// cluster arrives (release: its earlier writes, shared memory included,
+// become visible to the cluster) and then waits (acquire) until all have
+// arrived.  Called by all threads of a warp together (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location (a shared::cta address
+// of this block) in block `rank` of the cluster: a shared::cluster address
+// for ld.shared::cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Four floats at a 16-byte aligned shared::cluster address.
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------- wgmma

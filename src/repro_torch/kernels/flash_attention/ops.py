@@ -12,11 +12,12 @@ A CUDA call takes one of five kernels, by a rule on the operands
     flash_decode      bf16, hd 64 or 128, that TMA could describe, with at
                       most ``DECODE_MAX_SQ`` query rows (and at most
                       ``DECODE_MAX_ROWS`` rows a KV head with GQA):
-                      ``csrc/flash_decode.cu`` (one block a KV head and a
-                      key range, all of the head's query rows at once, a
-                      cp.async K/V ring and mma.sync; the ranges' partial
-                      softmax states are merged by a second small kernel,
-                      :func:`combine_splits`)
+                      ``csrc/flash_decode.cu`` (one launch: a block a KV
+                      head and a key range, the head's ranges one thread-
+                      block cluster, all of the head's query rows at once,
+                      a K/V ring filled by TMA, mma.sync; the ranges'
+                      partial softmax states merged through distributed
+                      shared memory)
     tma_wgmma         other bf16, hd 64 or 128, that TMA can describe:
                       ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
                       producer warpgroup, wgmma QKᵀ and PV on two consumer
@@ -34,12 +35,12 @@ A CUDA call takes one of five kernels, by a rule on the operands
 Each kernel's K/V ring depth and its waits come from the K-loop plan that
 the synchronization compiler derives, as the pipelined matmul's do:
 :func:`~repro_torch.kernels.pipelined_matmul.ops.hopper_schedule` (a
-producer warpgroup issues and loads, consumer warpgroups compute; its two
-retained dependences are the full and empty mbarriers) for the TMA kernels,
+producer issues and loads, consumers compute; its two retained dependences
+are the full and empty mbarriers) for the TMA kernels and
+``flash_decode.cu``,
 :func:`~repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
-``RING_DEPTH`` for ``flash_attention.cu`` and ``flash_decode.cu``.  The
-wrapper raises on a plan whose retained dependences a kernel has no wait
-for.
+``RING_DEPTH`` for ``flash_attention.cu``.  The wrapper raises on a plan
+whose retained dependences a kernel has no wait for.
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.kernels.flash_attention.ref import (
-    combine_splits_ref,
     flash_attention_bshd_ref,
     live_span,
     pad_head_dim,
@@ -72,22 +72,30 @@ TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash.cu"
 TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash_tf32x3.cu"
 DECODE_SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # flash_attention.cu: the instantiated HD values
-RING_DEPTH = 2  # flash_attention.cu and flash_decode.cu: STAGES
-# flash_attention.cu and flash_decode.cu: ISSUE(i) and the arrival wait
+RING_DEPTH = 2  # flash_attention.cu: STAGES
+# flash_attention.cu: ISSUE(i) and the arrival wait
 KERNEL_WAITS = ("issue", "arrival")
 
 FLASH_DECODE = "flash_decode"
 # flash_decode.cu: a block takes the Sq * H / KV query rows of one KV head
 # (at most DECODE_MAX_ROWS: four 16-row mma tiles) over one key range, in
-# K/V tiles of DECODE_BK keys; the route takes calls of at most
+# K/V stages of DECODE_BK keys; the route takes calls of at most
 # DECODE_MAX_SQ query rows, where phase 6 of chip_smoke.py measured it
 # faster than tma_wgmma.  decode_splits lays out at most DECODE_BLOCKS_PER_SM
-# blocks an SM: every instantiation keeps two resident, so the grid runs in
-# one wave (a third block an SM measured slower at every shape timed)
+# blocks an SM (a third block an SM measured slower at every shape timed)
+# and at most DECODE_MAX_CLUSTER ranges, the portable cluster size: a KV
+# head's ranges are one cluster.  The route's ring is DECODE_DEPTH stages
+# deep (fewer for a range of fewer tiles): phase 6 of chip_smoke.py and
+# tools/flash_decode_rows.py measured deeper rings no faster; the kernel
+# holds up to DECODE_MAX_STAGES
 DECODE_MAX_SQ = 16
 DECODE_MAX_ROWS = 64
 DECODE_BK = 64
 DECODE_BLOCKS_PER_SM = 2
+DECODE_MAX_CLUSTER = 8
+DECODE_DEPTH = 2
+DECODE_MAX_STAGES = 6
+DECODE_WAITS = ("full", "empty")
 LOG2E = math.log2(math.e)
 # chip_smoke.py clears this to time tma_wgmma on the calls the rule sends to
 # flash_decode; nothing else sets it
@@ -183,8 +191,8 @@ def route(dtype, hd: int, strides: Sequence[Sequence[int]],
     addresses, the query rows ``sq`` (None where there are none, as for the
     split pre-pass of k and v alone) and the GQA group ``H / KV``.
 
-    TMA (and the f32 route's split pass, and flash_decode's 16-byte
-    cp.async, which read 16 bytes at a time) needs 16-byte aligned bases
+    TMA (and the f32 route's split pass and flash_decode's query rows,
+    which read 16 bytes at a time) needs 16-byte aligned bases
     and strides that are positive multiples of 16 bytes; the TMA kernels
     and flash_decode are instantiated at hd 64 and 128.  Such bf16
     operands with at most ``DECODE_MAX_SQ`` query rows and at most
@@ -212,12 +220,49 @@ def decode_splits(B: int, KV: int, Sk: int, sms: int) -> int:
     """The key ranges of a flash_decode call over ``Sk`` live keys: as
     many as keep the ``B * KV * splits`` blocks within
     ``DECODE_BLOCKS_PER_SM`` an SM of ``sms`` (one range at least), no more
-    ranges than ``DECODE_BK``-key tiles, none empty (the ranges are
-    ``ceil(Sk / splits)`` keys, the last one short)."""
+    ranges than ``DECODE_BK``-key tiles nor than a cluster's
+    ``DECODE_MAX_CLUSTER``, none empty (the ranges are ``ceil(Sk /
+    splits)`` keys, the last one short)."""
 
-    want = DECODE_BLOCKS_PER_SM * sms // max(1, B * KV)
+    want = min(DECODE_BLOCKS_PER_SM * sms // max(1, B * KV), DECODE_MAX_CLUSTER)
     splits = max(1, min(want, -(-Sk // DECODE_BK)))
     return -(-Sk // -(-Sk // splits)) if Sk > 0 else 1
+
+
+def decode_row_tiles(rows: int) -> int:
+    """flash_decode.cu's 16-row mma tiles for ``rows`` query rows a KV head
+    (its instantiations: 1, 2 and 4)."""
+
+    return 1 if rows <= 16 else 2 if rows <= 32 else 4
+
+
+def decode_smem_bytes(hd: int, rows: int, depth: int) -> int:
+    """flash_decode.cu's dynamic shared memory (``Shape::bytes``): 1 KB to
+    align the ring, the ring of ``depth`` stages of a K and a V tile (the
+    TMA boxes, unpadded) or, if larger, the merge's states (four warps' and
+    the block's, f32, ``hd + 2`` a row), the block's query rows (padded to
+    ``hd + 8`` elements) and the barriers (full and empty a stage, and
+    Q's)."""
+
+    rt = decode_row_tiles(rows)
+    merge = (4 * 16 + rt * 16) * (hd + 2) * 4
+    return (1024 + max(depth * 2 * DECODE_BK * hd * 2, merge) + rt * 16 * (hd + 8) * 2
+            + (2 * DECODE_MAX_STAGES + 1) * 8)
+
+
+def _decode_schedule(depth: int = DECODE_DEPTH):
+    """The K-loop plan of flash_decode's ring at ``depth`` (the route's
+    ``DECODE_DEPTH``, or fewer stages for a range of fewer tiles), or
+    ``NotImplementedError`` for a plan whose waits are not the kernel's
+    full and empty mbarriers."""
+
+    sched = hopper_schedule(depth, DECODE_MAX_STAGES)
+    if sorted(sched.waits) != sorted(DECODE_WAITS):
+        raise NotImplementedError(
+            f"flash attention ({FLASH_DECODE}): the Hopper K-loop plan at depth {depth} "
+            f"asks for waits {sched.waits}; the kernel has the waits {DECODE_WAITS}"
+        )
+    return sched
 
 
 def _check_schedule(path: str = CP_ASYNC_MMA) -> None:
@@ -332,12 +377,15 @@ def _tf32x3_entry_point(name: str):
 
 @functools.lru_cache(maxsize=None)
 def _decode_entry_point(name: str):
-    """The two launchers of ``flash_decode.cu``: ``fa_decode(q, k, v, o,
-    ws, dims[10], strides[12], causal, window, q_offset, scale_log2,
-    stream)`` (the split kernel, then the combine where there are two
-    ranges or more) and ``fa_decode_combine(acc, m, l, o, dims[5],
-    o_strides[3], stream)`` (the combine alone), each returning a
-    ``cudaError_t``."""
+    """The entries of ``flash_decode.cu``, each returning a ``cudaError_t``
+    (or -1000 less a ``CUresult``): ``fa_decode_maps(k, v, dims[10],
+    strides[12], maps)`` (k's and v's tensor maps, 256 bytes),
+    ``fa_decode(q, o, maps, dims[10], strides[12], causal, window,
+    q_offset, scale_log2, stages, full, empty, stream)`` (the launch),
+    ``fa_decode_probe(.., stream, stop)`` (a timing probe that leaves the
+    output unwritten) and ``fa_decode_clusters(dims[10], strides[12],
+    stages, &clusters)`` (how many of the launch's clusters the card holds
+    at once)."""
 
     import ctypes
 
@@ -345,14 +393,15 @@ def _decode_entry_point(name: str):
 
     fn = getattr(load(DECODE_SOURCE), name)
     fn.restype = ctypes.c_int
-    arrays = [ctypes.POINTER(ctypes.c_longlong)]
-    if name == "fa_decode":
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + arrays * 2
-            + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p]
-        )
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 4 + arrays * 2 + [ctypes.c_void_p]
+    arrays = [ctypes.POINTER(ctypes.c_longlong)] * 2
+    launch = ([ctypes.c_void_p] * 3 + arrays + [ctypes.c_int] * 3 + [ctypes.c_float]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = {
+        "fa_decode_maps": [ctypes.c_void_p] * 2 + arrays + [ctypes.c_void_p],
+        "fa_decode": launch,
+        "fa_decode_probe": launch + [ctypes.c_int],
+        "fa_decode_clusters": arrays + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    }[name]
     return fn
 
 
@@ -363,23 +412,55 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """flash_decode's launch for one call shape: the ctypes arrays
+    ``fa_decode`` takes, the key ranges (the cluster's blocks), the ring's
+    K-loop plan at the depth it runs, how many of the launch's clusters the
+    card holds at once, and the tensor maps encoded for it so far, by the
+    addresses of k and v (:func:`_decode_args`)."""
+
+    dims: object
+    strides: object
+    splits: int
+    sched: object
+    clusters: int
+    maps: dict = dataclasses.field(default_factory=dict, compare=False)
+
+
+# tensor maps a plan keeps (by k's and v's addresses) before it drops them all
+DECODE_MAPS_KEPT = 64
+
+
 @functools.lru_cache(maxsize=1024)
 def _decode_plan(shape: Tuple[int, ...], strides: Tuple[int, ...], lo: int, hi: int,
-                 sms: int):
-    """flash_decode's launch parameters for one call shape, built once:
-    ``(dims, strides, splits, workspace floats)``, the first two as the
-    ctypes arrays ``fa_decode`` takes.  ``shape`` is ``(B, Sq, H, KV, Sk,
-    hd)``, ``strides`` the (batch, sequence, head) strides of q, k, v and
-    o, ``[lo, hi)`` the live keys (:func:`ref.live_span`)."""
+                 sms: int) -> DecodePlan:
+    """flash_decode's launch for one call shape, built once.  ``shape`` is
+    ``(B, Sq, H, KV, Sk, hd)``, ``strides`` the (batch, sequence, head)
+    strides of q, k, v and o, ``[lo, hi)`` the live keys
+    (:func:`ref.live_span`), ``sms`` the card's SMs.  The ring is
+    ``DECODE_DEPTH`` stages deep, at most a range's tiles, and the plan is
+    read at that depth.  Raises where the card cannot place one cluster of
+    the launch (``cudaOccupancyMaxActiveClusters``)."""
 
     import ctypes
 
     B, Sq, H, KV, Sk, hd = shape
     splits = decode_splits(B, KV, hi - lo, sms)
     chunk = -(-(hi - lo) // splits)
+    depth = min(DECODE_DEPTH, -(-chunk // DECODE_BK))
     dims = (ctypes.c_longlong * 10)(B, H, KV, Sq, Sk, hd, lo, hi, chunk, splits)
-    ws = 0 if splits == 1 else splits * B * H * Sq * (hd + 2)
-    return dims, (ctypes.c_longlong * 12)(*strides), splits, ws
+    stride_arr = (ctypes.c_longlong * 12)(*strides)
+    sched = _decode_schedule(depth)
+    n = ctypes.c_int(0)
+    rc = _decode_entry_point("fa_decode_clusters")(dims, stride_arr, depth, ctypes.byref(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(
+            f"flash attention ({FLASH_DECODE}): the card cannot place a cluster of {splits} "
+            f"blocks of {decode_smem_bytes(hd, Sq * (H // KV), depth)} bytes of shared memory "
+            f"for B={B}, Sq={Sq}, H={H}, KV={KV}, Sk={Sk}, hd={hd} (cudaError {rc})"
+        )
+    return DecodePlan(dims, stride_arr, splits, sched, n.value)
 
 
 def _check(rc: int, path: str, q, k, depth) -> None:
@@ -454,88 +535,72 @@ def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
     _check(rc, TMA_WGMMA, q, k, sched.depth)
 
 
-def _launch_decode(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
-                   scale: Optional[float] = None) -> int:
-    """``flash_decode.cu``'s one host call: the split kernel over the key
-    ranges of :func:`decode_splits`, then, with two ranges or more, the
-    combine (counted in ``combine_splits.launches``) from an f32 workspace
-    of the ranges' ``(m, l, acc)``.  Returns the number of ranges."""
-
-    import torch
-
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    lo, hi = live_span(Sq, Sk, causal, window, q_offset)
-    dims, strides, splits, ws_floats = _decode_plan(
-        (B, Sq, H, KV, Sk, hd),
-        (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]),
-        lo, hi, _sm_count(q.device.index),
-    )
-    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device) if ws_floats else None
-    rc = _decode_entry_point("fa_decode")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if ws is None else ws.data_ptr(), dims, strides,
-        int(causal), 0 if window is None else int(window), int(q_offset),
-        (hd**-0.5 if scale is None else scale) * LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _check(rc, FLASH_DECODE, q, k, RING_DEPTH)
-    if splits > 1:
-        combine_splits.launches += 1
-    return splits
-
-
-def combine_splits(m, l, acc):
-    """The flash_decode route's combine over the key ranges' ``m``, ``l``
-    ``(splits, B, H, Sq)`` and ``acc`` ``(splits, B, H, Sq, hd)`` in f32
-    (``m`` in natural-log units): the output ``(B, Sq, H, hd)`` in bf16.
-    CPU tensors take :func:`ref.combine_splits_ref`; contiguous CUDA
-    tensors at hd 64 or 128 launch the kernel or raise.  The route launches
-    it inside its own call (:func:`_launch_decode`); this is the combine
-    alone."""
+def _decode_args(plan: DecodePlan, q, k, v, o, causal: bool, window: Optional[int],
+                 q_offset: int, scale: Optional[float] = None) -> tuple:
+    """``fa_decode``'s arguments for one call on ``plan``: k's and v's
+    tensor maps are encoded at the first call with their addresses and
+    kept on the plan (whisper's cross-attention K and V stay in place
+    across decode steps), so that a call encodes nothing."""
 
     import ctypes
 
     import torch
 
-    S, B, H, Sq = m.shape
-    hd = acc.shape[-1]
-    if not (m.dtype == l.dtype == acc.dtype == torch.float32) or l.shape != m.shape or (
-        acc.shape != (S, B, H, Sq, hd)
-    ):
-        raise TypeError(
-            f"combine_splits takes float32 m, l (splits, B, H, Sq) and acc (.., hd); got "
-            f"{m.dtype} {tuple(m.shape)}, {l.dtype} {tuple(l.shape)}, {acc.dtype} "
-            f"{tuple(acc.shape)}"
-        )
-    if all(t.device.type == "cpu" for t in (m, l, acc)):
-        return combine_splits_ref(m, l, acc, torch.bfloat16)
-    if hd not in TMA_HEAD_DIMS or not all(
-        t.device == m.device and t.device.type == "cuda" and t.is_contiguous()
-        for t in (m, l, acc)
-    ):
-        raise ValueError(
-            f"combine_splits: hd={hd}, devices {m.device} / {l.device} / {acc.device}: it "
-            "reads contiguous CUDA tensors at hd 64 or 128"
-        )
-    o = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device=m.device)
-    if o.numel() == 0:
-        return o
-    rc = _decode_entry_point("fa_decode_combine")(
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
-        (ctypes.c_longlong * 5)(S, B, H, Sq, hd), (ctypes.c_longlong * 3)(*o.stride()[:3]),
-        torch.cuda.current_stream(m.device).cuda_stream,
+    key = (k.data_ptr(), v.data_ptr())
+    maps = plan.maps.get(key)
+    if maps is None:
+        buf = (ctypes.c_ubyte * 256)()
+        rc = _decode_entry_point("fa_decode_maps")(key[0], key[1], plan.dims, plan.strides, buf)
+        _check(rc, FLASH_DECODE, q, k, plan.sched.depth)
+        if len(plan.maps) >= DECODE_MAPS_KEPT:
+            plan.maps.clear()
+        maps = plan.maps[key] = (buf, ctypes.addressof(buf))
+    return (
+        q.data_ptr(), o.data_ptr(), maps[1], plan.dims, plan.strides,
+        int(causal), 0 if window is None else int(window), int(q_offset),
+        (q.shape[-1] ** -0.5 if scale is None else scale) * LOG2E,
+        plan.sched.depth, int(plan.sched.full), int(plan.sched.empty),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"combine_splits launch failed on route {FLASH_DECODE}: cudaError {rc} "
-            f"(splits={S}, B={B}, H={H}, Sq={Sq}, hd={hd})"
-        )
-    combine_splits.launches += 1
-    return o
 
 
-combine_splits.launches = 0
+def _plan_of(q, k, v, o, causal: bool, window: Optional[int], q_offset: int) -> DecodePlan:
+    """The call's :class:`DecodePlan` on its card."""
+
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+    return _decode_plan(
+        (B, Sq, H, KV, Sk, hd),
+        (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]),
+        lo, hi, _sm_count(q.device.index),
+    )
+
+
+def _launch_decode(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
+                   scale: Optional[float] = None) -> DecodePlan:
+    """``flash_decode.cu``'s one launch: a cluster a KV head over the key
+    ranges of :func:`decode_splits`, merged in distributed shared memory.
+    Returns the call's :class:`DecodePlan`."""
+
+    plan = _plan_of(q, k, v, o, causal, window, q_offset)
+    rc = _decode_entry_point("fa_decode")(
+        *_decode_args(plan, q, k, v, o, causal, window, q_offset, scale))
+    _check(rc, FLASH_DECODE, q, k, plan.sched.depth)
+    return plan
+
+
+def _decode_probe(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
+                  stop: int) -> None:
+    """A part of ``flash_decode.cu``'s launch alone, to time it (hd 64, at
+    most 16 rows a KV head), leaving ``o`` unwritten: ``stop`` 1 the K-loop
+    without the cluster merge, 2 the loads without the products.  Not
+    counted and no route."""
+
+    plan = _plan_of(q, k, v, o, causal, window, q_offset)
+    rc = _decode_entry_point("fa_decode_probe")(
+        *_decode_args(plan, q, k, v, o, causal, window, q_offset), stop)
+    _check(rc, FLASH_DECODE, q, k, plan.sched.depth)
 
 
 def _split_workspace(k):
@@ -740,19 +805,13 @@ def _flash_cu(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return o
 
 
-def _flash_decode(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                  q_offset: int = 0):
-    """``flash_decode.cu`` on bf16 operands of hd 64 or 128 that its
-    cp.async can read, whatever route :func:`route` gives them (at most
-    ``DECODE_MAX_ROWS`` query rows a KV head, the kernel's four row tiles),
-    to check and time it beside ``tma_wgmma`` where the rule does not send
-    a call to it; not counted in the launch counts and no route of
-    :func:`flash_attention`."""
+def _check_decode_operands(q, k, v) -> None:
+    """Raise unless ``flash_decode.cu`` can read the operands, whatever
+    route :func:`route` gives them: bf16 at hd 64 or 128, 16-byte aligned,
+    at most ``DECODE_MAX_ROWS`` query rows a KV head (its four row tiles)."""
 
     import torch
 
-    _check_kernel_call(q, k, v, window, q_offset, causal)
-    _check_schedule(FLASH_DECODE)
     if q.dtype != torch.bfloat16 or route(
         q.dtype, q.shape[-1], [t.stride()[:3] for t in (q, k, v)],
         [t.data_ptr() for t in (q, k, v)], sq=1,
@@ -761,6 +820,21 @@ def _flash_decode(q, k, v, *, causal: bool = True, window: Optional[int] = None,
             f"flash_decode: q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}: it takes bf16 "
             f"at hd 64 or 128, 16-byte aligned, at most {DECODE_MAX_ROWS} rows a KV head"
         )
+
+
+def _flash_decode(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0):
+    """``flash_decode.cu`` on bf16 operands of hd 64 or 128 that its TMA
+    can read, whatever route :func:`route` gives them (at most
+    ``DECODE_MAX_ROWS`` query rows a KV head, the kernel's four row tiles),
+    to check and time it beside ``tma_wgmma`` where the rule does not send
+    a call to it; not counted in the launch counts and no route of
+    :func:`flash_attention`."""
+
+    import torch
+
+    _check_kernel_call(q, k, v, window, q_offset, causal)
+    _check_decode_operands(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_decode(q, k, v, o, causal, window, q_offset)
     return o
@@ -791,7 +865,8 @@ def flash_attention(
     key (:func:`_check_live_keys` raises otherwise).  ``depth`` is
     the K/V ring depth of the TMA routes (default: the deepest ring that
     fits, :func:`default_depth` / :func:`tf32x3_default_depth`); the other
-    routes have one depth, ``RING_DEPTH``.  The reference wrapper's
+    routes have one depth, ``DECODE_DEPTH`` for flash_decode and
+    ``RING_DEPTH`` for the cp.async ones.  The reference wrapper's
     ``blk_q`` / ``blk_k`` pick its tiles; here the rule picks a kernel: a
     call with few query rows, the reference's small-``blk_q`` case, takes
     ``flash_decode`` (:func:`route`), whose blocks split the keys instead.
@@ -828,11 +903,15 @@ def flash_attention(
         path = _route_of(q, k, v)
         if path in (TMA_WGMMA, TMA_WGMMA_TF32X3):
             sched = _tma_schedule(hd, depth, path)
-        elif depth not in (None, RING_DEPTH):
-            raise NotImplementedError(
-                f"flash attention ({path}): ring depth {depth} (this route "
-                f"has one depth, {RING_DEPTH})"
-            )
+        else:
+            one = DECODE_DEPTH if path == FLASH_DECODE else RING_DEPTH
+            if depth not in (None, one):
+                raise NotImplementedError(
+                    f"flash attention ({path}): ring depth {depth} (this route "
+                    f"has one depth, {one})"
+                )
+            if path == FLASH_DECODE:
+                sched = _decode_schedule()
     if on_cpu:
         return flash_attention_bshd_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset

@@ -2,7 +2,7 @@
 ``flash_attention_ref`` (quadratic softmax attention over ``(BH, S, hd)``
 in f32, cast back to the input dtype), its 3xTF32 emulation, the 3xTF32
 route's K / V split, and the ``flash_decode`` route's split-key partials
-and combine."""
+and their merge."""
 
 from __future__ import annotations
 
@@ -229,26 +229,34 @@ def decode_partials_ref(q, k, v, *, causal: bool, window: Optional[int], q_offse
 
 
 def combine_splits_ref(m, l, acc, dtype):
-    """The ``flash_decode`` route's combine: each range rescaled by
-    ``exp(m_s - M)`` (0 for a range with ``m_s = -inf``), summed and divided
-    by ``max(Σ l_s exp(m_s - M), 1e-30)``.  ``m``, ``l`` ``(splits, B, H,
-    Sq)`` and ``acc`` ``(splits, B, H, Sq, hd)`` in f32; returns the output
-    ``(B, Sq, H, hd)`` in ``dtype``.  A row with no live key in any range
-    comes out 0."""
+    """The ``flash_decode`` route's merge of its key ranges, in the kernel's
+    order: ``M`` the largest ``m_s``; then range by range from the first,
+    each range's weight ``w = exp(m_s - M)`` (0 for a range with ``m_s =
+    -inf``), ``L += w l_s`` and ``o += w acc_s``; the output ``o`` times
+    ``1 / max(L, 1e-30)``.  ``m``, ``l`` ``(splits, B, H, Sq)`` and ``acc``
+    ``(splits, B, H, Sq, hd)`` in f32; returns the output ``(B, Sq, H, hd)``
+    in ``dtype``.  A range with no live key for a row adds exactly 0 to it;
+    a row with none in any range comes out 0."""
 
     import torch
 
     M = m.amax(dim=0)
-    w = torch.exp(m - torch.where(M == -math.inf, 0.0, M))  # exp(-inf) = 0
-    L = (w * l).sum(dim=0)
-    o = (w[..., None] * acc).sum(dim=0) / L.clamp_min(1e-30)[..., None]
+    base = torch.where(M == -math.inf, 0.0, M)
+    L = torch.zeros_like(M)
+    o = torch.zeros_like(acc[0])
+    for s in range(m.shape[0]):
+        w = torch.exp(m[s] - base)  # exp(-inf) = 0
+        L = L + w * l[s]
+        o = o + w[..., None] * acc[s]
+    o = o * (1.0 / L.clamp_min(1e-30))[..., None]
     return o.transpose(1, 2).to(dtype)
 
 
 def flash_decode_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                      q_offset: int = 0, splits: int = 1, _scale: Optional[float] = None):
     """The ``flash_decode`` route step by step (:func:`decode_partials_ref`
-    over ``splits`` key ranges, then :func:`combine_splits_ref`): the same
+    over ``splits`` key ranges, one block of a cluster each, then their
+    merge in the kernel's order, :func:`combine_splits_ref`): the same
     function as :func:`flash_attention_bshd_ref` wherever every row keeps a
     key, whatever ``splits`` is."""
 

@@ -196,14 +196,16 @@ class HopperSchedule:
 
 
 @functools.lru_cache(maxsize=None)
-def hopper_schedule(depth: int) -> HopperSchedule:
+def hopper_schedule(depth: int, max_depth: int = MAX_STAGES) -> HopperSchedule:
     """Map ``hopper_plan(depth)`` onto the TMA kernel's mbarriers, or raise
-    ``NotImplementedError`` for a plan shape it does not implement."""
+    ``NotImplementedError`` for a plan shape it does not implement.
+    ``max_depth`` is the deepest ring of the kernel asking (flash_decode's
+    is deeper than the matmul's)."""
 
-    if not 1 <= depth <= MAX_STAGES:
+    if not 1 <= depth <= max_depth:
         raise NotImplementedError(
             f"pipelined matmul: ring depth {depth} outside the kernel's "
-            f"1..{MAX_STAGES} stages"
+            f"1..{max_depth} stages"
         )
     waits = []
     for d in hopper_plan(depth).retained:

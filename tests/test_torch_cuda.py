@@ -1581,7 +1581,8 @@ def test_sharded_attention_reaches_the_kernel_through_local_map(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------- #
-# The flash_decode route: few query rows, the keys split across blocks
+# The flash_decode route: few query rows, the keys split across the blocks
+# of a cluster, one launch a call
 # ---------------------------------------------------------------------- #
 
 # B, Sq, Sk, H, KV, hd, causal, window, q_offset: whisper's three small
@@ -1619,17 +1620,15 @@ def _splits(q, k, causal, window, q_offset):
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_flash_decode_matches_its_plain_version_on_cuda(cuda, case):
     """The kernel against ``flash_decode_ref``'s steps within the bf16 row
-    limit, with both planted faults above it: one key range dropped, the
-    last live key dropped."""
+    limit, with both planted faults above it:
+    a peer's state left out of the merge, the last live key dropped."""
 
     B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=Sq + Sk)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    combines = flash_ops.combine_splits.launches
     out, took = _flash_counted(q, k, v, **kw)
     assert took == "flash_decode" == _flash_route(torch.bfloat16, hd, Sq, H // KV)
     splits, hi = _splits(q, k, causal, window, q_offset)
-    assert flash_ops.combine_splits.launches - combines == int(splits > 1)
     ref, (m, l, acc) = _decode_ref(q, k, v, splits, **kw)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
@@ -1661,9 +1660,98 @@ def test_flash_decode_probes_hold_the_last_range_on_cuda(cuda, Sq, identity_v):
     assert torch.equal(out.float().cpu(), torch.from_numpy(expected))
 
 
+@pytest.mark.parametrize("ranges", range(1, flash_ops.DECODE_MAX_CLUSTER + 1))
+def test_flash_decode_every_range_count_on_cuda(cuda, ranges):
+    """hd 128 with GQA (4 query rows, 4 heads a KV head: 16 rows) over
+    ``64 * ranges - 5`` keys on 2 KV heads: the split rule gives one range a
+    64-key tile, so every cluster size from 1 to the cap runs; each against
+    its plain version at those ranges."""
+
+    Sk = 64 * ranges - 5
+    q, k, v = _flash_inputs(cuda, 1, 4, Sk, 8, 2, 128, torch.bfloat16, seed=ranges)
+    splits, _ = _splits(q, k, False, None, 0)
+    assert splits == ranges
+    out, took = _flash_counted(q, k, v, causal=False)
+    assert took == "flash_decode"
+    ref, _ = _decode_ref(q, k, v, splits, causal=False, window=None, q_offset=0)
+    assert torch.isfinite(out.float()).all()
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+
+
+def test_flash_decode_with_an_empty_range_on_cuda(cuda):
+    """64 query rows at a decode position with a 3-key window (forced
+    beyond the rule): the live span of 66 keys is two ranges, and all
+    but the two rows at their edge keep keys in one of them only, so they
+    merge a range that holds no live key for them: finite, the plain
+    version's."""
+
+    Sk, Sq = 130, 64
+    q, k, v = _flash_inputs(cuda, 1, Sq, Sk, 1, 1, 64, torch.bfloat16, seed=9)
+    kw = dict(causal=True, window=3, q_offset=Sk - Sq)
+    splits, _ = _splits(q, k, **kw)
+    assert splits == 2
+    m, _, _ = decode_partials_ref(q, k, v, splits=splits, **kw)
+    assert torch.isinf(m).any(dim=0).sum().item() == Sq - 2
+    out = flash_ops._flash_decode(q, k, v, **kw)
+    ref, _ = _decode_ref(q, k, v, splits, **kw)
+    assert torch.isfinite(out.float()).all()
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+
+
+def test_flash_decode_is_one_launch_on_cuda(cuda):
+    """Whisper's decode cross call is one kernel on the device, with no
+    allocation beyond its output and no second kernel."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _flash_inputs(cuda, 4, 1, 1500, 16, 16, 64, torch.bfloat16, seed=4)
+    flash_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("case", [(4, 1, 1500, 16, 16, 64, True, None, 700),
+                                  (2, 4, 2048, 32, 4, 128, True, 300, 1000),
+                                  (4, 1, 1500, 16, 16, 64, False, None, 0)],
+                         ids=["cache_tail", "gqa_window", "view_of_a_longer_buffer"])
+def test_flash_decode_reads_nothing_outside_the_live_span_on_cuda(cuda, case):
+    """NaN in K and V outside the live span (a cache's unwritten tail, the
+    keys a window drops, a longer buffer's rows past a view) leaves the
+    output finite and equal to the plain version's on clean K and V: the
+    tensor maps end at the span's end and no range starts before it."""
+
+    from repro_torch.kernels.flash_attention.ref import live_span
+
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=11)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+    if causal:
+        kn, vn = k.clone(), v.clone()
+        for t in (kn, vn):
+            t[:, :lo] = float("nan")
+            t[:, hi:] = float("nan")
+    else:
+        kn, vn = (torch.cat([t, torch.full_like(t[:, :37], float("nan"))], dim=1)[:, :Sk]
+                  for t in (k, v))
+    assert 0 < lo or hi < Sk or kn.stride(0) != k.stride(0)
+    out, took = _flash_counted(q, kn, vn, **kw)
+    assert took == "flash_decode"
+    assert torch.isfinite(out.float()).all()
+    splits, _ = _splits(q, k, **kw)
+    ref, _ = _decode_ref(q, k, v, splits, **kw)
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+
+
 def test_flash_decode_forced_beyond_the_rule_and_the_combine_alone_on_cuda(cuda):
-    """``_flash_decode`` at 64 rows (uncounted), and ``combine_splits``
-    alone against its plain version on the kernel's own ranges."""
+    """``_flash_decode`` at 64 rows (uncounted) against its plain version
+    on its own ranges, and the ranges' merge alone: the same plain merge
+    with a peer's state left out misses it."""
 
     q, k, v = _flash_inputs(cuda, 4, 64, 1500, 16, 16, 64, torch.bfloat16, seed=3)
     before = dict(flash_ops.flash_attention.routes)
@@ -1673,9 +1761,9 @@ def test_flash_decode_forced_beyond_the_rule_and_the_combine_alone_on_cuda(cuda)
     splits, _ = _splits(q, k, False, None, 0)
     ref, (m, l, acc) = _decode_ref(q, k, v, splits, causal=False, window=None, q_offset=0)
     assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
-    got = flash_ops.combine_splits(m, l, acc)
-    torch.cuda.synchronize()
-    assert _row_err(got, combine_splits_ref(m, l, acc, torch.float32)) <= ROW_TOL[torch.bfloat16]
+    assert splits > 1
+    m[0], l[0] = -float("inf"), 0.0
+    assert _row_err(out, combine_splits_ref(m, l, acc, torch.float32)) > ROW_TOL[torch.bfloat16]
     with pytest.raises(NotImplementedError, match="flash_decode"):
         flash_ops._flash_decode(q.float(), k.float(), v.float(), causal=False)
 

@@ -2,7 +2,8 @@
 against the reference on the CPU.
 
 The route's plain version, ``ref.flash_decode_ref`` (the key ranges'
-partial softmax states, then their combine), is what the kernel
+partial softmax states, then their merge in the order of the ranges, as
+the kernel's cluster merges them), is what the kernel
 ``csrc/flash_decode.cu`` computes and what ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it against on the card.  Here the same inputs, drawn
 with NumPy from a seed, go through the reference's Pallas kernel in
@@ -10,8 +11,9 @@ interpret mode (``blk_q`` at Sq, the reference's few-row case), its
 ``flash_attention_ref`` and its ``chunked_attention`` (which alone takes a
 query offset, decode's position) and through ``flash_decode_ref``, in f32
 at the reference tests' 2e-5.  The split count must not move the result
-beyond 2e-6.  The route rule and the split rule are pure functions and
-pinned here; the CPU launches nothing.
+beyond 2e-6.  The route rule, the split rule (at most a cluster's ranges)
+and the ring's depth are pure functions and pinned here, as is the K-loop
+plan the wrapper reads; the CPU launches nothing.
 """
 
 import math
@@ -189,7 +191,7 @@ def test_key_ranges_cut_the_live_span():
     [
         (4, 16, 1500, 4),    # whisper's decode and prompt cross: 64 heads x 4 = 256 blocks
         (4, 16, 4, 1),       # whisper's 4 x 4 prompt self attention: one tile
-        (4, 4, 2048, 16),    # yi-6b decode: 16 heads x 16 ranges of 128 keys
+        (4, 4, 2048, 16),    # yi-6b decode: 16 heads x 16 ranges of 128 keys, 8 in a cluster
         (1, 1, 64, 1),
         (1, 1, 65, 2),
         (64, 16, 1500, 1),   # 1024 heads fill the card alone
@@ -197,28 +199,34 @@ def test_key_ranges_cut_the_live_span():
     ],
 )
 def test_decode_splits(B, KV, Sk, splits):
-    assert ops.decode_splits(B, KV, Sk, H100_SMS) == splits
+    """``splits``: the ranges two blocks an SM would take; the route takes
+    at most a cluster's."""
+
+    assert ops.decode_splits(B, KV, Sk, H100_SMS) == min(splits, ops.DECODE_MAX_CLUSTER)
 
 
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_decode_splits_plan_is_valid_everywhere(sms):
-    """Every range non-empty, the ranges cover the span, at most 65535 of
-    them and no more than the span's 64-key tiles, and the blocks within
-    ``DECODE_BLOCKS_PER_SM`` an SM (unless one range) and at least half of
-    that wherever the tiles allow."""
+    """Every range non-empty, the ranges cover the span, at most a
+    cluster's ``DECODE_MAX_CLUSTER`` of them and no more than the span's
+    64-key tiles, and the blocks within ``DECODE_BLOCKS_PER_SM`` an SM
+    (unless one range) and at least half of that wherever the tiles and the
+    cap allow.  The grid's ranges are then whole clusters of (1, S, 1): the
+    cluster is the grid's second dimension itself."""
 
+    cap = ops.DECODE_MAX_CLUSTER
     for B in (1, 2, 4, 7):
         for KV in (1, 2, 8, 16):
             for Sk in (1, 2, 63, 64, 65, 300, 1500, 2048, 32768):
+                tiles = -(-Sk // ops.DECODE_BK)
+                want = ops.DECODE_BLOCKS_PER_SM * sms
                 S = ops.decode_splits(B, KV, Sk, sms)
                 chunk = -(-Sk // S)
-                assert 1 <= S <= 65535
+                assert 1 <= S <= cap
                 assert (S - 1) * chunk < Sk <= S * chunk
-                tiles = -(-Sk // ops.DECODE_BK)
                 assert S <= tiles
-                want = ops.DECODE_BLOCKS_PER_SM * sms
                 assert S == 1 or B * KV * S <= want
-                assert B * KV * S >= min(want, B * KV * tiles) / 2
+                assert B * KV * S >= min(want, B * KV * tiles, B * KV * cap) / 2
 
 
 def _strides(shape):
@@ -274,40 +282,140 @@ def test_private_switch_times_tma_on_few_rows(monkeypatch):
 
 
 def test_route_refuses_another_depth_and_reads_its_plan(monkeypatch):
+    """The route has one ring depth, ``DECODE_DEPTH`` (fewer stages for a
+    range of fewer tiles): another is refused; each depth it runs reads the
+    Hopper K-loop plan (the full and the empty mbarrier).  The cp.async
+    kernels keep their plan at ``RING_DEPTH`` and refuse a credit wait."""
+
     q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="flash_decode.*one depth"):
-        ops.flash_attention(q, q, q, depth=3)
-    assert ops.flash_attention(q, q, q, depth=ops.RING_DEPTH).shape == q.shape
+        ops.flash_attention(q, q, q, depth=ops.DECODE_DEPTH + 1)
+    assert ops.flash_attention(q, q, q, depth=ops.DECODE_DEPTH).shape == q.shape
+    for depth in range(1, ops.DECODE_DEPTH + 1):
+        sched = ops._decode_schedule(depth)
+        assert sched.depth == depth and sorted(sched.waits) == sorted(ops.DECODE_WAITS)
     monkeypatch.setattr(ops, "RING_DEPTH", 1)  # a plan with a credit wait
-    with pytest.raises(NotImplementedError, match=r"\(flash_decode\).*depth 1"):
-        ops._check_schedule(ops.FLASH_DECODE)
+    with pytest.raises(NotImplementedError, match=r"\(cp_async_mma\).*depth 1"):
+        ops._check_schedule(ops.CP_ASYNC_MMA)
 
 
 def test_no_launch_is_counted_on_the_cpu():
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(3, 2, 1, 130, 8, 8))
     assert ops._route_of(q, k, v) == "flash_decode"
-    before = (dict(ops.flash_attention.routes), ops.flash_attention.launches,
-              ops.combine_splits.launches)
+    before = (dict(ops.flash_attention.routes), ops.flash_attention.launches)
     out = ops.flash_attention(q, k, v, causal=False)
-    assert (dict(ops.flash_attention.routes), ops.flash_attention.launches,
-            ops.combine_splits.launches) == before
+    assert (dict(ops.flash_attention.routes), ops.flash_attention.launches) == before
     ref = flash_decode_ref(q, k, v, causal=False, splits=3)
     assert (out.float() - ref.float()).abs().max().item() <= 3e-2  # bf16 output rounding
 
 
+@pytest.mark.parametrize("waits", [("full",), ("empty",), ("full", "empty", "credit")],
+                         ids=["no_empty", "no_full", "extra"])
+def test_route_refuses_a_plan_whose_waits_differ(monkeypatch, waits):
+    """The wrapper reads ``hopper_schedule`` at the ring's depth
+    (``DECODE_DEPTH``) and raises unless its waits are the kernel's: on the
+    CPU too, before the plain version runs."""
+
+    from repro_torch.kernels.pipelined_matmul.ops import HopperSchedule
+
+    q = torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1500, 2, 64, dtype=torch.bfloat16)
+    assert ops._route_of(q, k, k) == "flash_decode" and ops.DECODE_DEPTH == 2
+    asked = []
+
+    def plan(depth, max_depth=4):
+        asked.append((depth, max_depth))
+        return HopperSchedule(depth=depth, waits=waits)
+
+    monkeypatch.setattr(ops, "hopper_schedule", plan)
+    with pytest.raises(NotImplementedError, match=r"\(flash_decode\).*depth 2 asks for waits"):
+        ops.flash_attention(q, k, k, causal=False)
+    assert asked == [(2, ops.DECODE_MAX_STAGES)]
+
+
+@pytest.mark.parametrize(
+    "hd,rows", [(64, 1), (64, 16), (64, 32), (64, 64), (128, 1), (128, 32), (128, 64)]
+)
+def test_decode_ring_depth_keeps_two_blocks_an_sm(hd, rows):
+    """At the route's ``DECODE_DEPTH`` two blocks fit in an SM (228 KB, 1
+    KB a block the system's), so that a KV head's clusters are placed at
+    once; the kernel's deepest ring fits a block; the sizes and limits as
+    ``csrc/flash_decode.cu`` has them."""
+
+    import re
+
+    assert 2 * (ops.decode_smem_bytes(hd, rows, ops.DECODE_DEPTH) + 1024) <= 233472
+    src = ops.DECODE_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("MAX_STAGES") == ops.DECODE_MAX_STAGES >= ops.DECODE_DEPTH
+    assert const("MAX_CLUSTER") == ops.DECODE_MAX_CLUSTER
+    assert const("BK") == ops.DECODE_BK
+    assert ops.decode_smem_bytes(hd, rows, ops.DECODE_MAX_STAGES) <= const("SMEM_LIMIT")
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "none"])
+def test_result_does_not_depend_on_the_range_count_up_to_the_cap(mask):
+    """The merge of 1 to ``DECODE_MAX_CLUSTER`` ranges, in their order, at
+    a whisper-like length: one result within 2e-6, the reference's within
+    2e-5."""
+
+    Sq, Sk = 4, 1500
+    q, k, v = _inputs(17, 2, Sq, Sk, 8, 2)
+    causal = mask != "none"
+    window = 300 if mask == "window" else None
+    q_offset = Sk - Sq if causal else 0
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    outs = [flash_decode_ref(tq, tk, tv, causal=causal, window=window, q_offset=q_offset,
+                             splits=s) for s in range(1, ops.DECODE_MAX_CLUSTER + 1)]
+    for out in outs[1:]:
+        assert (out - outs[0]).abs().max().item() <= SPLIT_TOL
+    ref = jax_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                      window=window, q_offset=q_offset)
+    _close(outs[-1], ref)
+
+
+@pytest.mark.parametrize("at", [0, 2, 5])
+def test_an_empty_range_adds_exactly_nothing_under_the_merge_order(at):
+    """A range without a live key (m = -inf, l = 0, acc = 0) put anywhere
+    among five ranges leaves the merge bit-equal to the merge without it:
+    its weight is exp(-inf) = 0 and each running sum adds an exact 0."""
+
+    rng = np.random.default_rng(at)
+    m = torch.from_numpy(rng.standard_normal((5, 2, 3, 4)).astype(np.float32))
+    m[1, 0, 1] = -math.inf  # and one row empty in another range
+    l = torch.from_numpy(rng.random((5, 2, 3, 4)).astype(np.float32) + 0.5)
+    l[1, 0, 1] = 0.0
+    acc = torch.from_numpy(rng.standard_normal((5, 2, 3, 4, 64)).astype(np.float32))
+    acc[1, 0, 1] = 0.0
+    ins = lambda x, fill: torch.cat([x[:at], torch.full_like(x[:1], fill), x[at:]])  # noqa: E731
+    want = combine_splits_ref(m, l, acc, torch.float32)
+    got = combine_splits_ref(ins(m, -math.inf), ins(l, 0.0), ins(acc, 0.0), torch.float32)
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
 def test_combine_splits_on_the_cpu_is_its_plain_version():
+    """The plain merge of the ranges (the kernel's cluster merge; no
+    combine kernel is left): the bf16 output is the f32 merge rounded, and
+    the f32 merge the softmax-weighted sum of the ranges, with one range
+    empty for some rows."""
+
     rng = np.random.default_rng(5)
     m = torch.from_numpy(rng.standard_normal((5, 2, 3, 4)).astype(np.float32))
     m[1, 0] = -math.inf
     l = torch.from_numpy(rng.random((5, 2, 3, 4)).astype(np.float32) + 0.5)
+    l[1, 0] = 0.0
     acc = torch.from_numpy(rng.standard_normal((5, 2, 3, 4, 64)).astype(np.float32))
-    before = ops.combine_splits.launches
-    out = ops.combine_splits(m, l, acc)
+    acc[1, 0] = 0.0
+    out = combine_splits_ref(m, l, acc, torch.bfloat16)
     assert out.shape == (2, 4, 3, 64) and out.dtype == torch.bfloat16
-    assert torch.equal(out, combine_splits_ref(m, l, acc, torch.bfloat16))
-    assert ops.combine_splits.launches == before
-    with pytest.raises(TypeError):
-        ops.combine_splits(m.double(), l, acc)
+    f32 = combine_splits_ref(m, l, acc, torch.float32)
+    assert torch.equal(out, f32.to(torch.bfloat16))
+    w = torch.exp(m.double() - m.double().amax(0))
+    want = ((w[..., None] * acc.double()).sum(0) / (w * l.double()).sum(0)[..., None])
+    assert (f32.double() - want.transpose(1, 2)).abs().max().item() <= 1e-5
 
 
 # ---------------------------------------------------------------------- #
