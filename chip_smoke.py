@@ -64,21 +64,24 @@ non-zero:
    warpgroups compute) and the TMA kernels' mbarriers at the depths phase 5
    runs;
 5. the pipelined matmul at yi-6b's full widths (d_model 4096, d_ff 11008)
-   as a 2048-token prefill, plus a ragged shape TMA can describe and an
-   unaligned one, in bf16 and f32 at depths 1, 2 and the TMA routes'
-   defaults (4 in bf16, 3 in 3xTF32; FFMA and cp.async at 4): launch
-   counts per route from the main run (where TMA can describe the
-   operands, bf16 takes the TMA / wgmma kernel and f32 the 3xTF32 one, a
-   split pre-pass and TF32 wgmma products; elsewhere bf16 takes the
-   cp.async / mma.sync kernel and f32 FFMA), the split kernel's launches,
-   the exact identity probes I @ B and A @ I on both TMA routes (f32 with
-   operands of 21 significant bits), the error against the plain PyTorch
-   version and, in f32, against an f64 product, a planted one-TF32 product
-   that must read above the f32 limit, the kernel's time beside its bound,
-   the plain version's and ``torch.matmul``'s; at yi-6b's shapes the bf16
-   TMA kernel, the cp.async kernel and ``torch.matmul`` are timed in turns,
-   and so are the 3xTF32 route, the FFMA kernel and ``torch.matmul``, with
-   the split and the product also timed apart;
+   as a 2048-token prefill, a ragged shape TMA can describe, an unaligned
+   one and granite-3-2b's LM head (2048 x 2048 x 49155: B's rows are
+   98310 bytes), in bf16 and f32 at depths 1, 2 and the routes' defaults
+   (4 in bf16, 3 in 3xTF32): launch counts per route from the main run
+   (every bf16 call on the TMA / wgmma kernel, every f32 call on the
+   3xTF32 one, a split pre-pass that pads the rows to 16 bytes and TF32
+   wgmma products), the split kernel's launches and the bf16 stage's (one
+   launch restages the operands TMA cannot describe), the exact identity
+   probes I @ B and A @ I on both routes at yi-6b's widths and at the LM
+   head (f32 with operands of 21 significant bits), the error against the
+   plain PyTorch version and, in f32, against an f64 product, a planted
+   one-TF32 product and a planted stage that shifts one row by one element,
+   which must read above their limits, the stage and the split bit-equal
+   to their plain versions; the kernel's time beside its bound, the plain
+   version's and ``torch.matmul``'s in turns; at the unaligned shapes also
+   the device time alone and the host's enqueue time beside
+   ``torch.matmul``'s, and the stage, the splits and the product each
+   alone, back to back (so at yi-6b's for the split and the product);
 6. the flash-attention kernels against their plain version at yi-6b's
    prefill shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in
    bf16 and f32, the same with gemma3's 1024-token window, an unaligned
@@ -243,7 +246,6 @@ TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(
 # dropped key on the last; a row-relative limit holds every row alike
 ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
-KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/pipelined_matmul.cu"
 TMA_KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_matmul.cu"
 TF32X3_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_tf32x3.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
@@ -377,8 +379,12 @@ SSD_TOL = 1e-4
 # (M, K, N). yi-6b (src/repro/configs/yi_6b.py): d_model 4096, d_ff
 # 11008; a 2048-token prefill through the MLP's up and down projections.
 # (300, 264, 136): ragged M, N below one tile, K not a multiple of the
-# K-step, but TMA-aligned; (300, 257, 130): strides TMA cannot describe
-MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 264, 136), (300, 257, 130)]
+# K-step, but TMA-aligned; (300, 257, 130): strides TMA cannot describe;
+# granite-3-2b's LM head (src/repro/configs/granite_3_2b.py: d_model 2048,
+# vocab 49155) over one 2048-token sequence: an odd N, B restaged
+MATMUL_SHAPES = [(2048, 4096, 11008), (2048, 11008, 4096), (300, 264, 136), (300, 257, 130),
+                 (2048, 2048, 49155)]
+LM_HEAD = (2048, 2048, 49155)
 MATMUL_DEPTHS = (1, 2, 4)  # 4: the bf16 TMA route's default, ops.HOPPER_STAGES
 TF32X3_DEPTHS = (1, 2, 3)  # 3: the 3xTF32 route's default and deepest
 # the training phase: granite-3-2b (src/repro/configs/granite_3_2b.py: 40
@@ -1734,12 +1740,19 @@ def _time_turns_ms(torch, fns, reps):
 
 
 def expected_route(dt, K, N):
-    """The route rule, written out independently of ``ops.route``: the
-    operands here are fresh allocations, so 16-byte aligned."""
+    """The route rule, written out independently of ``ops.route``: every
+    bf16 call on the TMA / wgmma product, every f32 call on the 3xTF32
+    one, whatever K and N are."""
 
-    if dt == "f32":
-        return "tma_wgmma_tf32x3" if K % 4 == 0 and N % 4 == 0 else "ffma"
-    return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
+    return "tma_wgmma_tf32x3" if dt == "f32" else "tma_wgmma"
+
+
+def expected_stage(dt, K, N):
+    """bf16 stage launches of a call, written out independently of
+    ``ops.staging``: one where K or N is not a multiple of 8 (the operands
+    here are fresh allocations, so 16-byte aligned)."""
+
+    return int(dt == "bf16" and (K % 8 != 0 or N % 8 != 0))
 
 
 def limit_ratio(out, ref, K, tol=TOL["f32"]):
@@ -1830,10 +1843,100 @@ def default_depth(route):
     return ops._schedule(route, None).depth
 
 
+def _identity_probes(torch, ops, operands):
+    """I @ B == B and A @ I == A exactly, on both routes: at yi-6b's widths
+    (aligned) and at the LM head, where B is restaged (bf16) and N is odd;
+    there A @ I takes the (K, N) identity, ones on the diagonal, so the
+    product is A beside zero columns.  A descriptor, swizzle, stage, split,
+    promotion or epilogue mistake shows position by position; the f32
+    operands have 21 significant bits, so hi + lo is exact."""
+
+    for dt, tdt, route, cast in (("bf16", torch.bfloat16, "tma_wgmma", lambda x: x),
+                                 ("f32", torch.float32, "tma_wgmma_tf32x3", bits21)):
+        for M, K, N in ((2048, 4096, 11008), LM_HEAD):
+            a, b = (cast(t) for t in operands[(M, K, N, dt)])
+            eye = torch.eye(K, device="cuda", dtype=tdt)
+            wide = torch.eye(K, N, device="cuda", dtype=tdt)
+            check(ops.route(tdt, K, N, eye.data_ptr(), b.data_ptr()) == route, f"{dt} probe off {route}")
+            before = dict(ops.matmul.routes)
+            check(torch.equal(ops.matmul(eye, b), b), f"matmul: I @ B differs from B on {route} at {N}")
+            got = ops.matmul(a, wide)
+            check(torch.equal(got[:, :K], a) and not bool(got[:, K:].any()),
+                  f"matmul: A @ I differs from A on {route} at {N}")
+            check(ops.matmul.routes[route] == before[route] + 2, f"{dt} probes at {N}: not on {route}")
+            del eye, wide, got
+            emit(f"matmul identity probes ({dt}, {route} route, K {K}, N {N}): "
+                 "I @ B == B and A @ I == A exactly")
+        del a, b
+
+
+def _planted_stage(torch, ops, a, b):
+    """The bf16 route with its stage at fault: one row of the restaged B
+    shifted left by one element.  Its error as a share of the bf16 limit
+    against the plain version, which must read above 1."""
+
+    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
+
+    M, K = a.shape
+    N = b.shape[1]
+    st = ops.staging(a.dtype, M, K, N, a.data_ptr(), b.data_ptr())
+    check(st.b, "planted stage: B is not restaged")
+    sa, sb = ops.stage_bf16(a, b, st)
+    row = K // 2
+    sb[row, :N - 1] = sb[row, 1:N].clone()
+    out = torch.empty(M, N, dtype=a.dtype, device="cuda")
+    ops._launch_tma(sa, sb, out, ops.hopper_schedule(ops.HOPPER_STAGES))
+    ratio = limit_ratio(out, matmul_ref(a, b), K, TOL["bf16"])
+    check(ratio > 1, f"planted stage (row {row} of B shifted by one): {ratio} of the limit: "
+          "the check cannot see it")
+    return ratio
+
+
+def _parts_ms(torch, ops, a, b, depth, reps):
+    """The route's launches each alone, back to back on its own operands:
+    the bf16 stage (where the call restages) and product, or the two
+    splits and the product."""
+
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty(M, N, dtype=a.dtype, device="cuda")
+    st = ops.staging(a.dtype, M, K, N, a.data_ptr(), b.data_ptr())
+    if a.dtype == torch.bfloat16:
+        staged = ops.stage_bf16(a, b, st)
+        sched = ops.hopper_schedule(depth)
+        parts = {"product_ms": _time_back_to_back_ms(
+            torch, lambda: ops._launch_tma(*staged, out, sched), reps)}
+        if st.launches:
+            parts["stage_ms"] = _time_back_to_back_ms(torch, lambda: ops.stage_bf16(a, b, st), reps)
+        return parts
+    halves = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
+    sched = ops.tf32x3_schedule(depth)
+    return {
+        "product_ms": _time_back_to_back_ms(
+            torch, lambda: ops._launch_tf32x3(*halves, out, sched, K), reps),
+        "split_a_ms": _time_back_to_back_ms(torch, lambda: ops.split_tf32(a), reps),
+        "split_bt_ms": _time_back_to_back_ms(
+            torch, lambda: ops.split_tf32(b, transpose=True), reps),
+    }
+
+
+def _staging_bytes(dt, M, K, N):
+    """Bytes the route's staging must move (each restaged element read once,
+    each padded element written once): the bf16 stage's, or the splits'
+    (4 read, 2 x 4 written at the padded width)."""
+
+    if dt == "bf16":
+        st_a, st_b = K % 8 != 0, N % 8 != 0
+        kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
+        return 2 * (st_a * M * (K + kp) + st_b * K * (N + np_))
+    kp = -(-K // 4) * 4
+    return 4 * (M * K + K * N) + 8 * (M + N) * kp
+
+
 def matmul_phase(torch):
     from repro_torch.kernels import _build
     from repro_torch.kernels.pipelined_matmul import ops
-    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
+    from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref, stage_ref
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1849,6 +1952,7 @@ def matmul_phase(torch):
     ops.matmul.launches = 0
     ops.matmul.routes = dict.fromkeys(ops.matmul.routes, 0)
     ops.split_tf32.launches = 0
+    ops.stage_bf16.launches = 0
     launches, routes, errors, outs = {}, {}, {}, {}
     for cfg in configs:
         M, K, N, dt, depth = cfg
@@ -1868,9 +1972,11 @@ def matmul_phase(torch):
         check(bool(torch.isfinite(out.float()).all()), f"matmul {cfg}: non-finite output")
         if dt == "f32" and depth == default_depth(routes[cfg]):
             outs[(M, K, N)] = out  # for the f64 check
+        del out, ref
     total = ops.matmul.launches
     by_route = dict(ops.matmul.routes)
     splits = ops.split_tf32.launches
+    stages = ops.stage_bf16.launches
     check(total == len(configs), f"matmul: {total} launches in the main run, expected {len(configs)}")
     check(all(n == 1 for n in launches.values()), "matmul: a configuration did not launch the kernel")
     for cfg in configs:
@@ -1881,12 +1987,14 @@ def matmul_phase(torch):
         splits == 2 * by_route["tma_wgmma_tf32x3"],
         f"matmul: {splits} split launches for {by_route['tma_wgmma_tf32x3']} 3xTF32 products",
     )
-    emit("matmul routes in the main run: " + json.dumps(by_route) + f", split_tf32 launches {splits}")
+    want_stages = sum(expected_stage(dt, K, N) for (M, K, N, dt, depth) in configs)
+    check(stages == want_stages, f"matmul: {stages} stage launches, expected {want_stages}")
+    emit("matmul routes in the main run: " + json.dumps(by_route)
+         + f", split_tf32 launches {splits}, stage_bf16 launches {stages}")
 
-    # f32 against an f64 product: each route at its default depth; at the
-    # 3xTF32 route's shapes also the FFMA kernel, torch.matmul (TF32 off)
-    # and a planted product of one TF32 term (hi @ hi, exact products summed
-    # in f32), which must read above the limit
+    # f32 against an f64 product: each shape at the default depth, beside
+    # torch.matmul (TF32 off) and a planted product of one TF32 term (hi @
+    # hi, exact products summed in f32), which must read above the limit
     f64 = {}
     for (M, K, N), out in outs.items():
         a, b = operands[(M, K, N, "f32")]
@@ -1896,48 +2004,35 @@ def matmul_phase(torch):
                "kernel_max_abs_err": (out.double() - ref64).abs().max().item(),
                "kernel_vs_plain": limit_ratio(out, matmul_ref(a, b), K)}
         check(row["kernel"] <= 1, f"matmul f32 {(M, K, N)}: {row['kernel']} of the limit against f64")
-        if row["route"] == "tma_wgmma_tf32x3":
-            ffma = ops._ffma_matmul(a, b)
-            lib = torch.matmul(a, b)
-            a_hi, _ = split_tf32_ref(a)
-            b_hi, _ = split_tf32_ref(b)
-            one = torch.matmul(a_hi, b_hi)
-            row.update(
-                ffma=limit_ratio(ffma, ref64, K),
-                ffma_max_abs_err=(ffma.double() - ref64).abs().max().item(),
-                library=limit_ratio(lib, ref64, K),
-                library_max_abs_err=(lib.double() - ref64).abs().max().item(),
-                planted_one_tf32=limit_ratio(one, ref64, K),
-            )
-            check(
-                row["planted_one_tf32"] > 1,
-                f"matmul f32 {(M, K, N)}: the planted one-TF32 product reads "
-                f"{row['planted_one_tf32']} of the limit: the check cannot see it",
-            )
-            del ffma, lib, a_hi, b_hi, one
+        lib = torch.matmul(a, b)
+        a_hi, _ = split_tf32_ref(a)
+        b_hi, _ = split_tf32_ref(b)
+        one = torch.matmul(a_hi, b_hi)
+        row.update(
+            library=limit_ratio(lib, ref64, K),
+            library_max_abs_err=(lib.double() - ref64).abs().max().item(),
+            planted_one_tf32=limit_ratio(one, ref64, K),
+        )
+        check(
+            row["planted_one_tf32"] > 1,
+            f"matmul f32 {(M, K, N)}: the planted one-TF32 product reads "
+            f"{row['planted_one_tf32']} of the limit: the check cannot see it",
+        )
+        del lib, a_hi, b_hi, one, ref64
         f64[(M, K, N)] = row
         emit(f"matmul f32 {M}x{K}x{N} error as a share of the limit 2e-5 sqrt(K) + "
              f"2e-5 |ref| against an f64 product: " + json.dumps(row))
-        del ref64
     del outs
     torch.cuda.empty_cache()
 
-    # the identity probes on both TMA routes at yi-6b's widths: a
-    # descriptor, swizzle, split, promotion or epilogue mistake shows
-    # position by position; the f32 operands have 21 significant bits, so
-    # hi + lo is exact
-    for dt, tdt, route, cast in (("bf16", torch.bfloat16, "tma_wgmma", lambda x: x),
-                                 ("f32", torch.float32, "tma_wgmma_tf32x3", bits21)):
-        eye = torch.eye(4096, device="cuda", dtype=tdt)
-        a, b = (cast(t) for t in operands[(2048, 4096, 11008, dt)])
-        check(ops.route(tdt, 4096, 11008, eye.data_ptr(), b.data_ptr()) == route, f"{dt} probe off {route}")
-        check(torch.equal(ops.matmul(eye, b), b), f"matmul: I @ B differs from B on the {route} route")
-        check(torch.equal(ops.matmul(a, eye), a), f"matmul: A @ I differs from A on the {route} route")
-        del eye, a, b
-        emit(f"matmul identity probes ({dt}, {route} route): I @ B == B and A @ I == A exactly")
+    _identity_probes(torch, ops, operands)
+    planted = _planted_stage(torch, ops, *operands[(*LM_HEAD, "bf16")])
+    emit(f"matmul planted stage (one row of B shifted by one element): {planted} of the bf16 limit")
+    torch.cuda.empty_cache()
 
     ptxas = ptxas_lines(_build.BUILD_LOG.get(Path(TF32X3_SOURCE).name, ""),
-                        r"matmul_tf32x3_kernelILi(\d+)E", "D{}")
+                        r"matmul_tf32x3_kernelILi(\d+)ELb(\d)E", "D{} pairs{}")
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     entries = []
     for cfg in configs:
         M, K, N, dt, depth = cfg
@@ -1946,41 +2041,27 @@ def matmul_phase(torch):
         reps = 21 if flops > 1e10 else 101
         kernel = lambda: ops.matmul(a, b, depth=depth)  # noqa: E731
         library = lambda: torch.matmul(a, b)  # noqa: E731
+        unaligned = K % 8 != 0 or N % 8 != 0  # operands TMA cannot describe as they lie
         extra = {}
-        if routes[cfg] == "tma_wgmma" and flops > 1e10:
-            # the TMA kernel, the cp.async / mma.sync kernel it replaces on
-            # these operands (at its default depth) and torch.matmul, in turns
-            ms, cp_async_ms, library_ms = _time_turns_ms(
-                torch, [kernel, lambda: ops._cp_async_matmul(a, b), library], reps
-            )
-            extra = {"cp_async_mma_ms": cp_async_ms,
-                     "timed_in_turns": ["ms", "cp_async_mma_ms", "library_ms"]}
-        elif routes[cfg] == "tma_wgmma_tf32x3" and flops > 1e10:
-            # the route (split and product), pipelined_matmul.cu's FFMA
-            # kernel (at its default depth) and torch.matmul, in turns; then
-            # the product alone on split operands, and each split, back to
-            # back
-            ms, ffma_ms, library_ms = _time_turns_ms(
-                torch, [kernel, lambda: ops._ffma_matmul(a, b), library], reps
-            )
-            parts = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
-            out = torch.empty(M, N, device="cuda")
-            sched = ops.tf32x3_schedule(depth)
-            extra = {
-                "ffma_ms": ffma_ms,
-                "timed_in_turns": ["ms", "ffma_ms", "library_ms"],
-                "product_ms": _time_back_to_back_ms(
-                    torch, lambda: ops._launch_tf32x3(*parts, out, sched), reps),
-                "split_a_ms": _time_back_to_back_ms(torch, lambda: ops.split_tf32(a), reps),
-                "split_bt_ms": _time_back_to_back_ms(
-                    torch, lambda: ops.split_tf32(b, transpose=True), reps),
-                "timed_back_to_back": ["product_ms", "split_a_ms", "split_bt_ms"],
-            }
-            extra["product_tflops_3x"] = 3 * flops / extra["product_ms"] / 1e9
-            del parts, out
+        if flops > 1e10 or unaligned:
+            # the route and torch.matmul, single launches in turns
+            ms, library_ms = _time_turns_ms(torch, [kernel, library], reps)
+            extra["timed_in_turns"] = ["ms", "library_ms"]
+            if unaligned or routes[cfg] == "tma_wgmma_tf32x3":
+                extra.update(_parts_ms(torch, ops, a, b, depth, reps))
+                extra["timed_back_to_back"] = sorted(k for k in extra if k.endswith("_ms"))
         else:
             ms = _time_ms(torch, kernel, reps)
             library_ms = _time_ms(torch, library, reps)
+        if unaligned and depth == default_depth(routes[cfg]):
+            # the device time alone (L2 flushed) and the host's enqueue time
+            # of a call, beside torch.matmul's, in the same rounds
+            held = _held_times(torch, {"route": kernel, "library": library},
+                               11 if flops > 1e10 else 50, flush)
+            extra.update({"device_ms": held["route"]["device_ms"], "host_ms": held["route"]["host_ms"],
+                          "library_device_ms": held["library"]["device_ms"],
+                          "library_host_ms": held["library"]["host_ms"],
+                          "timed_held_cold_l2": ["device_ms", "library_device_ms"]})
         plain_ms = _time_ms(torch, lambda: matmul_ref(a, b), reps)
         nbytes = (M * K + K * N + M * N) * a.element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1988,17 +2069,18 @@ def matmul_phase(torch):
             # three TF32 products on the tensor cores; the split excluded
             t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
             extra["bound_rate"] = "3xTF32: 3 x 2MNK at 495 TFLOP/s"
-            extra["ptxas"] = ptxas.get(f"D{depth}")
+            extra["ptxas"] = ptxas.get(f"D{depth} pairs{int(N % 2 == 0)}")
         else:
             t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        if "product_ms" in extra:
+            extra["staging_bound_ms"] = _staging_bytes(dt, M, K, N) / HBM_BYTES_PER_S * 1e3
         if dt == "f32" and depth == default_depth(routes[cfg]):
             extra["f64_limit_share"] = f64[(M, K, N)]
         entry = {
             "name": f"pipelined_matmul[{dt},D={depth},{M}x{K}x{N}]",
             "route": "cuda",
             "kernel_route": routes[cfg],
-            "source": {"tma_wgmma": TMA_KERNEL_SOURCE,
-                       "tma_wgmma_tf32x3": TF32X3_SOURCE}.get(routes[cfg], KERNEL_SOURCE),
+            "source": {"tma_wgmma": TMA_KERNEL_SOURCE, "tma_wgmma_tf32x3": TF32X3_SOURCE}[routes[cfg]],
             "replaces": TPU_KERNEL,
             "launches": launches[cfg],
             "max_abs_err": errors[cfg],
@@ -2016,16 +2098,64 @@ def matmul_phase(torch):
         entries.append(entry)
         emit("matmul: " + json.dumps(entry))
 
-    # the split pre-pass at yi-6b's up projection (A, and B transposed):
-    # bit-equal to its plain version, its time against its byte bound
+    # the stage at the LM head (B, 2048 x 49155 into 2048 x 49160) and at
+    # (300, 257, 130) (both operands): bit-equal to its plain version; its
+    # time at the LM head against its byte bound and one torch copy_ into
+    # the padded buffer
+    for M, K, N in ((300, 257, 130), LM_HEAD):
+        a, b = operands[(M, K, N, "bf16")]
+        st = ops.staging(a.dtype, M, K, N, a.data_ptr(), b.data_ptr())
+        got = ops.stage_bf16(a, b, st)
+        torch.cuda.synchronize()
+        for g, x, restaged, ld in zip(got, (a, b), (st.a, st.b), (st.lda, st.ldb)):
+            if restaged:
+                check(torch.equal(g.view(torch.int16), stage_ref(x, ld).view(torch.int16)),
+                      f"stage_bf16 {M}x{K}x{N}: not bit-equal to its plain version")
+        del got
+    a, b = operands[(*LM_HEAD, "bf16")]
+    st = ops.staging(b.dtype, *LM_HEAD, a.data_ptr(), b.data_ptr())
+    check(not st.a and st.b and st.launches == 1, f"stage at the LM head: {st}")
+    buf = torch.empty(b.shape[0], st.ldb, dtype=b.dtype, device="cuda")
+    stage_ms, stage_plain_ms, stage_library_ms = _time_turns_ms(
+        torch, [lambda: ops.stage_bf16(a, b, st), lambda: stage_ref(b, st.ldb),
+                lambda: buf[:, :b.shape[1]].copy_(b)], 21)
+    entry = {
+        "name": "stage_bf16[granite-3-2b LM head: B 2048x49155 into 2048x49160]",
+        "route": "cuda",
+        "kernel_route": "tma_wgmma (stage)",
+        "source": TMA_KERNEL_SOURCE,
+        "replaces": TPU_KERNEL,
+        "launches": stages,
+        "max_abs_err": 0.0,
+        "bit_equal": True,
+        "ms": stage_ms,
+        "plain_ms": stage_plain_ms,
+        "bound_ms": _staging_bytes("bf16", 1, 2048, 49155) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": stage_library_ms,
+        "library": "Tensor.copy_ into the padded buffer's live columns",
+        "reps": 21,
+        "timed_in_turns": ["ms", "plain_ms", "library_ms"],
+    }
+    del buf
+    entries.append(entry)
+    emit("matmul stage: " + json.dumps(entry))
+
+    # the split pre-pass: bit-equal to its plain version at the padded
+    # layout at yi-6b's up projection, (300, 257, 130) and the LM head (A,
+    # and B transposed); its time at yi-6b's up projection against its byte
+    # bound
+    for M, K, N in ((2048, 4096, 11008), (300, 257, 130), LM_HEAD):
+        a, b = operands[(M, K, N, "f32")]
+        got = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
+        ld = -(-K // 4) * 4
+        want = (*split_tf32_ref(a, ld=ld), *split_tf32_ref(b, transpose=True, ld=ld))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"split_tf32 {M}x{K}x{N}: not bit-equal to its plain version")
+        del got, want
     a, b = operands[(2048, 4096, 11008, "f32")]
-    got = (*ops.split_tf32(a), *ops.split_tf32(b, transpose=True))
-    want = (*split_tf32_ref(a), *split_tf32_ref(b, transpose=True))
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        check(torch.equal(g.view(torch.int32), w.view(torch.int32)), "split_tf32: not bit-equal to its plain version")
-    split_err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    del got, want
     split_ms = _time_back_to_back_ms(
         torch, lambda: (ops.split_tf32(a), ops.split_tf32(b, transpose=True)), 21)
     split_plain_ms = _time_back_to_back_ms(
@@ -2038,7 +2168,7 @@ def matmul_phase(torch):
         "source": TF32X3_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": splits,
-        "max_abs_err": split_err,
+        "max_abs_err": 0.0,
         "bit_equal": True,
         "ms": split_ms,
         "plain_ms": split_plain_ms,
@@ -2052,7 +2182,7 @@ def matmul_phase(torch):
     emit("matmul split: " + json.dumps(entry))
     emit("tf32 accumulator rounding (a reading, not a check): "
          + json.dumps(tf32_accumulator_rounding(torch, ops)))
-    del operands, a, b
+    del operands, a, b, flush
     torch.cuda.empty_cache()
     return entries
 
@@ -5327,7 +5457,8 @@ def flash_entries(rows, serve_launches, phase_launches):
 def report_build(build_log):
     """Each kernel's ptxas lines (registers, spills, warnings) from the
     build's log per source; fails on a spill in the flash_decode and TMA
-    sources, and on an ignored setmaxnreg in the TMA ones."""
+    sources (the matmul's stage kernel among them), and on an ignored
+    setmaxnreg in the TMA ones."""
 
     for name, log in build_log.items():
         kernel = "?"
@@ -5344,6 +5475,8 @@ def report_build(build_log):
                     for line in log.splitlines() if "spill" in line),
                 f"{name}: ptxas reports spills",
             )
+        if name == Path(TMA_KERNEL_SOURCE).name:
+            check("stage_bf16_kernel" in log, f"{name}: ptxas compiled no stage kernel")
         if name in (Path(TMA_KERNEL_SOURCE).name, Path(TMA_FLASH_SOURCE).name,
                     Path(TF32X3_SOURCE).name, Path(TF32X3_FLASH_SOURCE).name):
             # setmaxnreg must be honoured and the accumulators a consumer

@@ -3,8 +3,9 @@
 // copies, thread-block clusters (barriers, distributed shared memory), wgmma
 // shared-memory descriptors, warpgroup synchronization and the operand
 // lists of the wgmma shapes flash attention and the 3xTF32 matmul use, the
-// TF32 rounding, register rebalancing, and the host-side encoding of 2-D
-// (bf16, f32) and 4-D TMA tensor maps.
+// TF32 rounding, 16-byte reads of rows at any 2-byte aligned address,
+// register rebalancing, and the host-side encoding of 2-D (bf16, f32) and
+// 4-D TMA tensor maps.
 //
 // Included as "hopper.cuh" (kernels/_build.py passes this directory with
 // -I and folds every included header into the library's digest).
@@ -467,6 +468,41 @@ __device__ __forceinline__ float rna_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// ------------------------------------------- unaligned 16-byte row reads
+
+// The 16 bytes at p, for any 2-byte aligned p, as one uint4: one or two
+// 16-byte aligned loads funnel-shifted into place.  Bytes from `live` on
+// (live in 1..16) are zero; the second load is made only when a live byte
+// lies in it, so no 16-byte segment without a live byte is read.  In a
+// row walk that hands neighbouring threads neighbouring windows, a
+// thread's second segment is its neighbour's first, so each segment comes
+// from device memory once and the second reads hit the caches.
+__device__ __forceinline__ uint4 ld_window16(const void* p, int live) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const uint4* seg = reinterpret_cast<const uint4*>(at & ~uintptr_t(15));
+  const int s = static_cast<int>(at & 15);
+  const uint4 a = __ldg(seg);
+  uint4 b = make_uint4(0u, 0u, 0u, 0u);
+  if (s + live > 16) b = __ldg(seg + 1);
+  uint32_t w[5];  // the words holding bytes s .. s + 19
+  switch (s >> 2) {
+    case 0: w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w; w[4] = b.x; break;
+    case 1: w[0] = a.y; w[1] = a.z; w[2] = a.w; w[3] = b.x; w[4] = b.y; break;
+    case 2: w[0] = a.z; w[1] = a.w; w[2] = b.x; w[3] = b.y; w[4] = b.z; break;
+    default: w[0] = a.w; w[1] = b.x; w[2] = b.y; w[3] = b.z; w[4] = b.w; break;
+  }
+  const uint32_t shift = (s & 3) * 8;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    o[j] = __funnelshift_r(w[j], w[j + 1], shift);
+    const int left = live - 4 * j;  // live bytes of word j
+    if (left <= 0) o[j] = 0u;
+    else if (left < 4) o[j] &= (1u << (8 * left)) - 1u;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // ------------------------------------------------- register rebalancing

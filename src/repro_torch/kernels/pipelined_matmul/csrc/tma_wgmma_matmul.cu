@@ -1,20 +1,41 @@
 // bf16 matmul for Hopper (sm_90a) through TMA and wgmma: C[M,N] = A[M,K] @
 // B[K,N], row-major bf16 operands, f32 accumulation, bf16 result.
 //
-// Replaces, for bf16 operands that TMA can describe, the TPU kernel
+// Replaces, for every bf16 operand pair, the TPU kernel
 // src/repro/kernels/pipelined_matmul/kernel.py (_matmul_kernel, launched by
 // pipelined_matmul through pl.pallas_call): a (M/BM, N/BN, K/BK) grid with
 // K innermost and an f32 accumulator in VMEM scratch.  Here the K grid
 // dimension is a loop inside the block, and each block owns one output tile
-// for the whole loop.  Other bf16 operands and all f32 operands take
-// pipelined_matmul.cu (ops.route() decides; it is a rule, not a fallback).
+// for the whole loop.  f32 operands take tma_wgmma_tf32x3.cu (ops.route()
+// decides by the dtype; it is a rule, not a fallback).
 //
-// What bounds it on an H100: at the shapes the port drives it with (a
-// 2048-token prefill through yi-6b's MLP, 2048 x 4096 x 11008 and back) the
-// work is 2MNK = 185 GFLOP against ~150 MB of operands, far above the card's
-// ~295 FLOP/byte ridge, so it is bound by operations: 0.187 ms at the 989
-// TFLOP/s of bf16 wgmma.  pipelined_matmul.cu's mma.sync kernel reached a
-// fifth of that.  What this design does about it:
+// Two kernels, one source:
+//
+//   stage_bf16   the stage.  TMA needs a 16-byte aligned base and a row
+//                stride that is a multiple of 16 bytes.  The reference
+//                zero-pads its operands to block multiples (jnp.pad) before
+//                pl.pallas_call; here an operand whose base or row (K or N
+//                not a multiple of 8) TMA cannot describe is copied, once,
+//                into a buffer whose rows are rounded up to 8 elements, and
+//                the product's tensor map keeps the true extent with the
+//                padded stride, so TMA zero-fills past it and the padding
+//                is never read.  One launch restages A, B or both
+//                (blockIdx.z picks the operand).  A thread writes one
+//                16-byte chunk of a row, neighbouring threads neighbouring
+//                chunks, and reads it with one or two 16-byte aligned loads
+//                funnel-shifted into place (hopper::ld_window16), whatever
+//                the row's alignment.  It is bound by bytes: each restaged
+//                byte read once and written once, 2 x 201 MB = 0.120 ms at
+//                3.35 TB/s for granite-3-2b's LM head (B 2048 x 49155).
+//
+//   matmul_bf16_tma  the product, described below.
+//
+// What bounds the product on an H100: at the shapes the port drives it with
+// (a 2048-token prefill through yi-6b's MLP, 2048 x 4096 x 11008 and back)
+// the work is 2MNK = 185 GFLOP against ~150 MB of operands, far above the
+// card's ~295 FLOP/byte ridge, so it is bound by operations: 0.187 ms at
+// the 989 TFLOP/s of bf16 wgmma.  A cp.async / mma.sync kernel (the first
+// port) reached a fifth of that.  What this design does about it:
 //
 //   * wgmma m64n256k16 reads both operands straight from shared memory:
 //     Hopper's only path to the full tensor-core rate, with no ldmatrix and
@@ -66,10 +87,13 @@
 // wgmma takes the transpose bit, with LBO 8192 (the next 64-column box) and
 // SBO 1024 (the next 8 K-rows); a k16 slice starts 2048 bytes further.
 //
-// Operands: 16-byte aligned bases and K, N multiples of 8 (TMA's 16-byte
-// row strides).  Ragged M, N and K are zero-filled by TMA and masked in the
-// epilogue, which converts to bf16 in registers and stores to global memory.
-// Blocks walk M fastest, so a wave shares B's column slabs and keeps A in L2.
+// Operands: 16-byte aligned bases and leading dimensions lda, ldb that are
+// multiples of 8 (TMA's 16-byte row strides); K and N are any.  Ragged M,
+// N and K are zero-filled by TMA and masked in the epilogue, which converts
+// to bf16 in registers and stores to global memory: bf16 pairs where N is
+// even, single values where it is odd (a pair at row * N + col would be
+// misaligned on every other row), one instantiation each.  Blocks walk M
+// fastest, so a wave shares B's column slabs and keeps A in L2.
 //
 // Plain C interface, loaded with ctypes; the tensor maps are encoded on the
 // host per call (cuTensorMapEncodeTiled, fetched from the CUDA driver at
@@ -97,9 +121,47 @@ constexpr int SMEM_BYTES_EXTRA = 1024 + 2 * MAX_STAGES * 8;  // align, bars
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
+constexpr int STAGE_WARPS = 8;                  // rows a stage block takes
+
 static_assert(STAGE_BYTES % 1024 == 0, "stages must stay 1024-byte aligned");
 static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
               "the register split must fit the SM's file");
+
+// --------------------------------------------------------------------- //
+// The stage
+// --------------------------------------------------------------------- //
+
+// One operand to restage: the row-major rows x cols bf16 matrix at src (any
+// 2-byte aligned base) into the row-major rows x (8 * chunks) one at dst
+// (16-byte aligned), chunks = ceil(cols / 8).
+struct StageJob {
+  const __nv_bfloat16* src;
+  uint4* dst;
+  int rows, cols, chunks;
+};
+
+struct StageJobs {
+  StageJob job[2];
+};
+
+// Block (32, STAGE_WARPS): a warp takes 32 neighbouring chunks of a row,
+// the block STAGE_WARPS rows of them, striding over the rows by the grid.
+// The chunk holding a row's last columns has zeros past them.
+__global__ void __launch_bounds__(32 * STAGE_WARPS)
+    stage_bf16_kernel(const __grid_constant__ StageJobs jobs) {
+  const StageJob& j = jobs.job[blockIdx.z];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  if (c >= j.chunks) return;
+  const int live = min(8, j.cols - 8 * c);  // bf16 values of the chunk
+  for (int r = blockIdx.y * STAGE_WARPS + threadIdx.y; r < j.rows;
+       r += gridDim.y * STAGE_WARPS)
+    j.dst[static_cast<size_t>(r) * j.chunks + c] = hopper::ld_window16(
+        j.src + static_cast<size_t>(r) * j.cols + 8 * c, 2 * live);
+}
+
+// --------------------------------------------------------------------- //
+// The product
+// --------------------------------------------------------------------- //
 
 // D[64 x 256] += A[64 x 16] * B[16 x 256]: A K-major, B MN-major
 // (imm-trans-b = 1), both 128-byte swizzled in shared memory.  scale-d is
@@ -142,7 +204,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-template <int STAGES>
+template <int STAGES, bool PAIRS>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_bf16_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                            const __grid_constant__ CUtensorMap map_b,
@@ -231,8 +293,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // Accumulator layout of m64nNk16: warp w of the warpgroup holds rows
     // 16 w + lane / 4 (d[4j], d[4j+1]) and 8 further (d[4j+2], d[4j+3]),
-    // columns 8 j + 2 (lane % 4) and the next.  N % 8 == 0, so a column
-    // pair is in or out of the matrix as a whole.
+    // columns 8 j + 2 (lane % 4) and the next.  With PAIRS (N even) a column
+    // pair is in or out of the matrix as a whole and 4-byte aligned.
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int row0 = bm + c * 64 + warp * 16 + lane / 4;
     const int col0 = bn + 2 * (lane % 4);
@@ -243,56 +305,122 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(C + static_cast<size_t>(row) * N +
-                                             col) =
+        if (row >= M) continue;
+        __nv_bfloat16* at = C + static_cast<size_t>(row) * N + col;
+        if constexpr (PAIRS) {
+          *reinterpret_cast<__nv_bfloat162*>(at) =
               __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        } else {
+          at[0] = __float2bfloat16_rn(d[4 * j + 2 * h]);
+          if (col + 1 < N) at[1] = __float2bfloat16_rn(d[4 * j + 2 * h + 1]);
+        }
       }
     }
   }
 }
 
-template <int STAGES>
+template <int STAGES, bool PAIRS>
 int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, void* C, int M,
            int N, int K, cudaStream_t stream) {
   constexpr int smem = STAGES * STAGE_BYTES + SMEM_BYTES_EXTRA;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        matmul_bf16_tma_kernel<STAGES>,
+        matmul_bf16_tma_kernel<STAGES, PAIRS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  matmul_bf16_tma_kernel<STAGES><<<grid, THREADS, smem, stream>>>(
+  matmul_bf16_tma_kernel<STAGES, PAIRS><<<grid, THREADS, smem, stream>>>(
       map_a, map_b, static_cast<__nv_bfloat16*>(C), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool PAIRS>
+int launch_depth(int stages, const CUtensorMap& map_a,
+                 const CUtensorMap& map_b, void* C, int M, int N, int K,
+                 cudaStream_t stream) {
+  switch (stages) {
+    case 1: return launch<1, PAIRS>(map_a, map_b, C, M, N, K, stream);
+    case 2: return launch<2, PAIRS>(map_a, map_b, C, M, N, K, stream);
+    case 3: return launch<3, PAIRS>(map_a, map_b, C, M, N, K, stream);
+    default: return launch<4, PAIRS>(map_a, map_b, C, M, N, K, stream);
+  }
+}
+
+// Fills `job` for a rows x cols operand restaged at ld; false if the call
+// is not one the stage takes.
+bool stage_job(StageJob& job, const void* src, void* dst, int rows, int cols,
+               int ld) {
+  if (rows <= 0 || cols <= 0 || ld != (cols + 7) / 8 * 8 ||
+      reinterpret_cast<uintptr_t>(src) % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(dst) % 16 != 0)
+    return false;
+  job = {static_cast<const __nv_bfloat16*>(src), static_cast<uint4*>(dst),
+         rows, cols, ld / 8};
+  return true;
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch, or -1000 - r when the tensor maps
-// could not be encoded (r: the CUresult, -1 without cuTensorMapEncodeTiled).
-// `full` and `empty` are the plan's two waits; the kernel needs both.
+// Restages the bf16 operands whose source is not null: A (rows_a x cols_a,
+// row-major at any 2-byte aligned base) into a_dst (rows_a x lda, lda =
+// cols_a rounded up to 8, 16-byte aligned), and B likewise, in one launch.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a call
+// it does not take, or with neither operand).
+extern "C" int pm_stage_bf16(const void* A, void* a_dst, const void* B,
+                             void* b_dst, int rows_a, int cols_a, int lda,
+                             int rows_b, int cols_b, int ldb, void* stream) {
+  StageJobs jobs;
+  int n = 0, chunks = 0, rows = 0;
+  if (A != nullptr) {
+    if (!stage_job(jobs.job[n], A, a_dst, rows_a, cols_a, lda))
+      return static_cast<int>(cudaErrorInvalidValue);
+    chunks = jobs.job[n].chunks > chunks ? jobs.job[n].chunks : chunks;
+    rows = rows_a > rows ? rows_a : rows;
+    ++n;
+  }
+  if (B != nullptr) {
+    if (!stage_job(jobs.job[n], B, b_dst, rows_b, cols_b, ldb))
+      return static_cast<int>(cudaErrorInvalidValue);
+    chunks = jobs.job[n].chunks > chunks ? jobs.job[n].chunks : chunks;
+    rows = rows_b > rows ? rows_b : rows;
+    ++n;
+  }
+  if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 1) jobs.job[1] = jobs.job[0];
+  const int row_blocks = (rows + STAGE_WARPS - 1) / STAGE_WARPS;
+  const dim3 grid((chunks + 31) / 32, row_blocks < 65535 ? row_blocks : 65535,
+                  n);
+  stage_bf16_kernel<<<grid, dim3(32, STAGE_WARPS), 0,
+                      static_cast<cudaStream_t>(stream)>>>(jobs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C (M x N, row-major) = A @ B for A (M x K) and B (K x N) stored with
+// leading dimensions lda and ldb (multiples of 8, at least K and N) at
+// 16-byte aligned bases.  Returns the cudaError_t of the launch, or -1000 -
+// r when the tensor maps could not be encoded (r: the CUresult, -1 without
+// cuTensorMapEncodeTiled).  `full` and `empty` are the plan's two waits;
+// the kernel needs both.
 extern "C" int pm_matmul_bf16_tma(const void* A, const void* B, void* C,
-                                  int M, int N, int K, int stages, int full,
-                                  int empty, void* stream) {
+                                  int M, int N, int K, int lda, int ldb,
+                                  int stages, int full, int empty,
+                                  void* stream) {
+  const bool pairs = N % 2 == 0;
   if (!full || !empty || M <= 0 || N <= 0 || K <= 0 || stages < 1 ||
-      stages > MAX_STAGES || K % 8 != 0 || N % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+      stages > MAX_STAGES || lda < K || ldb < N || lda % 8 != 0 ||
+      ldb % 8 != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(C) % 4 != 0 || (N + BN - 1) / BN > 65535)
+      reinterpret_cast<uintptr_t>(C) % (pairs ? 4 : 2) != 0 ||
+      (N + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_b;
-  int rc = hopper::encode_bf16_2d(&map_a, A, M, K, K, BM, BK);
-  if (rc == 0) rc = hopper::encode_bf16_2d(&map_b, B, K, N, N, BK, B_BOX_N);
+  int rc = hopper::encode_bf16_2d(&map_a, A, M, K, lda, BM, BK);
+  if (rc == 0) rc = hopper::encode_bf16_2d(&map_b, B, K, N, ldb, BK, B_BOX_N);
   if (rc != 0) return -1000 - rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (stages) {
-    case 1: return launch<1>(map_a, map_b, C, M, N, K, st);
-    case 2: return launch<2>(map_a, map_b, C, M, N, K, st);
-    case 3: return launch<3>(map_a, map_b, C, M, N, K, st);
-    default: return launch<4>(map_a, map_b, C, M, N, K, st);
-  }
+  return pairs ? launch_depth<true>(stages, map_a, map_b, C, M, N, K, st)
+               : launch_depth<false>(stages, map_a, map_b, C, M, N, K, st);
 }

@@ -1,20 +1,19 @@
 // f32 matmul for Hopper (sm_90a) on the tensor cores, in 3xTF32: C[M,N] =
 // A[M,K] @ B[K,N], row-major f32 operands, f32 result.
 //
-// Replaces, for f32 operands that TMA can describe, the TPU kernel
+// Replaces, for every f32 operand pair, the TPU kernel
 // src/repro/kernels/pipelined_matmul/kernel.py (_matmul_kernel, launched by
 // pipelined_matmul through pl.pallas_call): a (M/BM, N/BN, K/BK) grid with
 // K innermost and an f32 accumulator in VMEM scratch.  Here the K grid
 // dimension is a loop inside the block, and each block owns one output tile
-// for the whole loop.  Other f32 operands take pipelined_matmul.cu's FFMA
-// kernel, bf16 takes tma_wgmma_matmul.cu or pipelined_matmul.cu (ops.route()
-// decides; it is a rule, not a fallback).
+// for the whole loop.  bf16 operands take tma_wgmma_matmul.cu (ops.route()
+// decides by the dtype; it is a rule, not a fallback).
 //
 // What bounds it on an H100: at the shapes the port drives it with (a
 // 2048-token prefill through yi-6b's MLP, 2048 x 4096 x 11008 and back) the
 // work is 2MNK = 185 GFLOP.  On the CUDA cores that is 2.76 ms at 67 TFLOP/s
-// of FFMA, which pipelined_matmul.cu reached to 52 % and cuBLAS's SGEMM to
-// 74 %: no FFMA kernel can beat SGEMM by much.  The tensor cores run TF32 at
+// of FFMA, which an FFMA kernel of the first port reached to 52 % and
+// cuBLAS's SGEMM to 74 %: no FFMA kernel can beat SGEMM by much.  The tensor cores run TF32 at
 // 495 TFLOP/s, but one TF32 product keeps 11 significant bits of each
 // operand and misses the f32 limit (2e-5 sqrt(K) + 2e-5 |C|) by some forty
 // times.  So each operand is split, x = hi + lo with hi = rna_tf32(x) and
@@ -33,8 +32,20 @@
 //                reads and writes stay coalesced.  wgmma takes .tf32
 //                operands only K-major from shared memory (the transpose
 //                bits exist for f16 / bf16 only), so B has to be transposed
-//                somewhere; the split has to happen somewhere too.  It is
-//                bound by bytes: 4 read and 8 written an element.
+//                somewhere; the split has to happen somewhere too.  Both
+//                are written at a leading dimension ld = K rounded up to 4,
+//                TMA's 16-byte row stride, whatever K, N and the source's
+//                base are: the reference zero-pads its operands before
+//                pl.pallas_call, and the split, which rewrites them anyway,
+//                pads them here at no launch more.  The product's tensor
+//                maps keep the true K with the stride ld, so TMA zero-fills
+//                past K and the padding is never read.  Rows are read
+//                whatever their alignment: the row split with one or two
+//                16-byte aligned loads a 16-byte chunk (hopper::
+//                ld_window16), the transposing split 16 bytes at a time
+//                where its rows allow it and one element at a time (masked)
+//                where they do not.  It is bound by bytes: 4 read and 8
+//                written an element.
 //
 //   matmul_tf32x3  the product, in tma_wgmma_matmul.cu's shape: one producer
 //                warpgroup whose elected thread issues cp.async.bulk.tensor
@@ -94,10 +105,12 @@
 // next 8 rows), a k8 slice 32 bytes along the row; consumer c's 64 rows of
 // A start 8 KB into the A box.
 //
-// Operands: K % 4 == 0 and N % 4 == 0 (16-byte row strides for the split's
-// 16-byte loads and for TMA), 16-byte aligned bases.  Ragged M and N are
+// Operands: any M, N and K; the split halves at 16-byte aligned bases with
+// the leading dimension ld (a multiple of 4).  Ragged M and N are
 // zero-filled by TMA and masked in the epilogue, which stores f32 pairs
-// from registers; ragged K is zero-filled by TMA.
+// from registers where N is even and single values where it is odd (a
+// pair at row * N + col would be misaligned on every other row), one
+// instantiation each; ragged K is zero-filled by TMA.
 //
 // Plain C interface, loaded with ctypes; the tensor maps are encoded on the
 // host per call (cuTensorMapEncodeTiled, fetched from the CUDA driver at
@@ -125,6 +138,7 @@ constexpr int SMEM_BYTES_EXTRA = 1024 + 2 * MAX_STAGES * 8;  // align, bars
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;  // rows a row-split block takes
 constexpr int TILE = 32;                     // the transposing split's tile
 
 static_assert(RUN_K % BK == 0, "a run is whole K-steps");
@@ -149,40 +163,69 @@ __device__ __forceinline__ void split4(const float4 v, float4& h, float4& l) {
   l.w = hopper::rna_tf32(v.w - h.w);
 }
 
-// hi, lo of the n4 float4 of x, in place of layout.
+// hi, lo of the row-major rows x cols x (any 4-byte aligned base), written
+// as row-major rows x (4 * chunks) arrays, chunks = ceil(cols / 4).  Block
+// (32, SPLIT_WARPS): a warp takes 32 neighbouring 16-byte chunks of a row,
+// the block SPLIT_WARPS rows of them, striding over the rows by the grid.
+// The chunk holding a row's last columns is zero past them (the split of
+// 0).
 __global__ void __launch_bounds__(SPLIT_THREADS)
-    split_rows_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
-                      float4* __restrict__ lo, size_t n4) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * SPLIT_THREADS + threadIdx.x;
-       i < n4; i += static_cast<size_t>(gridDim.x) * SPLIT_THREADS) {
+    split_rows_kernel(const float* __restrict__ x, float4* __restrict__ hi,
+                      float4* __restrict__ lo, int rows, int cols,
+                      int chunks) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  if (c >= chunks) return;
+  const int live = min(4, cols - 4 * c);  // floats of the chunk
+  for (int r = blockIdx.y * SPLIT_WARPS + threadIdx.y; r < rows;
+       r += gridDim.y * SPLIT_WARPS) {
+    const uint4 w =
+        hopper::ld_window16(x + static_cast<size_t>(r) * cols + 4 * c, 4 * live);
     float4 h, l;
-    split4(x[i], h, l);
-    hi[i] = h;
-    lo[i] = l;
+    split4(make_float4(__uint_as_float(w.x), __uint_as_float(w.y),
+                       __uint_as_float(w.z), __uint_as_float(w.w)),
+           h, l);
+    const size_t at = static_cast<size_t>(r) * chunks + c;
+    hi[at] = h;
+    lo[at] = l;
   }
 }
 
-// hi, lo of the row-major rows x cols x, written as the row-major cols x
-// rows arrays of its transpose.  A block moves a 32 x 32 tile through
-// shared memory (row stride 33: neither phase has a bank conflict); each
-// thread reads one float4 along a row of x and writes one along a row of
-// the transpose.  rows % 4 == 0 and cols % 4 == 0, so a float4 is in or
-// out of the matrix as a whole.
+// hi, lo of the row-major rows x cols x, written as the row-major cols x ld
+// arrays of its transpose (ld = rows rounded up to 4; the columns past rows
+// are zero).  A block moves a 32 x 32 tile through shared memory (row
+// stride 33: neither phase has a bank conflict); each thread reads four
+// neighbouring values along a row of x and writes one float4 along a row of
+// the transpose.  With VEC (cols % 4 == 0 and a 16-byte aligned base) the
+// four are one float4, in or out of the matrix as a whole; without it they
+// are four masked loads.
+template <bool VEC>
 __global__ void __launch_bounds__(SPLIT_THREADS)
     split_transpose_kernel(const float* __restrict__ x, float* __restrict__ hi,
-                           float* __restrict__ lo, int rows, int cols) {
+                           float* __restrict__ lo, int rows, int cols,
+                           int ld) {
   __shared__ float tile[TILE][TILE + 1];
   const int r0 = blockIdx.y * TILE, c0 = blockIdx.x * TILE;
   {
     const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 4;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < rows && c0 + c < cols)
-      v = *reinterpret_cast<const float4*>(
-          x + static_cast<size_t>(r0 + r) * cols + c0 + c);
-    tile[r][c] = v.x;
-    tile[r][c + 1] = v.y;
-    tile[r][c + 2] = v.z;
-    tile[r][c + 3] = v.w;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (r0 + r < rows) {
+      const float* src = x + static_cast<size_t>(r0 + r) * cols + c0 + c;
+      if constexpr (VEC) {
+        if (c0 + c < cols) {
+          const float4 f = *reinterpret_cast<const float4*>(src);
+          v[0] = f.x;
+          v[1] = f.y;
+          v[2] = f.z;
+          v[3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (c0 + c + i < cols) v[i] = src[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tile[r][c + i] = v[i];
   }
   __syncthreads();
   const int c = threadIdx.x / 8, r = (threadIdx.x % 8) * 4;
@@ -191,7 +234,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
         make_float4(tile[r][c], tile[r + 1][c], tile[r + 2][c], tile[r + 3][c]);
     float4 h, l;
     split4(v, h, l);
-    const size_t at = static_cast<size_t>(c0 + c) * rows + r0 + r;
+    const size_t at = static_cast<size_t>(c0 + c) * ld + r0 + r;
     *reinterpret_cast<float4*>(hi + at) = h;
     *reinterpret_cast<float4*>(lo + at) = l;
   }
@@ -201,7 +244,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 // The 3xTF32 product
 // --------------------------------------------------------------------- //
 
-template <int STAGES>
+template <int STAGES, bool PAIRS>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a_hi,
                          const __grid_constant__ CUtensorMap map_a_lo,
@@ -315,8 +358,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // Accumulator layout of m64nNk8: warp w of the warpgroup holds rows 16 w
     // + lane / 4 (sum[4j], sum[4j+1]) and 8 further (sum[4j+2], sum[4j+3]),
-    // columns 8 j + 2 (lane % 4) and the next.  N % 4 == 0, so a column
-    // pair is in or out of the matrix as a whole.
+    // columns 8 j + 2 (lane % 4) and the next.  With PAIRS (N even) a column
+    // pair is in or out of the matrix as a whole and 8-byte aligned.
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int row0 = bm + c * 64 + warp * 16 + lane / 4;
     const int col0 = bn + 2 * (lane % 4);
@@ -327,30 +370,46 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
-        if (row < M)
-          *reinterpret_cast<float2*>(C + static_cast<size_t>(row) * N + col) =
+        if (row >= M) continue;
+        float* at = C + static_cast<size_t>(row) * N + col;
+        if constexpr (PAIRS) {
+          *reinterpret_cast<float2*>(at) =
               make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+        } else {
+          at[0] = sum[4 * j + 2 * h];
+          if (col + 1 < N) at[1] = sum[4 * j + 2 * h + 1];
+        }
       }
     }
   }
 }
 
-template <int STAGES>
+template <int STAGES, bool PAIRS>
 int launch(const CUtensorMap (&maps)[4], void* C, int M, int N, int K,
            cudaStream_t stream) {
   constexpr int smem = STAGES * STAGE_BYTES + SMEM_BYTES_EXTRA;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        matmul_tf32x3_kernel<STAGES>,
+        matmul_tf32x3_kernel<STAGES, PAIRS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  matmul_tf32x3_kernel<STAGES><<<grid, THREADS, smem, stream>>>(
+  matmul_tf32x3_kernel<STAGES, PAIRS><<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<float*>(C), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAIRS>
+int launch_depth(int stages, const CUtensorMap (&maps)[4], void* C, int M,
+                 int N, int K, cudaStream_t stream) {
+  switch (stages) {
+    case 1: return launch<1, PAIRS>(maps, C, M, N, K, stream);
+    case 2: return launch<2, PAIRS>(maps, C, M, N, K, stream);
+    default: return launch<3, PAIRS>(maps, C, M, N, K, stream);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -359,59 +418,66 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// hi and lo of the row-major rows x cols f32 matrix X: row-major rows x
-// cols arrays, or with `transpose` row-major cols x rows ones.  Needs cols
-// % 4 == 0 (and rows % 4 == 0 with `transpose`) and 16-byte aligned bases.
-// Returns the cudaError_t of the launch.
+// hi and lo of the row-major rows x cols f32 matrix X (any 4-byte aligned
+// base): row-major rows x ld arrays, or with `transpose` row-major cols x
+// ld ones, ld the width (cols, or rows) rounded up to 4, at 16-byte aligned
+// bases; the columns past the width are zero.  Returns the cudaError_t of
+// the launch.
 extern "C" int pm_split_tf32(const void* X, void* hi, void* lo, int rows,
-                             int cols, int transpose, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % 4 != 0 ||
-      (transpose && rows % 4 != 0) || !aligned16(X) || !aligned16(hi) ||
+                             int cols, int ld, int transpose, void* stream) {
+  const int width = transpose ? rows : cols;
+  if (rows <= 0 || cols <= 0 || ld != (width + 3) / 4 * 4 ||
+      reinterpret_cast<uintptr_t>(X) % 4 != 0 || !aligned16(hi) ||
       !aligned16(lo) || (transpose && (rows + TILE - 1) / TILE > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(X);
   if (transpose) {
     const dim3 grid((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE);
-    split_transpose_kernel<<<grid, SPLIT_THREADS, 0, st>>>(
-        static_cast<const float*>(X), static_cast<float*>(hi),
-        static_cast<float*>(lo), rows, cols);
+    if (cols % 4 == 0 && aligned16(X))
+      split_transpose_kernel<true><<<grid, SPLIT_THREADS, 0, st>>>(
+          x, static_cast<float*>(hi), static_cast<float*>(lo), rows, cols, ld);
+    else
+      split_transpose_kernel<false><<<grid, SPLIT_THREADS, 0, st>>>(
+          x, static_cast<float*>(hi), static_cast<float*>(lo), rows, cols, ld);
   } else {
-    const size_t n4 = static_cast<size_t>(rows) * cols / 4;
-    const size_t blocks = (n4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
-    split_rows_kernel<<<static_cast<unsigned>(blocks < 65536 ? blocks : 65536),
-                        SPLIT_THREADS, 0, st>>>(
-        static_cast<const float4*>(X), static_cast<float4*>(hi),
-        static_cast<float4*>(lo), n4);
+    const int chunks = ld / 4;
+    const int row_blocks = (rows + SPLIT_WARPS - 1) / SPLIT_WARPS;
+    const dim3 grid((chunks + 31) / 32, row_blocks < 65535 ? row_blocks : 65535);
+    split_rows_kernel<<<grid, dim3(32, SPLIT_WARPS), 0, st>>>(
+        x, static_cast<float4*>(hi), static_cast<float4*>(lo), rows, cols,
+        chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // C = A @ B from the split operands: a_hi, a_lo (M, K) and bt_hi, bt_lo
-// (N, K), all row-major TF32 values in f32 words.  Returns the cudaError_t
-// of the launch, or -1000 - r when the tensor maps could not be encoded
-// (r: the CUresult, -1 without cuTensorMapEncodeTiled).  `full` and `empty`
+// (N, K), all row-major TF32 values in f32 words stored with the leading
+// dimension ld (a multiple of 4, at least K).  Returns the cudaError_t of
+// the launch, or -1000 - r when the tensor maps could not be encoded (r:
+// the CUresult, -1 without cuTensorMapEncodeTiled).  `full` and `empty`
 // are the plan's two waits; the kernel needs both.
 extern "C" int pm_matmul_f32_tf32x3(const void* a_hi, const void* a_lo,
                                     const void* bt_hi, const void* bt_lo,
-                                    void* C, int M, int N, int K, int stages,
-                                    int full, int empty, void* stream) {
+                                    void* C, int M, int N, int K, int ld,
+                                    int stages, int full, int empty,
+                                    void* stream) {
+  const bool pairs = N % 2 == 0;
   if (!full || !empty || M <= 0 || N <= 0 || K <= 0 || stages < 1 ||
-      stages > MAX_STAGES || K % 4 != 0 || N % 4 != 0 || !aligned16(a_hi) ||
+      stages > MAX_STAGES || ld < K || ld % 4 != 0 || !aligned16(a_hi) ||
       !aligned16(a_lo) || !aligned16(bt_hi) || !aligned16(bt_lo) ||
-      reinterpret_cast<uintptr_t>(C) % 8 != 0 || (N + BN - 1) / BN > 65535)
+      reinterpret_cast<uintptr_t>(C) % (pairs ? 8 : 4) != 0 ||
+      (N + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[4];
   const void* bases[4] = {a_hi, a_lo, bt_hi, bt_lo};
   for (int t = 0; t < 4; ++t) {  // A_hi, A_lo (M, K); B_hi, B_lo (N, K)
     const int rows = t < 2 ? M : N, box_rows = t < 2 ? BM : BN;
     const int rc =
-        hopper::encode_f32_2d(&maps[t], bases[t], rows, K, K, box_rows, BK);
+        hopper::encode_f32_2d(&maps[t], bases[t], rows, K, ld, box_rows, BK);
     if (rc != 0) return -1000 - rc;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (stages) {
-    case 1: return launch<1>(maps, C, M, N, K, st);
-    case 2: return launch<2>(maps, C, M, N, K, st);
-    default: return launch<3>(maps, C, M, N, K, st);
-  }
+  return pairs ? launch_depth<true>(stages, maps, C, M, N, K, st)
+               : launch_depth<false>(stages, maps, C, M, N, K, st);
 }

@@ -1,28 +1,31 @@
 """Public wrapper of the pipelined matmul: a Hopper kernel for CUDA
 tensors, :func:`ref.matmul_ref` for CPU tensors.
 
-A CUDA call takes one of four kernels, by a rule on the operands
-(:func:`route`), never as a fallback:
+A CUDA call takes the TMA route of its dtype (:func:`route`), never
+another kernel as a fallback:
 
-    tma_wgmma         bf16 that TMA can describe: ``csrc/tma_wgmma_matmul.cu``
-                      (TMA ring, wgmma consumers, a producer warpgroup)
-    cp_async_mma      other bf16: ``csrc/pipelined_matmul.cu``'s cp.async
-                      ring and mma.sync
-    tma_wgmma_tf32x3  f32 that the split and TMA can describe:
-                      ``csrc/tma_wgmma_tf32x3.cu``, a split pre-pass
-                      (:func:`split_tf32`) and three TF32 wgmma products on
-                      the tensor cores, partial sums promoted every
-                      ``TF32X3_RUN_K`` of K
-    ffma              other f32: ``csrc/pipelined_matmul.cu``'s FFMA kernel
+    tma_wgmma         bf16: ``csrc/tma_wgmma_matmul.cu`` (TMA ring, wgmma
+                      consumers, a producer warpgroup), after one launch of
+                      its stage (:func:`stage_bf16`) where an operand's base
+                      or row is one TMA cannot describe
+    tma_wgmma_tf32x3  f32: ``csrc/tma_wgmma_tf32x3.cu``, a split pre-pass
+                      (:func:`split_tf32`, which also pads the rows to
+                      16 bytes) and three TF32 wgmma products on the tensor
+                      cores, partial sums promoted every ``TF32X3_RUN_K``
+                      of K
+
+:func:`staging` says which operands a call restages and at which leading
+dimension; the product's tensor maps keep the true extents with the padded
+stride, so TMA zero-fills past them and the padding is never read.
 
 Each kernel's shared-memory ring depth and its waits are not constants:
 they are read from the K-loop plan that the synchronization compiler
-derives, :func:`kernel_schedule` (``schedule.plan_pipeline``: the block's
-threads issue, the copy engine loads) for the two cp.async kernels and
-:func:`hopper_schedule` (a producer warpgroup issues and loads, consumer
-warpgroups compute) for the TMA kernel.  The wrapper raises on a plan whose
-retained dependences a kernel has no wait for.  Both TMA kernels take
-:func:`hopper_schedule`.
+derives, :func:`hopper_schedule` (a producer warpgroup issues and loads,
+consumer warpgroups compute) for both TMA kernels.  The wrapper raises on
+a plan whose retained dependences a kernel has no wait for.
+:func:`kernel_schedule` (``schedule.plan_pipeline``: the block's threads
+issue, the copy engine loads) maps the plan onto the flash kernel's
+cp.async ring.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 from repro_torch.core.parallelizer import PlanOptions, plan
-from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
+from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref, stage_ref
 from repro_torch.kernels.pipelined_matmul.schedule import (
     PROCESSORS,
     kloop_dependences,
@@ -42,14 +45,16 @@ from repro_torch.kernels.pipelined_matmul.schedule import (
     plan_pipeline,
 )
 
-SOURCE = Path(__file__).parent / "csrc" / "pipelined_matmul.cu"
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_matmul.cu"
 TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_tf32x3.cu"
-MAX_STAGES = 4  # csrc: MAX_STAGES (the two bf16 sources)
+MAX_STAGES = 4  # tma_wgmma_matmul.cu: MAX_STAGES
 
-# the routes of a CUDA call (see :func:`route`)
+# the routes of a CUDA call (see :func:`route`); the flash kernel's
+# cp.async routes take the other two names
 TMA_WGMMA, CP_ASYNC_MMA, FFMA = "tma_wgmma", "cp_async_mma", "ffma"
 TMA_WGMMA_TF32X3 = "tma_wgmma_tf32x3"
+# TMA's rule: 16-byte aligned bases and row strides
+TMA_ALIGN = 16
 
 # tma_wgmma_matmul.cu: a stage is a 128 x 64 tile of A and a 64 x 256 tile
 # of B in bf16; the ring also needs 1 KB to align itself and its barriers
@@ -68,8 +73,9 @@ TF32X3_STAGES = min(MAX_STAGES, (SMEM_PER_BLOCK - 1024 - 64) // TF32X3_STAGE_BYT
 
 
 def _wait_for(dep, depth: int) -> Optional[str]:
-    """How the kernel realizes one retained cross-processor dependence of
-    the K-loop plan at each K-step (None: it has no wait for it).
+    """How a cp.async kernel (the flash kernel's ``flash_attention.cu``)
+    realizes one retained cross-processor dependence of the K-loop plan at
+    each K-step (None: it has no wait for it).
 
     issue    ISSUE -> LOAD at prefetch distance 1: the block's threads start
              the copy of the next tile themselves, so it begins once issued
@@ -101,8 +107,9 @@ class KernelSchedule:
 
 @functools.lru_cache(maxsize=None)
 def kernel_schedule(depth: int) -> KernelSchedule:
-    """Map ``plan_pipeline(depth)`` onto the kernel, or raise
-    ``NotImplementedError`` for a plan shape it does not implement."""
+    """Map ``plan_pipeline(depth)`` onto a cp.async kernel's ring (the flash
+    kernel's), or raise ``NotImplementedError`` for a plan shape it does not
+    implement."""
 
     if not 1 <= depth <= MAX_STAGES:
         raise NotImplementedError(
@@ -229,25 +236,61 @@ def hopper_schedule(depth: int, max_depth: int = MAX_STAGES) -> HopperSchedule:
 
 def route(dtype, K: int, N: int, a_addr: int, b_addr: int) -> str:
     """Which kernel a CUDA call with contiguous row-major operands ``A (M,
-    K)`` at ``a_addr`` and ``B (K, N)`` at ``b_addr`` takes.
-
-    TMA needs 16-byte aligned bases and row strides that are multiples of
-    16 bytes: K % 8 == 0 and N % 8 == 0 in bf16, K % 4 == 0 and N % 4 == 0
-    in f32 (where the split pass also reads A and B 16 bytes at a time).
-    Such operands take the TMA kernel of their type whatever M, N and K are
-    (ragged edges are zero-filled and masked); other bf16 operands take the
-    cp.async kernel, other f32 operands FFMA."""
+    K)`` at ``a_addr`` and ``B (K, N)`` at ``b_addr`` takes: every bf16
+    call the TMA / wgmma product, every f32 call the 3xTF32 one.  Operands
+    whose base or row TMA cannot describe are restaged first (bf16) or
+    padded by the split (f32): :func:`staging` says how.  The signature
+    keeps the shape and the addresses, which :func:`staging` reads."""
 
     import torch
 
-    aligned = a_addr % 16 == 0 and b_addr % 16 == 0
+    return TMA_WGMMA_TF32X3 if dtype == torch.float32 else TMA_WGMMA
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class Staging:
+    """What a CUDA call writes before its product.
+
+    bf16: ``a`` / ``b`` say whether A (M, K) / B (K, N) is restaged into a
+    (M, lda) / (K, ldb) buffer (:func:`stage_bf16`); an operand that is not
+    keeps its own row (lda = K, ldb = N).  f32: the split writes A_hi / A_lo
+    (M, lda) and Bᵀ_hi / Bᵀ_lo (N, ldb) always, so ``a`` and ``b`` are True
+    and lda = ldb = K rounded up to 4."""
+
+    a: bool
+    b: bool
+    lda: int
+    ldb: int
+
+    @property
+    def launches(self) -> int:
+        """Stage launches of a bf16 call (one for either or both)."""
+
+        return int(self.a or self.b)
+
+
+def staging(dtype, M: int, K: int, N: int, a_addr: int, b_addr: int) -> Staging:
+    """Which operands a CUDA call of ``A (M, K)`` at ``a_addr`` and ``B (K,
+    N)`` at ``b_addr`` restages, and the leading dimension of each.
+
+    bf16: an operand is restaged when its base is not 16-byte aligned or its
+    row is not a multiple of 8 elements (16 bytes); its leading dimension is
+    then its columns rounded up to 8.  f32: the split always writes new
+    arrays, K-major, at K rounded up to 4."""
+
+    import torch
+
     if dtype == torch.float32:
-        if K % 4 == 0 and N % 4 == 0 and aligned:
-            return TMA_WGMMA_TF32X3
-        return FFMA
-    if K % 8 == 0 and N % 8 == 0 and aligned:
-        return TMA_WGMMA
-    return CP_ASYNC_MMA
+        ld = _round_up(K, TMA_ALIGN // 4)
+        return Staging(a=True, b=True, lda=ld, ldb=ld)
+    per_row = TMA_ALIGN // 2
+    a = a_addr % TMA_ALIGN != 0 or K % per_row != 0
+    b = b_addr % TMA_ALIGN != 0 or N % per_row != 0
+    return Staging(a=a, b=b, lda=_round_up(K, per_row), ldb=_round_up(N, per_row))
 
 
 def tf32x3_schedule(depth: Optional[int] = None) -> HopperSchedule:
@@ -267,18 +310,15 @@ def tf32x3_schedule(depth: Optional[int] = None) -> HopperSchedule:
 def _schedule(path: str, depth: Optional[int]):
     if path == TMA_WGMMA:
         return hopper_schedule(HOPPER_STAGES if depth is None else depth)
-    if path == TMA_WGMMA_TF32X3:
-        return tf32x3_schedule(depth)
-    return kernel_schedule(default_depth() if depth is None else depth)
+    return tf32x3_schedule(depth)
 
 
 # pointers and ints of each launcher, before the stream
 _SIGNATURES = {
-    "pm_matmul_f32": (3, 6),         # A, B, C; M, N, K, stages, credit, vec
-    "pm_matmul_bf16": (3, 6),
-    "pm_matmul_bf16_tma": (3, 6),    # A, B, C; M, N, K, stages, full, empty
-    "pm_matmul_f32_tf32x3": (5, 6),  # a_hi, a_lo, bt_hi, bt_lo, C; the same
-    "pm_split_tf32": (3, 3),         # X, hi, lo; rows, cols, transpose
+    "pm_matmul_bf16_tma": (3, 8),    # A, B, C; M, N, K, lda, ldb, stages, full, empty
+    "pm_stage_bf16": (4, 6),         # A, a_dst, B, b_dst; rows, cols, ld of each
+    "pm_matmul_f32_tf32x3": (5, 7),  # a_hi, a_lo, bt_hi, bt_lo, C; M, N, K, ld, ...
+    "pm_split_tf32": (3, 4),         # X, hi, lo; rows, cols, ld, transpose
 }
 
 
@@ -299,58 +339,38 @@ def _entry_point(src: Path, name: str):
     return fn
 
 
-def _launch(a, b, out, sched: KernelSchedule) -> None:
-    """The cp.async kernels of ``pipelined_matmul.cu`` (bf16 mma.sync, f32
-    FFMA)."""
-
-    import torch
-
-    fn = _entry_point(
-        SOURCE,
-        "pm_matmul_bf16" if a.dtype == torch.bfloat16 else "pm_matmul_f32",
-    )
-    M, K = a.shape
-    N = b.shape[1]
-    elt = a.element_size()
-    # the 16-byte copy path needs 16-byte row strides and base addresses
-    vec = all(
-        (t.data_ptr() % 16 == 0) for t in (a, b, out)
-    ) and (K * elt) % 16 == 0 and (N * elt) % 16 == 0
-    rc = fn(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-        sched.depth, int(sched.credit), int(vec),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    path = CP_ASYNC_MMA if a.dtype == torch.bfloat16 else FFMA
-    _check(rc, path, M, N, K, a.dtype, sched.depth)
-
-
 def _launch_tma(a, b, out, sched: HopperSchedule) -> None:
-    """``tma_wgmma_matmul.cu``, with the plan's two waits as its flags."""
+    """``tma_wgmma_matmul.cu``'s product of ``A`` and ``B`` as they lie:
+    (M, lda) and (K, ldb) row-major buffers whose first K / N columns are
+    the operands (``out`` is (M, N)), with the plan's two waits as its
+    flags."""
 
     import torch
 
-    M, K = a.shape
-    N = b.shape[1]
+    M, N = out.shape
+    K = b.shape[0]
     rc = _entry_point(TMA_SOURCE, "pm_matmul_bf16_tma")(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, a.shape[1], b.shape[1],
         sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _check(rc, TMA_WGMMA, M, N, K, a.dtype, sched.depth)
 
 
-def _launch_tf32x3(a_hi, a_lo, bt_hi, bt_lo, out, sched: HopperSchedule) -> None:
-    """``tma_wgmma_tf32x3.cu``'s product of split operands (``a_*`` (M, K),
-    ``bt_*`` (N, K)), with the plan's two waits as its flags."""
+def _launch_tf32x3(a_hi, a_lo, bt_hi, bt_lo, out, sched: HopperSchedule,
+                   K: Optional[int] = None) -> None:
+    """``tma_wgmma_tf32x3.cu``'s product of split operands (``a_*`` (M, ld),
+    ``bt_*`` (N, ld), their first ``K`` columns live; K defaults to ld),
+    with the plan's two waits as its flags."""
 
     import torch
 
-    M, K = a_hi.shape
-    N = bt_hi.shape[0]
+    M, N = out.shape
+    ld = a_hi.shape[1]
+    K = ld if K is None else K
     rc = _entry_point(TF32X3_SOURCE, "pm_matmul_f32_tf32x3")(
         a_hi.data_ptr(), a_lo.data_ptr(), bt_hi.data_ptr(), bt_lo.data_ptr(),
-        out.data_ptr(), M, N, K, sched.depth, int(sched.full), int(sched.empty),
+        out.data_ptr(), M, N, K, ld, sched.depth, int(sched.full), int(sched.empty),
         torch.cuda.current_stream(a_hi.device).cuda_stream,
     )
     _check(rc, TMA_WGMMA_TF32X3, M, N, K, a_hi.dtype, sched.depth)
@@ -370,64 +390,88 @@ def _check(rc: int, path: str, M, N, K, dtype, depth) -> None:
         )
 
 
-def split_tf32(x, transpose: bool = False):
-    """``(hi, lo)`` of a row-major f32 matrix ``x`` (rows, cols), each a
-    TF32 value in an f32 word: ``hi = rna_tf32(x)``, ``lo = rna_tf32(x -
-    hi)``; with ``transpose`` both are (cols, rows), of ``x.T``.  The
-    3xTF32 route's pre-pass (``pm_split_tf32``).  A CPU tensor takes
-    :func:`ref.split_tf32_ref`; a CUDA tensor needs cols % 4 == 0 (and rows
-    % 4 == 0 with ``transpose``) and a 16-byte aligned base, and launches
-    the kernel or raises."""
+def _check_2d(x, dtype, what: str) -> None:
+    if x.ndim != 2 or x.dtype != dtype:
+        raise TypeError(f"{what} takes a 2-D {dtype} tensor; got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous() or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} takes a row-major contiguous CUDA or CPU tensor")
+
+
+def stage_bf16(a, b, st: Staging):
+    """``(A, B)`` as the bf16 product reads them: each operand that ``st``
+    restages copied into a (rows, ld) buffer (its padding columns zero, and
+    never read), the others as they are.  One launch of ``pm_stage_bf16``
+    (counted in ``stage_bf16.launches``) restages either or both on CUDA
+    tensors, or raises naming the route; CPU tensors take
+    :func:`ref.stage_ref`.  The buffers come from ``torch.empty``: the
+    kernel writes every element of them."""
 
     import torch
 
-    if x.ndim != 2 or x.dtype != torch.float32:
-        raise TypeError(f"split_tf32 takes a 2-D float32 tensor; got {x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return split_tf32_ref(x, transpose)
-    rows, cols = x.shape
-    if not x.is_contiguous() or x.device.type != "cuda":
-        raise ValueError("split_tf32 takes a row-major contiguous CUDA or CPU tensor")
-    if cols % 4 or (transpose and rows % 4) or x.data_ptr() % 16:
-        raise ValueError(
-            f"split_tf32: a ({rows}, {cols}) operand at byte {x.data_ptr() % 16} "
-            "of 16 is not one it reads 16 bytes at a time"
+    for x, what in ((a, "stage_bf16 (A)"), (b, "stage_bf16 (B)")):
+        _check_2d(x, torch.bfloat16, what)
+    if not (st.a or st.b):
+        return a, b
+    if a.device.type == "cpu":
+        return (stage_ref(a, st.lda) if st.a else a), (stage_ref(b, st.ldb) if st.b else b)
+    a_dst = torch.empty((a.shape[0], st.lda), dtype=a.dtype, device=a.device) if st.a else None
+    b_dst = torch.empty((b.shape[0], st.ldb), dtype=b.dtype, device=b.device) if st.b else None
+    rc = _entry_point(TMA_SOURCE, "pm_stage_bf16")(
+        a.data_ptr() if st.a else None, a_dst.data_ptr() if st.a else None,
+        b.data_ptr() if st.b else None, b_dst.data_ptr() if st.b else None,
+        *a.shape, st.lda, *b.shape, st.ldb,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"pipelined matmul stage launch failed on route {TMA_WGMMA}: cudaError {rc} "
+            f"(A {tuple(a.shape)} restaged {st.a} at {st.lda}, B {tuple(b.shape)} "
+            f"restaged {st.b} at {st.ldb})"
         )
-    shape = (cols, rows) if transpose else (rows, cols)
+    stage_bf16.launches += 1
+    return (a_dst if st.a else a), (b_dst if st.b else b)
+
+
+stage_bf16.launches = 0
+
+
+def split_tf32(x, transpose: bool = False):
+    """``(hi, lo)`` of a row-major f32 matrix ``x`` (rows, cols), each a
+    TF32 value in an f32 word: ``hi = rna_tf32(x)``, ``lo = rna_tf32(x -
+    hi)``; with ``transpose`` both are of ``x.T``.  Either way they are
+    written at a leading dimension ``ld`` of their width (cols, or rows)
+    rounded up to 4, TMA's 16-byte row stride: (rows, ld), or (cols, ld),
+    the padding columns zero.  The 3xTF32 route's pre-pass
+    (``pm_split_tf32``): a CUDA tensor at any base launches the kernel or
+    raises naming the route; a CPU tensor takes :func:`ref.split_tf32_ref`
+    at the same ``ld``."""
+
+    import torch
+
+    _check_2d(x, torch.float32, "split_tf32")
+    rows, cols = x.shape
+    ld = _round_up(rows if transpose else cols, TMA_ALIGN // 4)
+    if x.device.type == "cpu":
+        return split_tf32_ref(x, transpose, ld)
+    shape = (cols, ld) if transpose else (rows, ld)
     hi = torch.empty(shape, dtype=x.dtype, device=x.device)
     lo = torch.empty(shape, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return hi, lo
     rc = _entry_point(TF32X3_SOURCE, "pm_split_tf32")(
-        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols, int(transpose),
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols, ld, int(transpose),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"split_tf32 launch failed on route {TMA_WGMMA_TF32X3}: cudaError "
-            f"{rc} (rows={rows}, cols={cols}, transpose={transpose})"
+            f"{rc} (rows={rows}, cols={cols}, ld={ld}, transpose={transpose})"
         )
     split_tf32.launches += 1
     return hi, lo
 
 
 split_tf32.launches = 0
-
-
-def _cp_async_matmul(a, b, depth: Optional[int] = None):
-    """The cp.async kernel of the operands' type (``pipelined_matmul.cu``:
-    mma.sync for bf16, FFMA for f32) on operands that :func:`route` sends
-    to a TMA kernel, to time the two side by side; not counted in the
-    launch counts and no route of :func:`matmul`."""
-
-    import torch
-
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
-    _launch(a, b, out, kernel_schedule(default_depth() if depth is None else depth))
-    return out
-
-
-_ffma_matmul = _cp_async_matmul  # on f32 operands: the FFMA kernel
 
 
 def matmul(
@@ -443,17 +487,18 @@ def matmul(
     f32 accumulation.
 
     ``depth`` is the shared-memory ring depth: 1..3 on the 3xTF32 route,
-    1..4 on the others; by default the deepest ring that fits on the two
-    TMA routes (``HOPPER_STAGES``, ``TF32X3_STAGES``) and ``min_buffers()``
-    on the others.  Its waits come from the route's K-loop plan.
-    ``blk_m/n/k`` keep the reference wrapper's signature; the kernels'
-    tiles are their own (bf16 TMA: 128 x 256, K step 64; 3xTF32: 128 x
-    128, K step 32; cp.async: 128 x 128, K step 16 in f32 and 32 in bf16).
-    Operands of any layout are taken (copied row-major first, as the
-    kernels read them).  The 3xTF32 route first splits A, and B transposed, into TF32 halves
-    (:func:`split_tf32`, two launches counted there), then launches the
-    product.  A CPU tensor takes the plain version; a CUDA tensor takes its
-    route's kernel or raises.
+    1..4 on the bf16 one; by default the deepest ring that fits
+    (``TF32X3_STAGES``, ``HOPPER_STAGES``).  Its waits come from the
+    route's K-loop plan.  ``blk_m/n/k`` keep the reference wrapper's
+    signature; the kernels' tiles are their own (bf16: 128 x 256, K step
+    64; 3xTF32: 128 x 128, K step 32).  Operands of any layout are taken
+    (copied row-major first, as the kernels read them).  The bf16 route
+    first restages the operands TMA cannot describe (:func:`staging`,
+    :func:`stage_bf16`: one launch for either or both), the 3xTF32 route
+    splits A, and B transposed, into padded TF32 halves (:func:`split_tf32`,
+    two launches); then the product launches.  A CPU tensor takes the plain
+    version; a CUDA tensor takes its route's kernels or raises, and a
+    failed stage or split launches no product.
     """
 
     import torch
@@ -474,7 +519,7 @@ def matmul(
     M, K = a.shape
     N = b.shape[1]
     # the kernels read row-major operands: any other layout is copied so
-    # (the route reads the copies' addresses)
+    # (the rule reads the copies' addresses)
     a, b = a.contiguous(), b.contiguous()
     path = route(a.dtype, K, N, a.data_ptr(), b.data_ptr())
     sched = _schedule(path, depth)
@@ -491,15 +536,14 @@ def matmul(
     if K == 0:
         return out.zero_()
     if path == TMA_WGMMA:
-        _launch_tma(a, b, out, sched)
-    elif path == TMA_WGMMA_TF32X3:
-        _launch_tf32x3(*split_tf32(a), *split_tf32(b, transpose=True), out, sched)
+        st = staging(a.dtype, M, K, N, a.data_ptr(), b.data_ptr())
+        _launch_tma(*stage_bf16(a, b, st), out, sched)
     else:
-        _launch(a, b, out, sched)
+        _launch_tf32x3(*split_tf32(a), *split_tf32(b, transpose=True), out, sched, K)
     matmul.launches += 1
     matmul.routes[path] += 1
     return out
 
 
 matmul.launches = 0
-matmul.routes = {TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0}
+matmul.routes = {TMA_WGMMA: 0, TMA_WGMMA_TF32X3: 0}

@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention.ref import (
     split_kv_tf32_ref,
 )
 from repro_torch.kernels.pipelined_matmul import ops, schedule
-from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
+from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref, stage_ref
 from repro_torch.launch import serve_lm
 from repro_torch.models import attention, model_zoo
 
@@ -40,9 +40,9 @@ pytestmark = pytest.mark.cuda
 
 METHODS = ("none", "isd", "pattern", "both")
 DEPS_MODES = (None, "inspect", "speculate")
-# (M, K, N); in bf16 all but (300, 257, 130) take the TMA kernel, and
-# (300, 264, 136) has a ragged M, N below one 256-wide tile and K not a
-# multiple of the 64-deep K-step
+# (M, K, N); every shape takes its dtype's TMA route, (300, 257, 130) after
+# the bf16 stage of both operands, and (300, 264, 136) has a ragged M, N
+# below one 256-wide tile and K not a multiple of the 64-deep K-step
 SHAPES = [(128, 128, 128), (256, 512, 128), (300, 257, 130), (64, 8, 24), (300, 264, 136)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # flash attention: the largest relative L2 error of one output row against
@@ -128,11 +128,10 @@ def test_kloop_compiles_and_runs_on_cuda(cuda, depth):
 
 
 def _expected_route(dtype, K, N):
-    """The route rule written out for fresh (16-byte aligned) operands."""
+    """The route rule written out: the TMA route of the dtype, whatever K
+    and N are."""
 
-    if dtype == torch.float32:
-        return "tma_wgmma_tf32x3" if K % 4 == 0 and N % 4 == 0 else "ffma"
-    return "tma_wgmma" if K % 8 == 0 and N % 8 == 0 else "cp_async_mma"
+    return "tma_wgmma_tf32x3" if dtype == torch.float32 else "tma_wgmma"
 
 
 def _launch_counted(a, b, **kw):
@@ -167,9 +166,9 @@ def test_kernel_matches_plain_version_on_cuda(cuda, M, K, N, dtype, depth):
     )
 
 
-def test_kernel_takes_offset_views_through_the_element_path(cuda):
-    """A view whose base is not 16-byte aligned takes the element-granular
-    copy path and still agrees."""
+def test_kernel_takes_offset_views_on_cuda(cuda):
+    """A view whose base is not 16-byte aligned is read by the split, which
+    writes it anew at a 16-byte stride, and still agrees."""
 
     base = torch.randn(65, 64, device=cuda)
     a = base[1:]  # contiguous, 256 bytes past the allocation: aligned
@@ -201,23 +200,24 @@ def test_tma_kernel_identity_b_returns_a_exactly(cuda, M, K, N):
 
 
 def test_bf16_route_follows_the_base_address_on_cuda(cuda):
-    """A view 16 bytes into its allocation takes the TMA kernel; one 2 bytes
-    in takes the cp.async kernel; both agree with the plain version."""
+    """A view 16 bytes into its allocation goes straight to the TMA kernel;
+    one 2 bytes in is restaged first (one stage launch); both agree with
+    the plain version."""
 
     base = torch.randn(128 * 64 + 8, device=cuda).bfloat16()
     b = torch.randn(64, 256, device=cuda).bfloat16()
-    for offset, expect in ((8, "tma_wgmma"), (1, "cp_async_mma")):
+    for offset, stages in ((8, 0), (1, 1)):
         a = base[offset:offset + 128 * 64].view(128, 64)
+        before = ops.stage_bf16.launches
         out, took = _launch_counted(a, b)
-        assert took == expect
+        assert took == "tma_wgmma" and ops.stage_bf16.launches == before + stages
         torch.testing.assert_close(
             out.float(), matmul_ref(a, b).float(), atol=3e-2 * 8, rtol=3e-2
         )
 
 
 def test_tma_route_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
-    """An eligible operand whose TMA launch fails raises; it is never
-    retried on the cp.async kernel."""
+    """An operand whose TMA launch fails raises; nothing else is tried."""
 
     real = ops._entry_point
 
@@ -242,9 +242,13 @@ def test_tma_kernel_refuses_a_schedule_without_both_waits(cuda):
     fn = ops._entry_point(ops.TMA_SOURCE, "pm_matmul_bf16_tma")
     stream = torch.cuda.current_stream().cuda_stream
     for full, empty in ((1, 0), (0, 1)):
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 128, 256, 64, 4,
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 128, 256, 64, 64, 256, 4,
                 full, empty, stream)
         assert rc == 1  # cudaErrorInvalidValue
+    for lda, ldb in ((60, 256), (64, 252), (72 + 4, 256)):  # below K / N, or not % 8
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 128, 256, 64, lda, ldb, 4,
+                1, 1, stream)
+        assert rc == 1
 
 
 # ---------------------------------------------------------------------- #
@@ -287,7 +291,8 @@ def test_tf32x3_kernel_within_the_limit_of_plain_and_f64_on_cuda(cuda, M, K, N, 
 
 
 @pytest.mark.parametrize("transpose", [False, True], ids=["rows", "transposed"])
-@pytest.mark.parametrize("shape", [(64, 64), (300, 264), (36, 4), (4, 1028), (2048, 4096)])
+@pytest.mark.parametrize("shape", [(64, 64), (300, 264), (36, 4), (4, 1028), (2048, 4096),
+                                   (300, 257), (257, 130), (7, 5), (33, 1), (1, 49155)])
 def test_split_kernel_is_bit_equal_to_its_plain_version_on_cuda(cuda, shape, transpose):
     rng = np.random.default_rng(shape[0] + shape[1])
     x = rng.standard_normal(shape).astype(np.float32)
@@ -299,18 +304,33 @@ def test_split_kernel_is_bit_equal_to_its_plain_version_on_cuda(cuda, shape, tra
     hi, lo = ops.split_tf32(x, transpose)
     torch.cuda.synchronize()
     assert ops.split_tf32.launches == before + 1
-    rh, rl = split_tf32_ref(x, transpose)
+    width = shape[0] if transpose else shape[1]
+    rh, rl = split_tf32_ref(x, transpose, ld=(width + 3) // 4 * 4)
+    assert torch.equal(hi.view(torch.int32), rh.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), rl.view(torch.int32))
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["rows", "transposed"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_split_kernel_reads_views_at_any_base_on_cuda(cuda, offset, transpose):
+    """Views 4, 8 and 12 bytes into their allocation, with rows of 37
+    floats: every row starts at another alignment."""
+
+    x = torch.randn(50 * 37 + offset, device=cuda)[offset:].view(50, 37)
+    hi, lo = ops.split_tf32(x, transpose)
+    rh, rl = split_tf32_ref(x, transpose, ld=(50 if transpose else 37) + 3 & ~3)
+    torch.cuda.synchronize()
     assert torch.equal(hi.view(torch.int32), rh.view(torch.int32))
     assert torch.equal(lo.view(torch.int32), rl.view(torch.int32))
 
 
 def test_split_kernel_refuses_what_it_cannot_read_on_cuda(cuda):
-    with pytest.raises(ValueError, match="16 bytes"):
-        ops.split_tf32(torch.randn(8, 6, device=cuda))
-    with pytest.raises(ValueError, match="16 bytes"):
-        ops.split_tf32(torch.randn(6, 8, device=cuda), transpose=True)
-    with pytest.raises(ValueError, match="16 bytes"):
-        ops.split_tf32(torch.randn(8 * 8 + 1, device=cuda)[1:].view(8, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.split_tf32(torch.randn(8, 6, device=cuda).t())
+    with pytest.raises(TypeError):
+        ops.split_tf32(torch.randn(2, 6, 8, device=cuda), transpose=True)
+    with pytest.raises(TypeError):
+        ops.split_tf32(torch.randn(8, 8, device=cuda).double())
 
 
 def test_tf32x3_identity_a_returns_b_exactly_at_yi6b_widths(cuda):
@@ -332,8 +352,8 @@ def test_tf32x3_identity_b_returns_a_exactly_at_yi6b_widths(cuda):
 
 
 def test_tf32x3_route_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
-    """A failing product launch raises naming the route; the FFMA kernel is
-    never tried."""
+    """A failing product launch raises naming the route; no other kernel is
+    tried."""
 
     real = ops._entry_point
 
@@ -358,16 +378,149 @@ def test_tf32x3_kernel_refuses_a_schedule_without_both_waits(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (a_hi, a_lo, b_hi, b_lo, out)]
     for stages, full, empty in ((3, 1, 0), (3, 0, 1), (4, 1, 1)):
-        assert fn(*ptrs, 128, 128, 64, stages, full, empty, stream) == 1
+        assert fn(*ptrs, 128, 128, 64, 64, stages, full, empty, stream) == 1
+    for ld in (60, 66):  # below K, or not a multiple of 4
+        assert fn(*ptrs, 128, 128, 64, ld, 3, 1, 1, stream) == 1
 
 
-def test_ffma_helper_runs_the_ffma_kernel_uncounted(cuda):
-    a, b = torch.randn(128, 64, device=cuda), torch.randn(64, 128, device=cuda)
-    before, routes = ops.matmul.launches, dict(ops.matmul.routes)
-    out = ops._ffma_matmul(a, b)
-    torch.cuda.synchronize()
+# ---------------------------------------------------------------------- #
+# Operands TMA cannot describe as they lie: the bf16 stage, the padded split
+# ---------------------------------------------------------------------- #
+
+# (M, K, N): odd N, odd K, both, M = 1, K and N below one 16-byte row
+UNALIGNED_SHAPES = [(300, 257, 130), (256, 264, 257), (200, 131, 264), (1, 257, 129),
+                    (1, 8, 3), (64, 9, 25), (130, 5, 7)]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N", UNALIGNED_SHAPES)
+def test_unaligned_operands_take_the_tma_routes_on_cuda(cuda, M, K, N, dtype, depth):
+    """Both routes at every depth on strides TMA cannot describe: within
+    the limit of the plain version, and in f32 of an f64 product; the bf16
+    stage launched once a call where K or N is not a multiple of 8, the
+    split twice."""
+
+    rng = np.random.default_rng(M * K + N)
+    a = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)).to(cuda, dtype)
+    if dtype == torch.float32 and depth > ops.TF32X3_STAGES:
+        with pytest.raises(NotImplementedError, match="ring depth"):
+            ops.matmul(a, b, depth=depth)
+        return
+    stages, splits = ops.stage_bf16.launches, ops.split_tf32.launches
+    out, took = _launch_counted(a, b, depth=depth)
+    assert took == _expected_route(dtype, K, N) and out.shape == (M, N)
+    if dtype == torch.float32:
+        assert ops.split_tf32.launches == splits + 2 and ops.stage_bf16.launches == stages
+        assert _limit_ratio(out, matmul_ref(a, b), K) <= 1
+        assert _limit_ratio(out, a.double() @ b.double(), K) <= 1
+    else:
+        want = int(K % 8 != 0 or N % 8 != 0)
+        assert ops.stage_bf16.launches == stages + want and ops.split_tf32.launches == splits
+        torch.testing.assert_close(out.float(), matmul_ref(a, b).float(),
+                                   atol=3e-2 * K**0.5, rtol=3e-2)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])  # 2, 4 and 8 bytes in
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_views_off_sixteen_bytes_take_the_tma_routes_on_cuda(cuda, dtype, offset):
+    """A and B as views 2, 4 and 8 bytes (bf16) or 4, 8 and 16 bytes (f32)
+    into their allocations, with aligned row lengths: the bf16 stage copies
+    both, at their own widths."""
+
+    M, K, N = 96, 64, 136
+    base_a = torch.randn(M * K + offset, device=cuda).to(dtype)
+    base_b = torch.randn(K * N + offset, device=cuda).to(dtype)
+    a = base_a[offset:].view(M, K)
+    b = base_b[offset:].view(K, N)
+    st = ops.staging(dtype, M, K, N, a.data_ptr(), b.data_ptr())
+    out, took = _launch_counted(a, b)
+    assert took == _expected_route(dtype, K, N)
+    if dtype == torch.bfloat16:
+        assert (st.a, st.b, st.lda, st.ldb) == (True, True, K, N)
+        torch.testing.assert_close(out.float(), matmul_ref(a, b).float(),
+                                   atol=3e-2 * K**0.5, rtol=3e-2)
+    else:
+        assert _limit_ratio(out, a.double() @ b.double(), K) <= 1
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 7])
+@pytest.mark.parametrize("rows,cols", [(300, 257), (257, 130), (33, 7), (2048, 49155), (5, 1)])
+def test_stage_is_bit_equal_to_its_plain_version_on_cuda(cuda, rows, cols, offset):
+    """The stage of one operand (B) and of both, at bases 0, 2, 6 and 14
+    bytes into an allocation: the whole (rows, ld) buffer, padding included,
+    bit-equal to ``stage_ref``; one launch a call."""
+
+    x = torch.randn(rows * cols + offset, device=cuda).bfloat16()[offset:].view(rows, cols)
+    y = torch.randn(rows, cols + 3, device=cuda).bfloat16()
+    ld = (cols + 7) // 8 * 8
+    for st, want in ((ops.Staging(a=False, b=True, lda=cols, ldb=ld), (y, stage_ref(x, ld))),
+                     (ops.Staging(a=True, b=True, lda=(cols + 10) // 8 * 8, ldb=ld),
+                      (stage_ref(y, (cols + 10) // 8 * 8), stage_ref(x, ld)))):
+        before = ops.stage_bf16.launches
+        got = ops.stage_bf16(y, x, st)
+        torch.cuda.synchronize()
+        assert ops.stage_bf16.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
+def test_failing_stage_raises_and_launches_no_product(cuda, monkeypatch):
+    """A stage launch that fails raises naming the route; the product is
+    not launched and nothing is counted."""
+
+    real = ops._entry_point
+    products = []
+
+    def failing(src, name):
+        if name == "pm_stage_bf16":
+            return lambda *args: 1  # cudaErrorInvalidValue
+        fn = real(src, name)
+        return lambda *args: products.append(name) or fn(*args)
+
+    monkeypatch.setattr(ops, "_entry_point", failing)
+    a = torch.randn(128, 63, device=cuda).bfloat16()
+    b = torch.randn(63, 256, device=cuda).bfloat16()
+    before, routes, stages = ops.matmul.launches, dict(ops.matmul.routes), ops.stage_bf16.launches
+    with pytest.raises(RuntimeError, match="stage launch failed on route tma_wgmma"):
+        ops.matmul(a, b)
+    assert products == []
     assert ops.matmul.launches == before and ops.matmul.routes == routes
-    assert _limit_ratio(out, a.double() @ b.double(), 64) <= 1
+    assert ops.stage_bf16.launches == stages
+
+
+def test_failing_split_raises_and_launches_no_product(cuda, monkeypatch):
+    real = ops._entry_point
+    products = []
+
+    def failing(src, name):
+        if name == "pm_split_tf32":
+            return lambda *args: 1
+        fn = real(src, name)
+        return lambda *args: products.append(name) or fn(*args)
+
+    monkeypatch.setattr(ops, "_entry_point", failing)
+    a, b = torch.randn(128, 63, device=cuda), torch.randn(63, 130, device=cuda)
+    with pytest.raises(RuntimeError, match="split_tf32 launch failed on route tma_wgmma_tf32x3"):
+        ops.matmul(a, b)
+    assert products == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_identity_probes_at_the_lm_head_on_cuda(cuda, dtype):
+    """granite-3-2b's LM head, (2048, 2048, 49155): I @ B == B and A @ I
+    == A beside zero columns (the (K, N) identity), exactly; B is restaged
+    in bf16 and N is odd, so the stage, the padded stride and the single
+    stores of the odd-N epilogue are read position by position."""
+
+    K, N = 2048, 49155
+    b = _bits21(torch.randn(K, N, device=cuda)).to(dtype)
+    a = _bits21(torch.randn(K, K, device=cuda)).to(dtype)
+    out, took = _launch_counted(torch.eye(K, device=cuda, dtype=dtype), b)
+    assert took == _expected_route(dtype, K, N) and torch.equal(out, b)
+    out, took = _launch_counted(a, torch.eye(K, N, device=cuda, dtype=dtype))
+    assert torch.equal(out[:, :K], a) and not out[:, K:].any()
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -1,7 +1,9 @@
 """The port's pipelined matmul against the reference Pallas kernel (run in
 interpret mode, as the reference's own tests run it on the CPU), the wiring
 from the K-loop plans to the Hopper kernels' ring depths and waits, the rule
-that picks a kernel for CUDA operands, and the build's digest.
+that picks a kernel for CUDA operands and the staging it writes first (the
+bf16 stage, the padded 3xTF32 split, each route emulated through its padded
+stride), and the build's digest.
 
 Inputs are made with numpy from a seed and handed to both sides.  The
 tolerances are the reference's (``tests/test_kernels.py``): 2e-5 in f32
@@ -25,7 +27,7 @@ from repro_torch.core.dependence import FLOW, Dependence
 from repro_torch.core.parallelizer import PlanOptions, plan
 from repro_torch.kernels import _build
 from repro_torch.kernels.pipelined_matmul import ops, schedule
-from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref
+from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref, stage_ref
 from repro_torch.kernels.pipelined_matmul.ref import rna_tf32_ref as ref_rna_tf32
 
 SHAPES = [(128, 128, 128, 128), (256, 512, 128, 128), (300, 257, 130, 64)]
@@ -213,7 +215,9 @@ def test_kernel_constants_agree_with_the_wrapper():
 
     assert const("MAX_STAGES") == ops.MAX_STAGES
     assert (const("BM") * const("BK") + const("BK") * const("BN")) * 2 == ops.HOPPER_STAGE_BYTES
-    assert "int MAX_STAGES = 4;" in ops.SOURCE.read_text()
+    # the stage refuses any leading dimension but the one staging() gives
+    assert "ld != (cols + 7) / 8 * 8" in src
+    assert ops.staging(torch.bfloat16, 1, 9, 17, 0, 0).lda == (9 + 7) // 8 * 8
 
 
 def _with_retained(retained):
@@ -259,6 +263,8 @@ def test_hopper_depth_outside_the_ring_raises():
 # which kernel a CUDA call takes
 # ---------------------------------------------------------------------- #
 
+# every bf16 call takes the TMA / wgmma product and every f32 call the
+# 3xTF32 one; what TMA cannot describe is restaged first (:func:`staging`)
 @pytest.mark.parametrize(
     "dtype,K,N,a_addr,b_addr,expect",
     [
@@ -266,21 +272,21 @@ def test_hopper_depth_outside_the_ring_raises():
         (torch.bfloat16, 11008, 4096, 1 << 20, 4096, "tma_wgmma"),  # down
         (torch.bfloat16, 264, 136, 0, 0, "tma_wgmma"),        # ragged, aligned
         (torch.bfloat16, 8, 24, 0, 0, "tma_wgmma"),           # one K box
-        (torch.bfloat16, 257, 130, 0, 0, "cp_async_mma"),     # odd strides
-        (torch.bfloat16, 264, 130, 0, 0, "cp_async_mma"),     # N % 8 != 0
-        (torch.bfloat16, 260, 136, 0, 0, "cp_async_mma"),     # K % 8 != 0
-        (torch.bfloat16, 264, 136, 2, 0, "cp_async_mma"),     # A offset
-        (torch.bfloat16, 264, 136, 0, 8, "cp_async_mma"),     # B offset
+        (torch.bfloat16, 257, 130, 0, 0, "tma_wgmma"),        # odd strides
+        (torch.bfloat16, 264, 130, 0, 0, "tma_wgmma"),        # N % 8 != 0
+        (torch.bfloat16, 260, 136, 0, 0, "tma_wgmma"),        # K % 8 != 0
+        (torch.bfloat16, 264, 136, 2, 0, "tma_wgmma"),        # A offset
+        (torch.bfloat16, 264, 136, 0, 8, "tma_wgmma"),        # B offset
         (torch.float32, 4096, 11008, 0, 0, "tma_wgmma_tf32x3"),  # yi-6b up
-        (torch.float32, 257, 130, 4, 0, "ffma"),
+        (torch.float32, 257, 130, 4, 0, "tma_wgmma_tf32x3"),
         (torch.float32, 11008, 4096, 1 << 20, 4096, "tma_wgmma_tf32x3"),  # down
         (torch.float32, 264, 136, 0, 0, "tma_wgmma_tf32x3"),  # ragged, aligned
         (torch.float32, 4, 4, 0, 0, "tma_wgmma_tf32x3"),      # K below a step
         (torch.float32, 260, 132, 0, 0, "tma_wgmma_tf32x3"),  # not % 8: f32 is % 4
-        (torch.float32, 258, 136, 0, 0, "ffma"),              # K % 4 != 0
-        (torch.float32, 264, 130, 0, 0, "ffma"),              # N % 4 != 0
-        (torch.float32, 264, 136, 4, 0, "ffma"),              # A 4 bytes in
-        (torch.float32, 264, 136, 0, 8, "ffma"),              # B 8 bytes in
+        (torch.float32, 258, 136, 0, 0, "tma_wgmma_tf32x3"),  # K % 4 != 0
+        (torch.float32, 264, 130, 0, 0, "tma_wgmma_tf32x3"),  # N % 4 != 0
+        (torch.float32, 264, 136, 4, 0, "tma_wgmma_tf32x3"),  # A 4 bytes in
+        (torch.float32, 264, 136, 0, 8, "tma_wgmma_tf32x3"),  # B 8 bytes in
     ],
 )
 def test_route_rule(dtype, K, N, a_addr, b_addr, expect):
@@ -288,30 +294,171 @@ def test_route_rule(dtype, K, N, a_addr, b_addr, expect):
 
 
 def test_route_of_views_follows_their_base_address():
+    """Both views take the TMA route; the one 2 bytes in is restaged."""
+
     base = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16)
     b = torch.zeros(64, 32, dtype=torch.bfloat16)
     aligned = base[8:].view(64, 64)  # 16 bytes in
     offset = base[1:64 * 64 + 1].view(64, 64)  # 2 bytes in
     assert base.data_ptr() % 16 == 0
-    assert ops.route(aligned.dtype, 64, 32, aligned.data_ptr(), b.data_ptr()) == "tma_wgmma"
-    assert ops.route(offset.dtype, 64, 32, offset.data_ptr(), b.data_ptr()) == "cp_async_mma"
+    for a, restaged in ((aligned, False), (offset, True)):
+        assert ops.route(a.dtype, 64, 32, a.data_ptr(), b.data_ptr()) == "tma_wgmma"
+        st = ops.staging(a.dtype, 64, 64, 32, a.data_ptr(), b.data_ptr())
+        assert (st.a, st.b, st.lda, st.ldb, st.launches) == (restaged, False, 64, 32, int(restaged))
 
 
 def test_f32_route_of_views_follows_their_base_address():
+    """Every f32 view takes the 3xTF32 route; the split writes both
+    operands anew wherever they lie."""
+
     base = torch.zeros(64 * 64 + 4, dtype=torch.float32)
     b = torch.zeros(64, 32, dtype=torch.float32)
     aligned = base[4:].view(64, 64)  # 16 bytes in
     offset = base[1:64 * 64 + 1].view(64, 64)  # 4 bytes in
     assert base.data_ptr() % 16 == 0
-    assert ops.route(aligned.dtype, 64, 32, aligned.data_ptr(), b.data_ptr()) == "tma_wgmma_tf32x3"
-    assert ops.route(offset.dtype, 64, 32, offset.data_ptr(), b.data_ptr()) == "ffma"
-    assert ops.route(b.dtype, 64, 32, b.data_ptr(), offset.data_ptr()) == "ffma"
+    for x, y in ((aligned, b), (offset, b), (b, offset)):
+        assert ops.route(x.dtype, 64, 32, x.data_ptr(), y.data_ptr()) == "tma_wgmma_tf32x3"
+        st = ops.staging(x.dtype, 64, 64, 32, x.data_ptr(), y.data_ptr())
+        assert (st.a, st.b, st.lda, st.ldb) == (True, True, 64, 64)
 
 
 def test_routes_count_every_route():
-    assert set(ops.matmul.routes) == {
-        "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
-    }
+    assert set(ops.matmul.routes) == {"tma_wgmma", "tma_wgmma_tf32x3"}
+
+
+# ---------------------------------------------------------------------- #
+# staging: what a call restages, the stage and the padded split
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize(
+    "dtype,M,K,N,a_addr,b_addr,expect",
+    [
+        # bf16: (restage A, restage B, lda, ldb)
+        (torch.bfloat16, 2048, 4096, 11008, 0, 0, (False, False, 4096, 11008)),
+        (torch.bfloat16, 300, 260, 136, 0, 0, (True, False, 264, 136)),     # K % 8
+        (torch.bfloat16, 300, 264, 132, 0, 0, (False, True, 264, 136)),     # N % 8
+        (torch.bfloat16, 2048, 2048, 49155, 0, 0, (False, True, 2048, 49160)),  # odd N
+        (torch.bfloat16, 300, 257, 130, 0, 0, (True, True, 264, 136)),      # both
+        (torch.bfloat16, 1, 8, 8, 2, 0, (True, False, 8, 8)),               # A 2 bytes in
+        (torch.bfloat16, 64, 64, 64, 0, 4, (False, True, 64, 64)),          # B 4 bytes in
+        (torch.bfloat16, 64, 64, 64, 8, 8, (True, True, 64, 64)),           # 8 bytes in
+        (torch.bfloat16, 64, 64, 64, 32, 1 << 20, (False, False, 64, 64)),  # 16-byte multiples
+        # f32: the split always writes both, K-major at K rounded up to 4
+        (torch.float32, 300, 257, 130, 0, 0, (True, True, 260, 260)),       # K % 4
+        (torch.float32, 2048, 4096, 11008, 0, 0, (True, True, 4096, 4096)),
+        (torch.float32, 2048, 2048, 49155, 4, 8, (True, True, 2048, 2048)),
+        (torch.float32, 8, 7, 5, 0, 0, (True, True, 8, 8)),
+    ],
+)
+def test_staging_rule(dtype, M, K, N, a_addr, b_addr, expect):
+    st = ops.staging(dtype, M, K, N, a_addr, b_addr)
+    assert (st.a, st.b, st.lda, st.ldb) == expect
+    assert st.lda % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
+    assert st.ldb % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
+
+
+def _bf16(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("rows,cols", [(300, 257), (64, 9), (33, 130), (257, 136), (1, 3)])
+def test_stage_keeps_the_live_region_bit_equal(rows, cols):
+    """The stage's plain version (what the wrapper takes on the CPU): the
+    live (rows, cols) bit-equal to the source at the padded stride, the
+    padding zero, and nothing launched."""
+
+    x = _bf16((rows, cols), rows + cols)
+    st = ops.staging(torch.bfloat16, rows, cols, cols, 0, 0)
+    before = ops.stage_bf16.launches
+    staged, also = ops.stage_bf16(x, x, st)
+    assert ops.stage_bf16.launches == before
+    ld = (cols + 7) // 8 * 8
+    for s in (staged, also, stage_ref(x, ld)):
+        assert tuple(s.shape) == (rows, ld) and s.is_contiguous()
+        assert torch.equal(s[:, :cols].view(torch.int16), x.view(torch.int16))
+        assert not s[:, cols:].any()
+    view = torch.as_strided(staged, (rows, cols), (ld, 1))  # as the tensor map reads it
+    assert torch.equal(view.view(torch.int16), x.view(torch.int16))
+
+
+def test_stage_of_aligned_operands_is_no_copy():
+    a, b = _bf16((16, 64), 1), _bf16((64, 24), 2)
+    st = ops.staging(torch.bfloat16, 16, 64, 24, 0, 0)
+    assert st.launches == 0
+    got = ops.stage_bf16(a, b, st)
+    assert got[0] is a and got[1] is b
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["rows", "transposed"])
+@pytest.mark.parametrize("rows,cols", [(300, 257), (64, 9), (33, 130), (7, 5), (12, 8)])
+def test_padded_split_keeps_the_live_region_of_the_plain_split(rows, cols, transpose):
+    """The wrapper's split (on the CPU its plain version) at the padded
+    stride: the live region bit-equal to ``split_tf32_ref``'s unpadded
+    halves, the padding zero, hi + lo as close to x as unpadded."""
+
+    x = torch.from_numpy(_normal_f32((rows, cols), seed=rows * cols))
+    hi, lo = ops.split_tf32(x, transpose)
+    width = rows if transpose else cols
+    ld = (width + 3) // 4 * 4
+    assert tuple(hi.shape) == ((cols, ld) if transpose else (rows, ld)) == tuple(lo.shape)
+    want_hi, want_lo = split_tf32_ref(x, transpose)
+    assert torch.equal(_bits(hi[:, :width]), _bits(want_hi))
+    assert torch.equal(_bits(lo[:, :width]), _bits(want_lo))
+    assert not hi[:, width:].any() and not lo[:, width:].any()
+    got = split_tf32_ref(x, transpose, ld)
+    assert torch.equal(_bits(got[0]), _bits(hi)) and torch.equal(_bits(got[1]), _bits(lo))
+
+
+def _read_as_tensor_map(buf, rows, cols):
+    """The (rows, cols) a tensor map of the true extents reads from a
+    buffer at its padded leading dimension."""
+
+    return torch.as_strided(buf, (rows, cols), (buf.shape[1], 1))
+
+
+# (M, K, N) that TMA cannot describe as they lie: the smoke's ragged
+# strides, a K and an N below one 16-byte row, N and K the other way round
+ROUTE_SHAPES = [(300, 257, 130), (64, 9, 25), (33, 130, 257)]
+
+
+@pytest.mark.parametrize("M,K,N", ROUTE_SHAPES)
+def test_bf16_route_emulated_through_the_stage_matches_the_reference_kernel(M, K, N):
+    """The bf16 route in plain arithmetic: staging(), the stage, then the
+    product read through the padded strides (exact bf16 products summed in
+    f32, as wgmma does), against the Pallas kernel within 3e-2 sqrt(K)."""
+
+    a, b = _operands(M, K, N, seed=M + N)
+    ta, tb = torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16()
+    st = ops.staging(torch.bfloat16, M, K, N, ta.data_ptr(), tb.data_ptr())
+    assert st.a or st.b
+    sa, sb = ops.stage_bf16(ta, tb, st)
+    va, vb = _read_as_tensor_map(sa, M, K), _read_as_tensor_map(sb, K, N)
+    out = torch.matmul(va.float(), vb.float()).bfloat16()
+    ref = ref_matmul(jnp.asarray(a).astype(jnp.bfloat16), jnp.asarray(b).astype(jnp.bfloat16),
+                     blk_m=64, blk_n=64, blk_k=64)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=3e-2 * K**0.5, rtol=3e-2)
+
+
+@pytest.mark.parametrize("M,K,N", ROUTE_SHAPES)
+def test_f32_route_emulated_through_the_padded_split_matches_the_reference_kernel(M, K, N):
+    """The 3xTF32 route in plain arithmetic: the padded split of A and of B
+    transposed, read through the padded stride as the tensor maps read it,
+    then the three TF32 products (exact in f64), against the Pallas kernel
+    within 2e-5 sqrt(K)."""
+
+    a, b = _operands(M, K, N, seed=M * N)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    st = ops.staging(torch.float32, M, K, N, ta.data_ptr(), tb.data_ptr())
+    a_hi, a_lo = (_read_as_tensor_map(t, M, K).double().numpy() for t in ops.split_tf32(ta))
+    bt_hi, bt_lo = (_read_as_tensor_map(t, N, K).double().numpy()
+                    for t in ops.split_tf32(tb, transpose=True))
+    assert ops.split_tf32(ta)[0].shape[1] == st.lda
+    out = a_lo @ bt_hi.T + a_hi @ bt_lo.T + a_hi @ bt_hi.T
+    np.testing.assert_allclose(out, _pallas_f32(a, b, 64), atol=2e-5 * K**0.5, rtol=2e-5)
+    # the same three products as the unpadded emulation (f64 sums, any order)
+    np.testing.assert_allclose(out, _three_tf32(a, b), rtol=1e-12, atol=1e-12)
 
 
 # ---------------------------------------------------------------------- #
@@ -477,8 +624,9 @@ def test_tf32x3_depth_rule():
     a, b = torch.zeros(8, 8), torch.zeros(8, 4)
     with pytest.raises(NotImplementedError, match="tma_wgmma_tf32x3"):
         ops.matmul(a, b, depth=4)
-    # f32 the FFMA kernel takes keeps its 1..4
-    assert ops.matmul(torch.zeros(8, 7), torch.zeros(7, 5), depth=4).shape == (8, 5)
+    # every f32 call takes the 3xTF32 route: strides TMA cannot describe too
+    with pytest.raises(NotImplementedError, match="tma_wgmma_tf32x3"):
+        ops.matmul(torch.zeros(8, 7), torch.zeros(7, 5), depth=4)
 
 
 def test_tf32x3_stages_is_the_deepest_ring_that_fits():
@@ -508,7 +656,8 @@ def test_every_entry_point_has_its_ctypes_signature():
     """Each ``extern "C"`` launcher of the matmul's sources is bound with
     as many pointers and ints as it declares."""
 
-    for src in (ops.SOURCE, ops.TMA_SOURCE, ops.TF32X3_SOURCE):
+    found = set()
+    for src in (ops.TMA_SOURCE, ops.TF32X3_SOURCE):
         for name, args in re.findall(
             r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()
         ):
@@ -516,6 +665,8 @@ def test_every_entry_point_has_its_ctypes_signature():
             ptrs = sum("void*" in p for p in params[:-1])
             assert params[-1] == "void* stream"
             assert ops._SIGNATURES[name] == (ptrs, len(params) - 1 - ptrs), name
+            found.add(name)
+    assert found == set(ops._SIGNATURES) and "pm_stage_bf16" in found
 
 
 # ---------------------------------------------------------------------- #
