@@ -86,23 +86,28 @@ non-zero:
    prefill shape (4 x 2048 tokens, 32 heads, GQA 4, hd 128, causal) in
    bf16 and f32, the same with gemma3's 1024-token window, an unaligned
    193 / 201 non-causal shape at hd 32, the same lengths at hd 128 (causal
-   and not) and granite's hd 64, both in bf16 and f32: launch counts per
-   route from the main run (at hd 64 and 128 bf16 takes the TMA / wgmma
-   kernel and f32 the 3xTF32 one, a K/V split pre-pass and TF32 wgmma
-   products; at hd 32 bf16 takes the cp.async / mma.sync kernel and f32
-   FFMA), the split's launches, the largest row-relative error, the same
-   check's reading of two planted faults (a key edge off by one, a 64-key
-   tile dropped), which must exceed its limit; on the 3xTF32 route also
-   the error against an f64 plain version as a share of the limit, and a
-   1xTF32 emulation that must read above it; the one-hot probes on both
-   TMA routes (exact); the split bit-equal to its plain version; every
-   route at a query offset (prefill continuation) against the plain
-   version, with the offset off by one as a planted fault; time, bound,
-   plain and ``scaled_dot_product_attention`` times; at the yi-6b
-   prefill the bf16 TMA kernel at ring depths 1, 2 and its default, the
-   cp.async kernel and SDPA are timed in turns, and so are the 3xTF32
-   route at every depth, the FFMA kernel and SDPA, with its other key
-   tile timed against its default; then the few-row route
+   and not), granite's hd 64, all-MiniLM-L6-v2's attention at hd 32 (64 x
+   512 tokens, 12 heads) and the smoke configs' hd 16 at granite's prefill
+   geometry, each in bf16 and f32: launch counts per route from the main
+   run (every bf16 call on the TMA / wgmma kernel, every f32 call on the
+   3xTF32 one, a K/V split pre-pass and TF32 wgmma products, at hd 16, 32,
+   64 and 128 alike), the split's launches, the largest row-relative
+   error, the same check's reading of two planted faults (a key edge off
+   by one, a 64-key tile dropped), which must exceed its limit; on the
+   3xTF32 route also the error against an f64 plain version as a share of
+   the limit, and a 1xTF32 emulation that must read above it; the one-hot
+   probes on both TMA routes at every hd (exact); the split bit-equal to
+   its plain version at every hd; every route at a query offset (prefill
+   continuation) against the plain version, with the offset off by one as
+   a planted fault; time, bound (bytes, products, or one exp2 a live pair
+   on the special-function units), plain and
+   ``scaled_dot_product_attention`` times; at the yi-6b prefill the bf16
+   TMA kernel at ring depths 1, 2 and its default and SDPA are timed in
+   turns, and so are the 3xTF32 route at every depth and SDPA; at hd 16
+   and 32 the route, SDPA and the hd-64 route on zero-padded operands in
+   the same rounds, each's device time alone (L2 flushed), host enqueue
+   time and single launch;
+   then the few-row route
    ``flash_decode`` (``DECODE_CASES``: whisper's cross shapes, yi-6b's
    and granite's decode positions at 1, 4 and 16 rows, with and without a
    window), one clustered launch a call: the kernel against ``flash_decode_ref``'s steps at its key
@@ -208,8 +213,10 @@ non-zero:
    and ``pp_lowering.main``; (c) and (d) run on the host beside phase
    7g's device-bound cells (mamba2, deepseek) and are read before (a);
    (e) internlm2's
-   smoke config (hd 8, on the zero-padded hd-16 kernel) against the CPU,
-   and transposed matmul operands against the plain version;
+   smoke config (hd 8, on the zero-padded hd-16 kernels) in f32 against
+   the CPU and in bf16 against a plain-attention rerun with a planted
+   causal-edge fault, and transposed matmul operands against the plain
+   version;
 8. one JSON line listing every kernel with its numbers;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -233,11 +240,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-# a sleep kernel of this many clocks (~2 ms) holds the device while the host
-# enqueues the launches whose device times are read
+# a sleep kernel of this many clocks (~2 ms; in _held_times, this many a
+# call timed) holds the device while the host enqueues the launches whose
+# device times are read
 HOLD_CYCLES = 4_000_000
 # f32: CUDA cores (FFMA); tf32: the tensor cores, one TF32 product
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
+# ex2 on the special-function units: 16 a clock an SM (4 a sub-partition),
+# 132 SMs, at the 1830 MHz that the 989 TFLOP/s bf16 figure assumes (4096
+# dense bf16 FLOP a clock an SM)
+EX2_PER_S = 16 * 132 * 1830e6
 TOL = {"bf16": 3e-2, "f32": 2e-5}  # matmul: tests/test_kernels.py; atol x sqrt(K)
 # flash attention: the largest relative L2 error of one output row (one
 # query position of one head) against the plain version in f32.  A row's
@@ -249,7 +261,6 @@ ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 TMA_KERNEL_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_matmul.cu"
 TF32X3_SOURCE = "src/repro_torch/kernels/pipelined_matmul/csrc/tma_wgmma_tf32x3.cu"
 TPU_KERNEL = "src/repro/kernels/pipelined_matmul/kernel.py:24"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TMA_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash.cu"
 TF32X3_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/tma_wgmma_flash_tf32x3.cu"
 DECODE_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
@@ -261,8 +272,12 @@ FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:31"
 # tests/test_kernels.py's unaligned 193 / 201 (at hd 32, and at hd 128
 # with GQA, where the TMA kernel zero-fills the ragged ends and masks the
 # stores), and granite-3-2b's hd 64 (32 heads, GQA 8); the first is the
-# shape the serving phase gives it.  f32 at hd 64 and 128 takes the 3xTF32
-# route, at hd 32 FFMA
+# shape the serving phase gives it.  Below hd 64, two real-width shapes
+# (no full-size config of the repo has hd 16 or 32): all-MiniLM-L6-v2's
+# attention (hidden 384, 12 heads of 32, 512 positions) at 64 x 512
+# tokens, and the smoke configs' hd 16 at granite-3-2b's prefill geometry.
+# Every bf16 case takes the TMA / wgmma kernel, every f32 case the 3xTF32
+# one
 FLASH_CASES = [
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "bf16"),
     ("yi-6b prefill", 4, 2048, 2048, 32, 4, 128, True, None, "f32"),
@@ -276,11 +291,16 @@ FLASH_CASES = [
     ("ragged 193/201 hd 128", 1, 193, 201, 4, 2, 128, False, None, "f32"),
     ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "bf16"),
     ("granite-3-2b hd 64", 4, 2048, 2048, 32, 8, 64, True, None, "f32"),
+    ("minilm_hd32", 64, 512, 512, 12, 12, 32, False, None, "bf16"),
+    ("minilm_hd32", 64, 512, 512, 12, 12, 32, False, None, "f32"),
+    ("hd16_prefill", 4, 2048, 2048, 32, 8, 16, True, None, "bf16"),
+    ("hd16_prefill", 4, 2048, 2048, 32, 8, 16, True, None, "f32"),
 ]
 # (B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype): every route at a
 # query offset, the prefill continuation of the reference's
 # chunked_attention: the last 256 of yi-6b's 2048 positions (causal, and
-# with gemma3's window), and 193 rows after 208 at hd 32
+# with gemma3's window), and 193 rows after 208 at hd 32 (on the TMA
+# routes, as at every hd)
 FLASH_Q_OFFSET_CASES = [
     (1, 256, 2048, 32, 4, 128, True, None, 1792, "bf16"),
     (1, 256, 2048, 32, 4, 128, True, None, 1792, "f32"),
@@ -291,13 +311,17 @@ FLASH_Q_OFFSET_CASES = [
 ]
 # (B, Sq, Sk, H, KV, hd, keyword arguments): the one-hot probes on both TMA
 # routes, bf16 and f32 (repro_torch.kernels.flash_attention.probe), several
-# tiles, ragged ends, a window and V = I
+# tiles, ragged ends, a window and V = I, at hd 128, 64, 32 and 16
 FLASH_PROBES = [
     (2, 1024, 1024, 8, 2, 128, dict(causal=True)),
     (1, 193, 201, 4, 2, 128, dict(causal=False)),
     (2, 1024, 1024, 8, 2, 128, dict(causal=True, window=300, identity_v=True)),
     (2, 1024, 1024, 8, 2, 64, dict(causal=True)),
     (1, 193, 201, 4, 4, 64, dict(causal=False, identity_v=True)),
+    (2, 1024, 1024, 8, 2, 32, dict(causal=True)),
+    (1, 193, 201, 4, 4, 32, dict(causal=False, identity_v=True)),
+    (2, 520, 520, 4, 2, 16, dict(causal=True, window=130)),
+    (1, 193, 201, 4, 2, 16, dict(causal=False, identity_v=True)),
 ]
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset): the flash_decode
@@ -1574,8 +1598,16 @@ def pipeline_phase(torch, smi):
                 plain = PipelineRunner([_pp_stage(torch, ws) for ws in w], skips=skips,
                                        num_microbatches=1)
                 want = torch.zeros_like(xs)
-                for m in range(world - 1, PP_MICROBATCHES):
-                    (want[m],) = plain.run_reference([xs[m - (world - 1)]])
+                # one thread, as each rank runs: a CPU product on several
+                # threads sums K in another order, which moved this check by
+                # 8e-5 to 9e-5 on some hosts
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    for m in range(world - 1, PP_MICROBATCHES):
+                        (want[m],) = plain.run_reference([xs[m - (world - 1)]])
+                finally:
+                    torch.set_num_threads(threads)
                 err = (torch.from_numpy(rows[-1]["acc"]) - want).abs().max().item()
                 check(err <= PP_GLOO_TOL, f"pipeline step (gloo {world}, skips {skips}): the last "
                                           f"stage's outputs differ from the plain chain by {err}")
@@ -1613,12 +1645,10 @@ def kloop_phase():
         HOPPER_PROCESSORS,
         hopper_plan,
         hopper_schedule,
-        kernel_schedule,
     )
 
     for depth in (1, 2):
         p = schedule.plan_pipeline(depth)
-        ks = kernel_schedule(depth)
         emit(
             "kloop plan: "
             + json.dumps(
@@ -1628,8 +1658,6 @@ def kloop_phase():
                     "waits_per_step": p.waits_per_step,
                     "credit_wait_needed": p.credit_wait_needed,
                     "overlapped_levels": schedule.overlapped_levels(p.wavefront),
-                    "kernel_waits": list(ks.waits),
-                    "kernel_barriers_per_step": ks.barriers_per_step,
                 }
             )
         )
@@ -2204,21 +2232,27 @@ def live_pairs(Sq, Sk, causal, window, q_offset=0):
 
 def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt, elt, route=None,
                 q_offset=0, live_keys=None):
-    """(bound ms, what bounds it, FLOP): each input read once and the
-    output written once over the memory rate (K and V: the ``live_keys``
-    some row keeps, by default all Sk); QK^T and PV on the live pairs (2
-    FLOP per multiply-add each) over the peak rate of the type, and on the
-    3xTF32 route three TF32 products of each at the TF32 rate."""
+    """(bound ms, what bounds it, FLOP): the largest of three times.  Each
+    input read once and the output written once over the memory rate
+    (``"bytes"``; K and V: the ``live_keys`` some row keeps, by default all
+    Sk); QK^T and PV on the live pairs (2 FLOP per multiply-add each) over
+    the peak rate of the type, and on the 3xTF32 route three TF32 products
+    of each at the TF32 rate (``"operations"``); one exp2 a live pair over
+    the special-function units' rate (``"exp"``: below hd 64 it bounds the
+    bf16 route)."""
 
     kv_rows = Sk if live_keys is None else live_keys
     nbytes = (2 * B * Sq * H * hd + 2 * B * kv_rows * KV * hd) * elt
-    flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window, q_offset)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    pairs = B * H * live_pairs(Sq, Sk, causal, window, q_offset)
+    flops = 4.0 * hd * pairs
     if route == "tma_wgmma_tf32x3":
         t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
     else:
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), flops
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": t_ops,
+             "exp": pairs / EX2_PER_S * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by, flops
 
 
 def row_rel_err(out, ref) -> float:
@@ -2307,13 +2341,15 @@ def _sdpa(torch, q, k, v, causal, window):
 
 def expected_flash_route(dt, hd, sq=None, group=1):
     """The flash route rule, written out independently of ``ops.route``:
-    the operands here are fresh allocations, so 16-byte aligned."""
+    the operands here are fresh allocations, so 16-byte aligned.  Every f32
+    call on the 3xTF32 kernel; bf16 on flash_decode at hd 64 / 128 with few
+    rows, else on the TMA / wgmma kernel."""
 
     if dt == "f32":
-        return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
+        return "tma_wgmma_tf32x3"
     if hd in (64, 128) and sq is not None and sq <= DECODE_MAX_SQ and sq * group <= DECODE_MAX_ROWS:
         return "flash_decode"
-    return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
+    return "tma_wgmma"
 
 
 def attention_f64(torch, q, k, v, causal, window):
@@ -2357,19 +2393,14 @@ def ptxas_lines(log, pattern=r"flash_bf16_tma_kernelILi(\d+)ELi(\d+)E", key="hd{
 
 def _tf32x3_checks(torch, q, k, v, out, causal, window):
     """The 3xTF32 route's error against an f64 plain version as a share of
-    the f32 row limit, beside the FFMA kernel's, the 3xTF32 emulation's and
-    a 1xTF32 emulation's (which must read above the limit), and the 1xTF32
-    emulation against the f32 plain version."""
+    the f32 row limit, beside the 3xTF32 emulation's and a 1xTF32
+    emulation's (which must read above the limit)."""
 
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_tf32x3_ref
 
     kw = dict(causal=causal, window=window)
     ref64 = attention_f64(torch, q, k, v, causal, window)
     shares = {"kernel": row_share_f64(out, ref64)}
-    ffma = ops._flash_cu(q, k, v, **kw)
-    shares["ffma"] = row_share_f64(ffma, ref64)
-    del ffma
     for terms, name in ((3, "emulated_3xtf32"), (1, "emulated_1xtf32")):
         emu = flash_attention_tf32x3_ref(q, k, v, terms=terms, **kw)
         shares[name] = row_share_f64(emu, ref64)
@@ -2377,7 +2408,6 @@ def _tf32x3_checks(torch, q, k, v, out, causal, window):
     del ref64
     torch.cuda.empty_cache()
     check(shares["kernel"] <= 1, f"flash 3xTF32: {shares['kernel']} of the limit against f64")
-    check(shares["ffma"] <= 1, f"flash FFMA kernel: {shares['ffma']} of the limit against f64")
     check(
         shares["emulated_1xtf32"] > 1,
         f"flash: the 1xTF32 emulation reads {shares['emulated_1xtf32']} of the "
@@ -2387,8 +2417,9 @@ def _tf32x3_checks(torch, q, k, v, out, causal, window):
 
 
 def _split_entry(torch, ops, k, v, launches):
-    """The K/V split pre-pass at the yi-6b f32 prefill's k and v, and at a
-    KV-cache slice with a ragged Sk: bit-equal to its plain version, its
+    """The K/V split pre-pass at the yi-6b f32 prefill's k and v, at
+    KV-cache slices with a ragged Sk at hd 128, 64, 32 and 16, and at a
+    broadcast batch (a zero stride): bit-equal to its plain version; its
     time against its byte bound."""
 
     from repro_torch.kernels.flash_attention.ref import split_kv_tf32_ref
@@ -2397,7 +2428,11 @@ def _split_entry(torch, ops, k, v, launches):
     cache = torch.randn(2, 640, 8, 128, device="cuda", generator=gen)
     err = 0.0
     for kk, vv in ((k, v), (cache[:, :201, :4], cache[:, :201, 4:]),
-                   (cache[:, :333, :2, :64], cache[:, :333, 2:4, 64:])):
+                   (cache[:, :333, :2, :64], cache[:, :333, 2:4, 64:]),
+                   (cache[:, :201, :2, :32], cache[:, :201, 2:4, 32:64]),
+                   (cache[:, :77, :4, :16], cache[:, :77, 4:, 16:32]),
+                   (cache[:1, :100, :2, :32].expand(2, -1, -1, -1),
+                    cache[:1, :100, 2:4, 32:64].expand(2, -1, -1, -1))):
         got, want = ops.split_kv_tf32(kk, vv), split_kv_tf32_ref(kk, vv)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
@@ -2580,48 +2615,36 @@ def flash_phase(torch):
         )
         reps = 21 if flops > 1e10 else 101
         library = lambda: _sdpa(torch, q, k, v, causal, window)  # noqa: E731
-        extra = {}
-        if routes[case] in ("tma_wgmma", "tma_wgmma_tf32x3"):
-            # the TMA kernel at each ring depth, flash_attention.cu's kernel
-            # of the same dtype (cp.async / mma.sync, or FFMA) on the same
-            # tensors and SDPA, in turns (one launch each a round)
-            tf32 = routes[case] == "tma_wgmma_tf32x3"
-            if tf32:
-                old, old_key = (lambda: ops._flash_cu(q, k, v, **kw)), "ffma_ms"
-                default = ops.tf32x3_default_depth(hd)
-            else:
-                old, old_key = (lambda: ops._flash_cu(q, k, v, **kw)), "cp_async_mma_ms"
-                default = ops.default_depth(hd)
-            if label != "yi-6b prefill":
-                depths = (default,)
-            else:
-                depths = range(1, default + 1) if tf32 else (1, 2, default)
-            by_depth = {}
-            for d in depths:
-                kernel = lambda d=d: ops.flash_attention(q, k, v, depth=d, **kw)  # noqa: E731
-                ms_d, old_ms, lib_ms = _time_turns_ms(torch, [kernel, old, library], reps)
-                by_depth[d] = {"ms": ms_d, old_key: old_ms, "library_ms": lib_ms,
-                               "tflops": flops / ms_d / 1e9}
-                if tf32:
-                    by_depth[d]["ptxas"] = ptxas_tf32.get(f"hd{hd} BK{ops.TF32X3_BK[hd]} D{d}")
-                else:
-                    by_depth[d]["ptxas"] = ptxas.get(f"hd{hd} D{d}")
-            ms, library_ms = by_depth[default]["ms"], by_depth[default]["library_ms"]
-            # the kernel alone, back to back: what the turns' neighbours
-            # (a 1.4 ms masked SDPA in the window case) do to its clock
-            ms_alone = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
-            extra = {"depth": default, old_key: by_depth[default][old_key],
-                     "ms_alone": ms_alone, "by_depth": by_depth,
-                     "timed_in_turns": ["ms", old_key, "library_ms"]}
-            if tf32:
-                extra["bound_rate"] = "3xTF32: 3 x 4 hd FLOP a live pair at 495 TFLOP/s"
-                extra["f64_limit_share"] = shares
-                extra["host_path"] = _host_path(torch, ops, q, k, v, causal, window, reps)
+        # the TMA kernel at each ring depth and SDPA, in turns (one launch
+        # each a round)
+        tf32 = routes[case] == "tma_wgmma_tf32x3"
+        default = (ops.tf32x3_default_depth if tf32 else ops.default_depth)(hd)
+        if label != "yi-6b prefill":
+            depths = (default,)
         else:
-            ms, library_ms = _time_turns_ms(
-                torch, [lambda: ops.flash_attention(q, k, v, **kw), library], reps
-            )
-            extra = {"timed_in_turns": ["ms", "library_ms"]}
+            depths = range(1, default + 1) if tf32 else (1, 2, default)
+        tile = ops.TF32X3_BK[hd] if tf32 else ops.TMA_BK
+        by_depth = {}
+        for d in depths:
+            kernel = lambda d=d: ops.flash_attention(q, k, v, depth=d, **kw)  # noqa: E731
+            ms_d, lib_ms = _time_turns_ms(torch, [kernel, library], reps)
+            by_depth[d] = {"ms": ms_d, "library_ms": lib_ms, "tflops": flops / ms_d / 1e9,
+                           "ptxas": ptxas_tf32.get(f"hd{hd} BK{tile} D{d}") if tf32
+                           else ptxas.get(f"hd{hd} D{d}")}
+        ms, library_ms = by_depth[default]["ms"], by_depth[default]["library_ms"]
+        # the kernel alone, back to back: what the turns' neighbours
+        # (a 1.4 ms masked SDPA in the window case) do to its clock
+        ms_alone = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
+        extra = {"depth": default, "key_tile": tile, "ms_alone": ms_alone,
+                 "by_depth": by_depth, "timed_in_turns": ["ms", "library_ms"]}
+        if hd < 64:
+            extra["small_hd"] = _small_hd_times(torch, ops, q, k, v, causal, window, reps)
+        if tf32:
+            extra["bound_rate"] = "3xTF32: 3 x 4 hd FLOP a live pair at 495 TFLOP/s"
+            extra["f64_limit_share"] = shares
+            extra["host_path"] = _host_path(torch, ops, q, k, v, causal, window, reps)
+        elif bound_by == "exp":
+            extra["bound_rate"] = f"exp: one ex2 a live pair at {EX2_PER_S:.4g} a second"
         plain_ms = _time_ms(torch, lambda: flash_attention_bshd_ref(q, k, v, **kw), 5)
         row = {
             "case": f"{label}, {dt}",
@@ -2649,28 +2672,25 @@ def flash_phase(torch):
 
 
 def _host_path(torch, ops, q, k, v, causal, window, reps):
-    """Where one call of the 3xTF32 route spends its time, beside the FFMA
-    kernel's: the host's time to enqueue each call (``perf_counter``, the
-    device idle before it; ``launch``: the route's one ctypes call alone)
-    and the device time of the split alone, of the route's two launches
-    and of the FFMA kernel (CUDA events around each, enqueued while a sleep
-    kernel holds the device, so the host's gaps do not show in them).
-    Medians of ``reps`` rounds, after two."""
+    """Where one call of the 3xTF32 route spends its time: the host's time
+    to enqueue the call (``perf_counter``, the device idle before it;
+    ``launch``: the route's one ctypes call alone) and the device time of
+    the split alone and of the route's two launches (CUDA events around
+    each, enqueued while a sleep kernel holds the device, so the host's
+    gaps do not show in them).  Medians of ``reps`` rounds, after two."""
 
     kw = dict(causal=causal, window=window)
     sched = ops._tma_schedule(q.shape[-1], None, "tma_wgmma_tf32x3")
     o = torch.empty_like(q)
-    host = {"route_call": [], "ffma_call": [], "launch": []}
-    device = {"split": [], "split_and_product": [], "ffma": [], "held": []}
+    host = {"route_call": [], "launch": []}
+    device = {"split": [], "split_and_product": [], "held": []}
     for _ in range(reps + 2):
-        for name, fn in (("route_call", lambda: ops.flash_attention(q, k, v, **kw)),
-                         ("ffma_call", lambda: ops._flash_cu(q, k, v, **kw))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            host[name].append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t0 = time.perf_counter()
+        ops.flash_attention(q, k, v, **kw)
+        host["route_call"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         torch.cuda._sleep(HOLD_CYCLES)
         ev[1].record()
@@ -2680,21 +2700,60 @@ def _host_path(torch, ops, q, k, v, causal, window, reps):
         ops._launch_tf32x3(q, k, v, o, causal, window, 0, sched)
         host["launch"].append((time.perf_counter() - t0) * 1e3)
         ev[3].record()
-        ops._flash_cu(q, k, v, **kw)
-        ev[4].record()
-        ev[4].synchronize()
-        for i, name in enumerate(("held", "split", "split_and_product", "ffma")):
+        ev[3].synchronize()
+        for i, name in enumerate(("held", "split", "split_and_product")):
             device[name].append(ev[i].elapsed_time(ev[i + 1]))
     med = {f"host_{n}_ms": statistics.median(t[2:]) for n, t in host.items()}
     med |= {f"device_{n}_ms": statistics.median(t[2:]) for n, t in device.items()}
     # the sleep must outlast the host's enqueue of the launches behind it,
     # or a host gap shows in the device times
     check(
-        med["device_held_ms"] > 2 * (med["host_route_call_ms"] + med["host_ffma_call_ms"]),
+        med["device_held_ms"] > 2 * med["host_route_call_ms"],
         f"flash host path: the sleep ({med['device_held_ms']} ms) does not hold the device "
         "while the host enqueues",
     )
     return med
+
+
+def padded_64(ops, q, k, v, **kw):
+    """The call at hd 16 or 32 on the hd-64 route instead: q, k and v
+    zero-padded to 64 (``ref.pad_head_dim``), the true hd's scale, the
+    output sliced back; the yardstick of whether a native small-hd kernel
+    is worth more than padding."""
+
+    from repro_torch.kernels.flash_attention.ref import pad_head_dim
+
+    hd = q.shape[-1]
+    o = ops.flash_attention(*(pad_head_dim(t, 64) for t in (q, k, v)), _scale=hd**-0.5, **kw)
+    return o[..., :hd].contiguous()
+
+
+def _small_hd_times(torch, ops, q, k, v, causal, window, reps):
+    """At hd 16 or 32: the route's call, SDPA and the padded-64 call
+    (:func:`padded_64`), in the same rounds: the device time alone (L2
+    flushed) and the host's enqueue time (:func:`_held_times`), and the
+    single launch between events (:func:`_time_turns_ms`); and the padded
+    call's error against the plain version."""
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bshd_ref
+
+    kw = dict(causal=causal, window=window)
+    ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
+    padded_err = row_rel_err(padded_64(ops, q, k, v, **kw), ref)
+    del ref
+    dt = "f32" if q.dtype == torch.float32 else "bf16"
+    check(padded_err <= ROW_TOL[dt], f"flash padded-64 at hd {q.shape[-1]}: row error {padded_err}")
+    fns = {"route": lambda: ops.flash_attention(q, k, v, **kw),
+           "sdpa": lambda: _sdpa(torch, q, k, v, causal, window),
+           "padded_64": lambda: padded_64(ops, q, k, v, **kw)}
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    n = min(reps, 31)
+    held = _held_times(torch, fns, n, flush)
+    del flush
+    single = dict(zip(fns, _time_turns_ms(torch, list(fns.values()), n)))
+    return {"padded_64_max_row_rel_err": padded_err, "reps": n,
+            **{f"{f}_{m}": held[f][m] for f in fns for m in ("device_ms", "host_ms")},
+            **{f"{f}_single_ms": single[f] for f in fns}}
 
 
 def _tma_call(ops, q, k, v, **kw):
@@ -2731,16 +2790,18 @@ def _held_times(torch, fns, reps, flush, host_calls=5):
     a host-bound decode step pays a call) and the device time of one call
     alone (CUDA events around it, enqueued while another sleep holds the
     device, each after ``flush`` is read, so that the host's gaps do not
-    show and K and V come from HBM as each decoder layer's do).  Medians of
-    ``reps`` rounds, after two."""
+    show and K and V come from HBM as each decoder layer's do).  Each sleep
+    is ``HOLD_CYCLES`` a call of the round.  Medians of ``reps`` rounds,
+    after two."""
 
     Event = torch.cuda.Event
+    hold = HOLD_CYCLES * len(fns)
     host = {n: [] for n in fns}
     dev = {n: [] for n in fns}
     held = []
     for _ in range(reps + 2):
         torch.cuda.synchronize()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         for name, fn in fns.items():
             t0 = time.perf_counter()
             for _ in range(host_calls):
@@ -2749,7 +2810,7 @@ def _held_times(torch, fns, reps, flush, host_calls=5):
         torch.cuda.synchronize()
         h0, h1 = Event(enable_timing=True), Event(enable_timing=True)
         h0.record()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         h1.record()
         marks = []
         for name, fn in fns.items():
@@ -5312,8 +5373,10 @@ def _launch_train_check(torch, cfg, opt, state, batch):
 
 def _launch_repairs(torch):
     """Phase 7h (e): internlm2's smoke config (hd 8) served on the card
-    through the flash kernel (zero-padded to hd 16) against the same
-    weights on the CPU, and transposed operands through the matmul kernel
+    through the flash kernel (zero-padded to hd 16): in f32 on the 3xTF32
+    route against the same weights on the CPU, in bf16 on the TMA / wgmma
+    route against a plain-attention rerun on the card, with a planted
+    causal-edge fault; and transposed operands through the matmul kernel
     against its plain version."""
 
     from repro_torch.configs import get_smoke_config
@@ -5321,6 +5384,7 @@ def _launch_repairs(torch):
     from repro_torch.kernels.pipelined_matmul.ref import matmul_ref
     from repro_torch.launch import serve_lm
     from repro_torch.models import model_zoo
+    from repro_torch.models.attention import chunked_attention_plain
 
     cfg = get_smoke_config("internlm2_20b").scaled(dtype="float32")
     check(cfg.head_dim == 8, f"internlm2 smoke: hd {cfg.head_dim}")
@@ -5331,12 +5395,38 @@ def _launch_repairs(torch):
     on_cuda = serve_lm.generate(tree_to(params, "cuda"), cfg, tree_to(batch, "cuda"), 6)
     launches, routes, _ = _read_counts()
     err = (on_cuda.prefill_logits.cpu() - on_cpu.prefill_logits).abs().max().item()
-    check(launches == cfg.num_layers, f"internlm2 smoke: {launches} flash launches")
+    check(launches == routes["tma_wgmma_tf32x3"] == cfg.num_layers,
+          f"internlm2 smoke f32: {launches} flash launches, routes {routes}")
     check(err <= 1e-4, f"internlm2 smoke: logits {err} off the CPU's")
     rows = {"internlm2_smoke_hd8": {"flash_launches": launches, "flash_routes": routes,
                                     "prefill_logits_max_abs_err": err, "limit": 1e-4,
                                     "tokens_equal": bool(torch.equal(on_cuda.tokens.cpu(),
                                                                      on_cpu.tokens))}}
+    # bf16: the kernel's logits against a plain-attention rerun on the card
+    # (phase 7's limit), and a rerun with the causal edge off by one, which
+    # the same check must fail
+    cfg = get_smoke_config("internlm2_20b").scaled(dtype="bfloat16")
+    params = model_zoo.init(cfg, device="cuda", seed=SEED)
+    batch = serve_lm.make_batch(cfg, 2, 24, device="cuda", seed=SEED + 1)
+    _reset_counts()
+    run = serve_lm.generate(params, cfg, batch, 6)
+    launches, routes, _ = _read_counts()
+    with _attention_replaced(chunked_attention_plain):
+        plain = serve_lm.generate(params, cfg, batch, 6)
+    with _attention_replaced(_causal_edge_off_by_one):
+        faulty = serve_lm.generate(params, cfg, batch, 6)
+    rel = _logit_rel(run.prefill_logits, plain.prefill_logits, cfg.vocab_size)
+    fault_rel = _logit_rel(faulty.prefill_logits, plain.prefill_logits, cfg.vocab_size)
+    check(launches == routes["tma_wgmma"] == cfg.num_layers,
+          f"internlm2 smoke bf16: {launches} flash launches, routes {routes}")
+    check(rel <= SERVE_LOGIT_RTOL, f"internlm2 smoke bf16: logits {rel} off the plain rerun's")
+    check(fault_rel > SERVE_LOGIT_RTOL,
+          f"internlm2 smoke bf16: the planted causal-edge fault reads {fault_rel}, inside "
+          f"the limit {SERVE_LOGIT_RTOL}: the check cannot see it")
+    rows["internlm2_smoke_hd8_bf16"] = {
+        "flash_launches": launches, "flash_routes": routes, "logits_vs_plain_rel_l2": rel,
+        "logits_rel_l2_limit": SERVE_LOGIT_RTOL, "logits_planted_fault_rel_l2": fault_rel,
+        "tokens_equal_plain": bool(torch.equal(run.tokens, plain.tokens))}
     for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         a = torch.randn(264, 192, device="cuda").to(dt).t()
         b = torch.randn(136, 264, device="cuda").to(dt).t()
@@ -5405,23 +5495,38 @@ def whisper_entries(shapes):
                                    "timed_in_turns", "timed_held_cold_l2")},
             **{k: row[k] for k in ("tma_wgmma_ms", "tma_wgmma_device_ms", "tma_wgmma_host_ms")
                if k in row},
+            **contract_bound(row["bound_by"]),
         })
     return entries
 
 
+def contract_bound(term):
+    """The kernels line's ``bound_by`` (``"bytes"`` or ``"operations"``)
+    for a bound term of :func:`flash_bound`, beside the term itself: the
+    exp term is operations of the special-function units."""
+
+    return {"bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term}
+
+
 def flash_entries(rows, serve_launches, phase_launches):
-    """The kernels-line entries of the flash kernels, one per route taken:
-    ``tma_wgmma`` at the shape the serving phase gives it (its launches are
-    the serving runs' of phases 7, 7c-7f and 7h), ``tma_wgmma_tf32x3`` at the f32 prefill, and
-    ``cp_async_mma`` and ``ffma`` at the unaligned hd-32 case (their
-    launches are phase 6's main run's)."""
+    """The kernels-line entries of the flash kernels, one per route and
+    shape picked: ``tma_wgmma`` at the shape the serving phase gives it
+    (its launches are the serving runs' of phases 7, 7c-7f and 7h) and at
+    the hd-32 and hd-16 shapes, ``tma_wgmma_tf32x3`` at the f32 prefill
+    and at the hd-32 and hd-16 shapes (their launches are phase 6's main
+    run's).  A bound set by the exp term is ``"operations"`` (ex2 on the
+    special-function units), named in ``bound_term``."""
 
     picks = [
         ("tma_wgmma", ("yi-6b prefill", "bf16"), serve_launches, TMA_FLASH_SOURCE),
-        ("cp_async_mma", ("unaligned 193/201", "bf16"), phase_launches["cp_async_mma"], FLASH_SOURCE),
+        ("tma_wgmma", ("minilm_hd32", "bf16"), phase_launches["tma_wgmma"], TMA_FLASH_SOURCE),
+        ("tma_wgmma", ("hd16_prefill", "bf16"), phase_launches["tma_wgmma"], TMA_FLASH_SOURCE),
         ("tma_wgmma_tf32x3", ("yi-6b prefill", "f32"), phase_launches["tma_wgmma_tf32x3"],
          TF32X3_FLASH_SOURCE),
-        ("ffma", ("unaligned 193/201", "f32"), phase_launches["ffma"], FLASH_SOURCE),
+        ("tma_wgmma_tf32x3", ("minilm_hd32", "f32"), phase_launches["tma_wgmma_tf32x3"],
+         TF32X3_FLASH_SOURCE),
+        ("tma_wgmma_tf32x3", ("hd16_prefill", "f32"), phase_launches["tma_wgmma_tf32x3"],
+         TF32X3_FLASH_SOURCE),
     ]
     entries = []
     for route, (label, dt), launches, source in picks:
@@ -5441,13 +5546,13 @@ def flash_entries(rows, serve_launches, phase_launches):
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
+            **contract_bound(row["bound_by"]),
             "library_ms": row["library_ms"],
             "reps": row["reps"],
             "tflops": row["tflops"],
         }
-        for key in ("depth", "cp_async_mma_ms", "ffma_ms", "timed_in_turns", "bound_rate",
-                    "f64_limit_share"):
+        for key in ("depth", "key_tile", "timed_in_turns", "bound_rate", "f64_limit_share",
+                    "small_hd"):
             if key in row:
                 entry[key] = row[key]
         entries.append(entry)

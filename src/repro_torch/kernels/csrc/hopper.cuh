@@ -5,7 +5,8 @@
 // lists of the wgmma shapes flash attention and the 3xTF32 matmul use, the
 // TF32 rounding, 16-byte reads of rows at any 2-byte aligned address,
 // register rebalancing, and the host-side encoding of 2-D (bf16, f32) and
-// 4-D TMA tensor maps.
+// 4-D TMA tensor maps (the 4-D ones swizzled by their box's row: 32, 64 or
+// 128 bytes).
 //
 // Included as "hopper.cuh" (kernels/_build.py passes this directory with
 // -I and folds every included header into the library's digest).
@@ -194,6 +195,35 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
   return d;
 }
 
+// The same for a 32-byte-swizzled operand (rows of 32 bytes; the swizzle
+// repeats every 256 bytes, so a tile's base must be 256-byte aligned).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(3) << 62;  // layout type 3: 32-byte swizzle
+  return d;
+}
+
+// The descriptor of an operand whose rows are ROW bytes (32, 64 or 128),
+// each ROW-byte row swizzled as TMA lands it (encode_4d with the swizzle
+// of the same width).  K-major: the next 8 rows are sbo = 8 ROW further and
+// a k-step is a 32-byte step along the row.  MN-major (V of PV): a row is
+// one key's ROW bytes of the N dim, the next 8 keys sbo = 8 ROW further,
+// the next ROW bytes of N lbo further.
+template <int ROW>
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a swizzle row of 32, 64 or 128 bytes");
+  if constexpr (ROW == 128)
+    return sw128_desc(addr, lbo, sbo);
+  else if constexpr (ROW == 64)
+    return sw64_desc(addr, lbo, sbo);
+  else
+    return sw32_desc(addr, lbo, sbo);
+}
+
 // Orders this thread's ordinary shared-memory writes before later reads by
 // the async proxy (wgmma operands, TMA); each writing thread runs it before
 // the barrier that hands the data to the warpgroup issuing the wgmma.
@@ -236,7 +266,7 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
 // shared memory and both K-major (imm-trans-a = imm-trans-b = 0); scale_d
 // = 0 overwrites D, 1 accumulates.
 //
-// wgmma_m64n{128,64}k16_rs: D[64 x N] += A[64 x 16] B[16 x N], A from
+// wgmma_m64n{128,64,32,16}k16_rs: D[64 x N] += A[64 x 16] B[16 x N], A from
 // registers and B MN-major in shared memory (imm-trans-b = 1).  A's four
 // registers hold bf16 pairs in the accumulator's layout for 16 columns:
 // a[0] rows r, columns 2 (lane % 4) + {0, 1}; a[1] rows r + 8, the same
@@ -313,6 +343,35 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // wgmma_m64n128k8_tf32_ss: D[64 x 128] (+)= A[64 x 8] B[8 x 128] on TF32
 // operands (f32 words whose low 13 bits the tensor core ignores; round
 // them first, e.g. with cvt.rna.tf32.f32), both from shared memory and both
@@ -350,7 +409,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
 // wgmma_m64n{16,32,64}k8_tf32_ss: D[64 x N] (+)= A[64 x 8] B[8 x N], both
 // K-major in shared memory, as wgmma_m64n128k8_tf32_ss.
 //
-// wgmma_m64n{64,128}k8_tf32_rs: D[64 x N] (+)= A[64 x 8] B[8 x N], A from
+// wgmma_m64n{16,32,64,128}k8_tf32_rs: D[64 x N] (+)= A[64 x 8] B[8 x N], A from
 // registers and B K-major in shared memory (.tf32 has no transpose bit, so
 // a B that is stored N-major has to be transposed before it lands).  A's
 // four registers hold TF32 values in f32 words: a[0] row r = 16 warp +
@@ -432,6 +491,35 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
@@ -609,13 +697,24 @@ static inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// A 4-D bf16 tensor in boxes of 128-byte rows (box[0] <= 64).
+// The swizzle whose span is a box row of `row_bytes` (32, 64 or 128): the
+// layout swizzled_desc<row_bytes> describes.  A row of another width has
+// none (CU_TENSOR_MAP_SWIZZLE_NONE), which no kernel here reads.
+static inline CUtensorMapSwizzle swizzle_for_row(uint32_t row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// A 4-D bf16 tensor in boxes of box[0] <= 64 columns, swizzled by the
+// box's row: 128 bytes (hd 64 and 128), 64 (hd 32) or 32 (hd 16).
 static inline int encode_bf16_4d(CUtensorMap* map, const void* base,
                                  const uint64_t dims[4],
                                  const uint64_t strides[3],
                                  const uint32_t box[4]) {
   return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides,
-                   box, CU_TENSOR_MAP_SWIZZLE_128B);
+                   box, swizzle_for_row(box[0] * 2));
 }
 
 }  // namespace hopper

@@ -651,7 +651,7 @@ bool params(Params* p, const void* q, void* o, const long long* dims,
       stages > MAX_STAGES)
     return false;
   for (int i = 0; i < 12; ++i)  // TMA boxes, 16-byte copies and stores
-    if (strides[i] % 8 || (i < 9 && strides[i] <= 0)) return false;
+    if (strides[i] % 8 || strides[i] < 0) return false;  // 0: a broadcast dim
   p->q = q;
   p->o = o;
   p->B = static_cast<int>(B);

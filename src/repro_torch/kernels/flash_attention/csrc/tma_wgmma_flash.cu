@@ -1,6 +1,6 @@
 // bf16 flash attention (forward) for Hopper (sm_90a) through TMA and
 // wgmma: O = softmax(Q K^T * scale + mask) V over q (B, Sq, H, hd) and k, v
-// (B, Sk, KV, hd) with GQA, hd 64 or 128, f32 softmax state.
+// (B, Sk, KV, hd) with GQA, hd 16, 32, 64 or 128, f32 softmax state.
 //
 // Replaces, for bf16 operands that TMA can describe, the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel, launched by
@@ -10,16 +10,35 @@
 // NEG_INF = -1e30 for masked scores, and acc / max(l, 1e-30) at the end.
 // Here the K grid dimension is a loop inside the block, and the block is
 // persistent: one block an SM walks work items, each a (b*h, 128-row Q
-// tile), keeping m, l and the accumulator of the item in registers.  Other
-// bf16 operands (hd 16 and 32) and all f32 operands take
-// flash_attention.cu (ops.route() decides; a rule, not a fallback).
+// tile), keeping m, l and the accumulator of the item in registers.  Every
+// bf16 call takes this kernel but those with few query rows at hd 64 / 128
+// (flash_decode.cu); f32 calls take tma_wgmma_flash_tf32x3.cu (ops.route()
+// decides; a rule, not a fallback).
 //
 // What bounds it on an H100: at the yi-6b prefill (4 x 2048 tokens, 32
 // heads of 128, GQA 4, causal) the work is 4 hd per live (q, k) pair,
 // 1.4e11 FLOP, against 151 MB of q, k, v and o: far above the ~295
 // FLOP/byte ridge, so it is bound by the tensor cores, 0.139 ms at the 989
-// TFLOP/s of bf16 wgmma.  flash_attention.cu's mma.sync kernel reached a
-// sixth of that.  What this design does about it:
+// TFLOP/s of bf16 wgmma.  The port's first, mma.sync kernel reached a sixth
+// of that.
+//
+// Below hd 64 a live pair costs 4 hd FLOP of products (64 at hd 16, 128 at
+// hd 32) and one exp2, and the special-function units give 16 exp2 a clock
+// an SM: 2.6e-13 s a pair at the 1830 MHz of the bf16 peak, against 6.5e-14
+// / 1.3e-13 s of products.  So there the softmax's exp, not the tensor
+// cores, bounds the kernel (all-MiniLM-L6-v2's attention, 64 x 512 tokens,
+// 12 heads of 32: 0.0521 ms).  The design keeps one exp2 a computed score
+// (scale * log2(e) folded into the FFMA before it; only diagonal, window-
+// edge and ragged tiles run the mask) and a 128-key tile, whose row max
+// and sum reductions are small beside its 64 exp2s a thread.  Measured on
+// an H100 (PERF.md): a 256-key tile was slower at the hd-16 prefill; a
+// degree-3 polynomial taking a quarter of the exps on the FMA pipe, two Q
+// buffers and issuing without turns were no faster at both real shapes;
+// none is kept.  Three consumer warpgroups did not build at the 256-key
+// tile (512 threads hold ptxas to 128 registers a thread, and its S asks
+// for 154).
+//
+// What this design does about it:
 //
 //   * both products on wgmma, Hopper's only path to the full tensor-core
 //     rate: S = Q K^T as m64n128k16 with Q and K K-major in shared memory
@@ -28,10 +47,11 @@
 //     wgmma's A fragment) and V MN-major in shared memory;
 //   * 128-row Q tiles over two consumer warpgroups of 64 rows, and K/V
 //     tiles of 128 keys: each K/V element staged in shared memory feeds
-//     128 query rows (flash_attention.cu: 64);
+//     128 query rows (the first kernel's: 64);
 //   * one producer warpgroup whose single elected thread issues every TMA
 //     copy (Q once an item; K and V of each tile into a ring of D stages, as
-//     128-byte-swizzled boxes of 64 hd columns by 128 rows); no consumer
+//     boxes of min(hd, 64) hd columns by 128 rows, each swizzled by its 32-,
+//     64- or 128-byte row); no consumer
 //     thread spends an instruction or a register on a copy, and setmaxnreg
 //     moves registers from the producer (24) to the consumers (240);
 //   * ping-pong: the two consumer warpgroups take turns issuing their
@@ -56,8 +76,8 @@
 //   * a 16-byte store epilogue: a quad exchanges its bf16 pairs (two
 //     shuffles a 16-byte group) so each thread stores 16 contiguous bytes.
 //
-// bf16 P: like flash_attention.cu and the reference's chunked_attention,
-// P is rounded to bf16 for the PV product; l is summed over the f32 P.
+// bf16 P: like the reference's chunked_attention, P is rounded to bf16
+// for the PV product; l is summed over the f32 P.
 //
 // The synchronization is the compiler's output, as in the TMA matmul.  The
 // wrapper (ops.py) plans the K-loop with pipelined_matmul.ops.
@@ -95,18 +115,21 @@
 // tensors' own strides (ops.tensor_map computes them; strides multiples
 // of 16 bytes, bases 16-byte aligned), so q, k and v are read in place and
 // a ragged Sk is zero-filled at the end of its own batch, never read from
-// the next.  Smem tiles are 1024-byte aligned: the 128-byte swizzle that
-// TMA applies and wgmma undoes repeats every 1024 bytes.  Descriptors:
-// Q and K K-major, SBO 1024 (the next 8 rows), a k16 step 32 bytes along
-// the 128-byte row and the next 64 hd columns in the next box; V MN-major
-// (transpose bit set), LBO = one box (the next 64 hd columns), SBO 1024
-// (the next 8 keys), a k16 step 16 rows = 2048 bytes further.
+// the next.  A zero stride (a broadcast dimension) is one the maps take.
+// Smem tiles are 1024-byte aligned: the swizzle that TMA applies and wgmma
+// undoes repeats every 8 rows of ROW = 2 min(hd, 64) bytes (256, 512 or
+// 1024 bytes).  Descriptors (hopper::swizzled_desc<ROW>): Q and K K-major,
+// SBO 8 ROW (the next 8 rows), a k16 step 32 bytes along the row and the
+// next 64 hd columns in the next box; V MN-major (transpose bit set), LBO
+// = one box (the next 64 hd columns), SBO 8 ROW (the next 8 keys), a k16
+// step 16 rows = 16 ROW bytes further.
 //
 // Masks are on query positions q_offset + i (the prefill continuation of
 // the reference's chunked_attention) and key positions j.
 //
 // Epilogue: O / max(l, 1e-30) in registers, converted to bf16, stored by
-// stride in 16-byte pieces with rows past Sq masked.
+// stride in 16-byte pieces (4-byte pairs at hd 16) with rows past Sq
+// masked.
 //
 // Plain C interface, loaded with ctypes; the tensor maps are encoded on the
 // host per call and passed as __grid_constant__ parameters.
@@ -122,7 +145,7 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 128;           // query rows a block: two consumer warpgroups
 constexpr int BK = 128;           // keys a K/V tile
-constexpr int BOX = 64;           // hd columns a swizzled box (128 bytes)
+constexpr int BOX = 64;           // hd columns of the widest box (128 bytes)
 constexpr int THREADS = 384;      // producer + 2 consumers
 constexpr int MAX_STAGES = 4;
 constexpr int PRODUCER_REGS = 24;
@@ -134,11 +157,17 @@ constexpr int SMEM_BYTES_EXTRA = 1024 + 8 * (2 + 2 * MAX_STAGES);  // align, bar
 static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
               "the register split must fit the SM's file");
 
+// The smem tiles of one hd: Q and each K / V tile as boxes of COLS =
+// min(hd, 64) hd columns, a box row of ROW = 2 COLS bytes (the swizzle's
+// span: 32, 64 or 128 bytes) by BQ or BK rows
 template <int HD>
 struct Layout {
-  static constexpr int BOXES = HD / BOX;
-  static constexpr int Q_BOX_BYTES = BQ * BOX * 2;   // 16 KB
-  static constexpr int KV_BOX_BYTES = BK * BOX * 2;  // 16 KB
+  static constexpr int COLS = HD < BOX ? HD : BOX;
+  static constexpr int ROW = 2 * COLS;
+  static constexpr int BOXES = HD / COLS;
+  static constexpr int KSTEPS = COLS / 16;            // k16 steps a box
+  static constexpr int Q_BOX_BYTES = BQ * ROW;
+  static constexpr int KV_BOX_BYTES = BK * ROW;
   static constexpr int Q_BYTES = BOXES * Q_BOX_BYTES;
   static constexpr int K_BYTES = BOXES * KV_BOX_BYTES;
   static constexpr int STAGE_BYTES = 2 * K_BYTES;    // K and V of one tile
@@ -202,14 +231,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// O += P V of 16 keys: m64n{HD}k16 RS
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (HD == 128)
     hopper::wgmma_m64n128k16_rs(o, a, desc_v);
-  else
+  else if constexpr (HD == 64)
     hopper::wgmma_m64n64k16_rs(o, a, desc_v);
+  else if constexpr (HD == 32)
+    hopper::wgmma_m64n32k16_rs(o, a, desc_v);
+  else
+    hopper::wgmma_m64n16k16_rs(o, a, desc_v);
 }
 
 template <int HD, int STAGES>
@@ -256,9 +290,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int j = 0; j < L::BOXES; ++j) {
             hopper::tma_load_4d(k_dst + j * L::KV_BOX_BYTES, &map_k, bar,
-                                j * BOX, it.kvh, kt * BK, it.b);
+                                j * L::COLS, it.kvh, kt * BK, it.b);
             hopper::tma_load_4d(k_dst + L::K_BYTES + j * L::KV_BOX_BYTES,
-                                &map_v, bar, j * BOX, it.kvh, kt * BK, it.b);
+                                &map_v, bar, j * L::COLS, it.kvh, kt * BK, it.b);
           }
           if (kt == it.kt_lo) {
             // this item's Q, once the previous item's last QK^T has
@@ -268,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int j = 0; j < L::BOXES; ++j)
               hopper::tma_load_4d(q_smem + j * L::Q_BOX_BYTES, &map_q, q_full,
-                                  j * BOX, it.h, it.q0, it.b);
+                                  j * L::COLS, it.h, it.q0, it.b);
             ++q_round;
           }
           if (++s == STAGES) {
@@ -286,7 +320,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int warp = tid / 32, lane = tid % 32;
     const int col0 = 2 * (lane % 4);  // within each 8-column group
     const bool signals = tid == 0;
-    const uint32_t q_base = q_smem + c * 64 * 128;  // this warpgroup's rows
+    const uint32_t q_base = q_smem + c * 64 * L::ROW;  // this warpgroup's rows
 
     float o[HD / 2];
     float sc[BK / 2];           // S of one tile, then P in f32
@@ -305,10 +339,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kk = 0; kk < HD / 16; ++kk)
         hopper::wgmma_m64n128k16_ss(
             sc,
-            hopper::sw128_desc(q_base + (kk / 4) * L::Q_BOX_BYTES + (kk % 4) * 32,
-                               16, 1024),
-            hopper::sw128_desc(k_base + (kk / 4) * L::KV_BOX_BYTES + (kk % 4) * 32,
-                               16, 1024),
+            hopper::swizzled_desc<L::ROW>(
+                q_base + (kk / L::KSTEPS) * L::Q_BOX_BYTES + (kk % L::KSTEPS) * 32,
+                16, 8 * L::ROW),
+            hopper::swizzled_desc<L::ROW>(
+                k_base + (kk / L::KSTEPS) * L::KV_BOX_BYTES + (kk % L::KSTEPS) * 32,
+                16, 8 * L::ROW),
             kk > 0);
       hopper::wgmma_commit();
     };
@@ -325,8 +361,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_pv<HD>(o, pf[kk],
-                     hopper::sw128_desc(v_base + kk * 16 * 128,
-                                        L::KV_BOX_BYTES, 1024));
+                     hopper::swizzled_desc<L::ROW>(v_base + kk * 16 * L::ROW,
+                                                   L::KV_BOX_BYTES, 8 * L::ROW));
       hopper::wgmma_commit();
     };
     auto retire_s = [&]() {
@@ -514,7 +550,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       // epilogue: the row sums over the quad, O / max(l, 1e-30), bf16.
       // A quad holds 8 columns of a row in each 8-column group, 4 bytes a
       // thread; two exchanges (lanes t ^ 1, then t ^ 2) give thread t all
-      // 16 bytes of group 4 m + t, stored with one 16-byte store.
+      // 16 bytes of group 4 m + t, stored with one 16-byte store (hd 16, two
+      // groups a row: each thread's 4-byte pairs as they are).
       __nv_bfloat16* og = O + it.b * p.o_sb + it.h * p.o_sh;
       const int t = lane % 4;
       const bool odd = t & 1, upper = t & 2;
@@ -526,6 +563,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float inv = 1.0f / fmaxf(sum, 1e-30f);
         const int qp = row0 + 8 * rr;
         __nv_bfloat16* row = og + static_cast<long long>(qp) * p.o_ss;
+        if constexpr (HD == 16) {
+          // 32 bytes a row: each thread stores its two bf16 pairs
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (qp < p.Sq)
+              *reinterpret_cast<uint32_t*>(row + 8 * j + col0) =
+                  pack_bf16(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+        }
 #pragma unroll
         for (int mq = 0; mq < HD / 32; ++mq) {
           uint32_t w[4];
@@ -611,13 +656,14 @@ extern "C" int fa_forward_tma(const void* q, const void* k, const void* v,
   const long long B = dims[0], H = dims[1], KV = dims[2], Sq = dims[3],
                   Sk = dims[4], hd = dims[5];
   if (!full || !empty || B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 ||
-      Sk <= 0 || (hd != 64 && hd != 128) || stages < 1 ||
+      Sk <= 0 || (hd != 16 && hd != 32 && hd != 64 && hd != 128) || stages < 1 ||
       stages > MAX_STAGES || B * H * ((Sq + BQ - 1) / BQ) > 0x7fffffffLL ||
       Sq > 0x3fffffffLL || Sk > 0x3fffffffLL || q_offset < -0x3fffffff ||
       q_offset > 0x3fffffff ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || o_strides[0] % 8 ||
       o_strides[1] % 8 || o_strides[2] % 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long cols = hd < BOX ? hd : BOX;
   const void* bases[3] = {q, k, v};
   const long long rows[3] = {BQ, BK, BK};
   const long long heads[3] = {H, KV, KV};
@@ -632,7 +678,7 @@ extern "C" int fa_forward_tma(const void* q, const void* k, const void* v,
     for (int i = 0; i < 4; ++i) box[i] = static_cast<uint32_t>(m[7 + i]);
     // the boxes this kernel's shared-memory tiles are laid out for
     if (m[0] != hd || m[1] != heads[t] || m[2] != seq[t] || m[3] != B ||
-        box[0] != BOX || box[1] != 1 ||
+        box[0] != cols || box[1] != 1 ||
         box[2] != rows[t] || box[3] != 1 ||
         reinterpret_cast<uintptr_t>(bases[t]) % 16 != 0 || st[0] % 16 ||
         st[1] % 16 || st[2] % 16)
@@ -656,6 +702,10 @@ extern "C" int fa_forward_tma(const void* q, const void* k, const void* v,
   p.q_offset = q_offset;
   p.scale_log2 = scale_log2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_stages<128>(stages, tm[0], tm[1], tm[2], o, p, st);
-  return launch_stages<64>(stages, tm[0], tm[1], tm[2], o, p, st);
+  switch (hd) {
+    case 128: return launch_stages<128>(stages, tm[0], tm[1], tm[2], o, p, st);
+    case 64: return launch_stages<64>(stages, tm[0], tm[1], tm[2], o, p, st);
+    case 32: return launch_stages<32>(stages, tm[0], tm[1], tm[2], o, p, st);
+    default: return launch_stages<16>(stages, tm[0], tm[1], tm[2], o, p, st);
+  }
 }

@@ -1,9 +1,9 @@
 // f32 flash attention (forward) for Hopper (sm_90a) on the tensor cores, in
 // 3xTF32: O = softmax(Q K^T * scale + mask) V over q (B, Sq, H, hd) and k,
-// v (B, Sk, KV, hd) with GQA, hd 64 or 128, f32 operands and f32 softmax
-// state.
+// v (B, Sk, KV, hd) with GQA, hd 16, 32, 64 or 128, f32 operands and f32
+// softmax state.
 //
-// Replaces, for f32 operands that TMA can describe, the TPU kernel
+// Replaces, for f32 operands, the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel, launched by
 // flash_attention_kernel through pl.pallas_call): a (B*H, Sq/BLK_Q,
 // Sk/BLK_K) grid with K innermost, both products in f32
@@ -11,16 +11,14 @@
 // accumulator in VMEM scratch, rescaled by exp(m_prev - m_new), the finite
 // NEG_INF = -1e30 for masked scores, and acc / max(l, 1e-30) at the end.
 // Here the K grid dimension is a loop inside the block, and the block is
-// persistent, as in tma_wgmma_flash.cu (the bf16 route).  Other f32
-// operands (hd 16 and 32, or strides TMA cannot describe) take
-// flash_attention.cu's FFMA kernel (ops.route() decides; a rule, not a
-// fallback).
+// persistent, as in tma_wgmma_flash.cu (the bf16 route).  Every f32 call
+// takes this kernel (ops.route()), at every hd.
 //
 // What bounds it on an H100: at the yi-6b prefill (4 x 2048 tokens, 32
 // heads of 128, GQA 4, causal) the work is 4 hd per live (q, k) pair, 1.4e11
 // FLOP, against 302 MB of f32 q, k, v and o: bound by operations.  On the
-// CUDA cores (67 TFLOP/s of FFMA) that is 2.05 ms, which the FFMA kernel
-// reached to 39 %.  One TF32 product keeps 11 significant bits of each
+// CUDA cores (67 TFLOP/s of FFMA) that is 2.05 ms, which the port's first,
+// FFMA kernel reached to 39 %.  One TF32 product keeps 11 significant bits of each
 // operand and misses the f32 limit (2e-5 per output row, relative L2), so
 // each product is three TF32 products on the tensor cores, the small ones
 // first: S = Q_lo K_hi^T + Q_hi K_lo^T + Q_hi K_hi^T and PV = P_lo V_hi +
@@ -69,15 +67,21 @@
 //     hi / lo and V^T hi / lo, 4 x BK x hd x 4 bytes.  At hd 128, BK = 16
 //     (32 KB a stage) takes D <= 3 and BK = 32 (64 KB) only D = 1; at hd 64
 //     BK = 32 (32 KB) takes D <= 4.  Each hd takes the tile with the deeper
-//     ring, key_tile(hd) (ops.TF32X3_BK).  PV is m64n{hd}k8 RS with V^T's
-//     rows of BK keys in one 64-byte (BK 16) or 128-byte (BK 32) swizzle
-//     span;
-//   * S is SS, Q and K K-major as loaded (128-byte swizzle, boxes of 32 hd
-//     columns), and its A operand, a 64 x 8 slice of Q, is read from shared
-//     memory by every wgmma: 2 KB for 64 x BK x 8 multiply-adds, so by a
-//     count of bytes the products of S wait on shared memory at BK 16 or
-//     32, not on the tensor cores.  So the stage holds each box's K lo rows and then its K hi
-//     rows, and a k8 step of S is two wgmma, not three: Q_lo K_hi^T
+//     ring, key_tile(hd) (ops.TF32X3_BK).  At hd 16 and 32 a stage is a
+//     fraction of the budget and every depth fits, so the tile is the wider
+//     BK = 64: an item takes half the tiles, and each tile's fixed cost
+//     (its barrier waits, the row max and sum, the promotion) is spread
+//     over twice the keys (measured on an H100, PERF.md: 0.86-0.88 of BK
+//     32's time at both real shapes).  PV is m64n{hd}k8 RS with V^T's rows of BK keys
+//     in one 64-byte (BK 16) or 128-byte (BK 32) swizzle span, or at BK 64
+//     in two boxes of 32 keys;
+//   * S is SS, Q and K K-major as loaded (boxes of min(hd, 32) columns, a
+//     64- or 128-byte swizzled row), and its A operand, a 64 x 8 slice of
+//     Q, is read from shared memory by every wgmma: 2 KB for 64 x BK x 8
+//     multiply-adds, so by a count of bytes the products of S wait on
+//     shared memory at BK 16 or 32, not on the tensor cores.  So the stage
+//     holds each box's K lo rows and then its K hi rows, and a k8 step of
+//     S is two wgmma, not three: Q_lo K_hi^T
 //     (m64n{BK}k8) and Q_hi [K_lo | K_hi]^T (m64n{2 BK}k8, one B operand of
 //     2 BK rows), which reads Q_hi once.  The three products meet in f32
 //     registers, (Q_lo K_hi^T + Q_hi K_lo^T) + Q_hi K_hi^T.
@@ -134,7 +138,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 128;           // query rows a block: two consumer warpgroups
-constexpr int BOX = 32;           // hd columns of a 128-byte box of f32
+constexpr int BOX = 32;           // hd columns of the widest box (128 bytes)
 constexpr int THREADS = 384;      // producer + 2 consumers
 constexpr int MAX_STAGES = 4;
 constexpr int PRODUCER_REGS = 24;
@@ -150,27 +154,39 @@ static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
               "the register split must fit the SM's file");
 
 // The keys of a stage at each hd: the tile whose ring is the deeper in
-// SMEM_PER_BLOCK (BK 16, D <= 3 at hd 128; BK 32, D <= 4 at hd 64)
-constexpr int key_tile(int hd) { return hd == 128 ? 16 : 32; }
+// SMEM_PER_BLOCK (BK 16, D <= 3 at hd 128; BK 32, D <= 4 at hd 64), and at
+// hd 16 and 32, where every depth fits, the wider BK 64 (a V^T row of two
+// 128-byte swizzle spans, two boxes), which halves the tiles an item takes
+constexpr int key_tile(int hd) { return hd == 128 ? 16 : hd == 64 ? 32 : 64; }
 
+// Q and K as boxes of COLS = min(hd, 32) hd columns, a box row of ROW = 4
+// COLS bytes (the swizzle's span: 64 or 128 bytes)
 template <int HD, int BK>
 struct Layout {
-  static constexpr int BOXES = HD / BOX;
-  static constexpr int Q_BOX_BYTES = BQ * BOX * 4;     // 16 KB
+  static constexpr int COLS = HD < BOX ? HD : BOX;
+  static constexpr int ROW = 4 * COLS;
+  static constexpr int BOXES = HD / COLS;
+  static constexpr int KSTEPS = COLS / 8;              // k8 steps a box
+  static constexpr int Q_BOX_BYTES = BQ * ROW;
   static constexpr int Q_BYTES = BOXES * Q_BOX_BYTES;  // one of Q hi, Q lo
-  static constexpr int K_BOX_BYTES = BK * BOX * 4;     // BK rows of 128 bytes
+  static constexpr int K_BOX_BYTES = BK * ROW;         // BK rows
   // K lo and then K hi of one 32-column box: the 2 BK rows of Q_hi's B
   static constexpr int KK_BOX_BYTES = 2 * K_BOX_BYTES;
   static constexpr int K_BYTES = BOXES * K_BOX_BYTES;  // one of K hi, K lo
-  static constexpr int V_ROW = BK * 4;                 // a V^T row: its swizzle
-  static constexpr int V_BYTES = HD * V_ROW;           // one of V^T hi, lo
+  // V^T as boxes of HD rows by V_KEYS keys, a row of V_SPAN bytes (its
+  // swizzle: 64 bytes at BK 16, else 128)
+  static constexpr int V_KEYS = BK < 32 ? BK : 32;
+  static constexpr int V_SPAN = 4 * V_KEYS;
+  static constexpr int V_BOXES = BK / V_KEYS;
+  static constexpr int V_BOX_BYTES = HD * V_SPAN;
+  static constexpr int V_BYTES = V_BOXES * V_BOX_BYTES;  // one of V^T hi, lo
   static constexpr int STAGE_BYTES = 2 * K_BYTES + 2 * V_BYTES;
   static constexpr int smem(int stages) {
     return 2 * Q_BYTES + stages * STAGE_BYTES + SMEM_BYTES_EXTRA;
   }
-  static_assert(BK == 16 || BK == 32,
-                "a V^T row is one 64- or 128-byte swizzle span");
-  static_assert(K_BOX_BYTES % 1024 == 0 && V_BYTES % 1024 == 0,
+  static_assert(BK == 16 || BK == 32 || BK == 64,
+                "a V^T row is a 64-byte swizzle span or 128-byte ones");
+  static_assert(K_BOX_BYTES % 1024 == 0 && V_BOX_BYTES % 1024 == 0,
                 "tiles must stay 1024-byte aligned");
 };
 
@@ -229,8 +245,10 @@ __device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t desc_a,
     hopper::wgmma_m64n16k8_tf32_ss(d, desc_a, desc_b, scale_d);
   else if constexpr (N == 32)
     hopper::wgmma_m64n32k8_tf32_ss(d, desc_a, desc_b, scale_d);
-  else
+  else if constexpr (N == 64)
     hopper::wgmma_m64n64k8_tf32_ss(d, desc_a, desc_b, scale_d);
+  else
+    hopper::wgmma_m64n128k8_tf32_ss(d, desc_a, desc_b, scale_d);
 }
 
 template <int HD>
@@ -239,15 +257,22 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
                                          uint64_t desc_b, int scale_d) {
   if constexpr (HD == 128)
     hopper::wgmma_m64n128k8_tf32_rs(d, a, desc_b, scale_d);
-  else
+  else if constexpr (HD == 64)
     hopper::wgmma_m64n64k8_tf32_rs(d, a, desc_b, scale_d);
+  else if constexpr (HD == 32)
+    hopper::wgmma_m64n32k8_tf32_rs(d, a, desc_b, scale_d);
+  else
+    hopper::wgmma_m64n16k8_tf32_rs(d, a, desc_b, scale_d);
 }
 
-// The descriptor of the k8 slice of V^T that starts at addr: HD rows of BK
-// keys, 8 rows every 8 * BK * 4 bytes.
-template <int BK>
-__device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
-  if constexpr (BK == 16)
+// The descriptor of k8 step j of V^T from base: the step's 32 bytes of a
+// box's rows (HD rows of V_SPAN bytes, 8 rows every 8 V_SPAN bytes)
+template <int HD, int BK>
+__device__ __forceinline__ uint64_t v_desc(uint32_t base, int j) {
+  using L = Layout<HD, BK>;
+  constexpr int STEPS = L::V_KEYS / 8;  // k8 steps a box
+  const uint32_t addr = base + (j / STEPS) * L::V_BOX_BYTES + (j % STEPS) * 32;
+  if constexpr (L::V_SPAN == 64)
     return hopper::sw64_desc(addr, 16, 8 * 64);
   else
     return hopper::sw128_desc(addr, 16, 8 * 128);
@@ -301,14 +326,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int j = 0; j < L::BOXES; ++j) {
             const uint32_t box = k_dst + j * L::KK_BOX_BYTES;
-            hopper::tma_load_4d(box, &map_k_lo, bar, j * BOX, kt * BK, it.kvh, it.b);
-            hopper::tma_load_4d(box + L::K_BOX_BYTES, &map_k_hi, bar, j * BOX,
+            hopper::tma_load_4d(box, &map_k_lo, bar, j * L::COLS, kt * BK, it.kvh, it.b);
+            hopper::tma_load_4d(box + L::K_BOX_BYTES, &map_k_hi, bar, j * L::COLS,
                                 kt * BK, it.kvh, it.b);
           }
           const uint32_t v_dst = k_dst + 2 * L::K_BYTES;
-          hopper::tma_load_4d(v_dst, &map_vt_hi, bar, kt * BK, 0, it.kvh, it.b);
-          hopper::tma_load_4d(v_dst + L::V_BYTES, &map_vt_lo, bar, kt * BK, 0,
-                              it.kvh, it.b);
+#pragma unroll
+          for (int j = 0; j < L::V_BOXES; ++j) {
+            const int key = kt * BK + j * L::V_KEYS;
+            hopper::tma_load_4d(v_dst + j * L::V_BOX_BYTES, &map_vt_hi, bar, key, 0,
+                                it.kvh, it.b);
+            hopper::tma_load_4d(v_dst + L::V_BYTES + j * L::V_BOX_BYTES, &map_vt_lo, bar,
+                                key, 0, it.kvh, it.b);
+          }
           if (kt == it.kt_lo) {
             // this item's Q, once the previous item's last S has retired
             // (its first K/V tile is already on the way)
@@ -317,7 +347,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int j = 0; j < L::BOXES; ++j)
               hopper::tma_load_4d(q_lo + j * L::Q_BOX_BYTES, &map_q, q_full,
-                                  j * BOX, it.h, it.q0, it.b);
+                                  j * L::COLS, it.h, it.q0, it.b);
             ++q_round;
           }
           if (++s == STAGES) {
@@ -336,8 +366,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int col0 = 2 * (lane % 4);  // within each 8-column group
     const bool signals = tid == 0;
     // this warpgroup's 64 rows of each 128-row box of Q
-    const uint32_t my_q_lo = q_lo + c * 64 * 128;
-    const uint32_t my_q_hi = q_hi + c * 64 * 128;
+    const uint32_t my_q_lo = q_lo + c * 64 * L::ROW;
+    const uint32_t my_q_hi = q_hi + c * 64 * L::ROW;
 
     float o[HD / 2];           // the output: O corr + PV of each tile
     float pv[HD / 2];          // PV of one tile (a wgmma accumulator)
@@ -364,8 +394,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t q_lo_s = my_q_lo, q_hi_s = my_q_hi;
       asm volatile("" : "+r"(q_lo_s), "+r"(q_hi_s));
       auto desc = [&](uint32_t base, int box_bytes, int k8) {
-        return hopper::sw128_desc(base + (k8 / 4) * box_bytes + (k8 % 4) * 32,
-                                  16, 1024);
+        return hopper::swizzled_desc<L::ROW>(
+            base + (k8 / L::KSTEPS) * box_bytes + (k8 % L::KSTEPS) * 32, 16, 8 * L::ROW);
       };
       // the first product of each overwrites its accumulator; the stores
       // end the registers' lives from the sum of the last tile to here
@@ -408,12 +438,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        wgmma_pv<HD>(pv, pl[j], v_desc<BK>(v_hi + 32 * j), j > 0);
-        wgmma_pv<HD>(pv, ph[j], v_desc<BK>(v_lo + 32 * j), 1);
+        wgmma_pv<HD>(pv, pl[j], v_desc<HD, BK>(v_hi, j), j > 0);
+        wgmma_pv<HD>(pv, ph[j], v_desc<HD, BK>(v_lo, j), 1);
       }
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
-        wgmma_pv<HD>(pv, ph[j], v_desc<BK>(v_hi + 32 * j), 1);
+        wgmma_pv<HD>(pv, ph[j], v_desc<HD, BK>(v_hi, j), 1);
       hopper::wgmma_commit();
     };
     // once S has retired: S = (Q_lo K_hi^T + Q_hi K_lo^T) + Q_hi K_hi^T in
@@ -528,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         float4* hi4 = reinterpret_cast<float4*>(
             smem_raw + (my_q_hi + bx * L::Q_BOX_BYTES - raw));
 #pragma unroll
-        for (int i = tid; i < 64 * BOX / 4; i += 128) {
+        for (int i = tid; i < 64 * L::COLS / 4; i += 128) {
           const float4 x = lo4[i];
           float4 h, r;
           h.x = hopper::rna_tf32(x.x);
@@ -691,9 +721,9 @@ struct SplitParams {
 
 // Block (x, y): keys [32 x, 32 x + 32) of KV head y % KV of batch y / KV.
 // K: hi and lo of each 16-byte piece, in place of layout (B, KV, Sk, hd).
-// V: a 32-key x 32-column tile through shared memory (row stride 33), then
-// written transposed as (B, KV, hd, Sk8) with the key order above; keys
-// from Sk to Sk8 are zeros.
+// V: a 32-key x 32-column tile through shared memory (row stride 33; at hd
+// 16 its first 16 columns), then written transposed as (B, KV, hd, Sk8)
+// with the key order above; keys from Sk to Sk8 are zeros.
 __global__ void __launch_bounds__(SPLIT_THREADS)
     split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
                     float* __restrict__ k_hi, float* __restrict__ k_lo,
@@ -721,7 +751,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
     {
       const int r = threadIdx.x / 8, c = 4 * (threadIdx.x % 8);
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (key0 + r < sp.Sk)
+      if (key0 + r < sp.Sk && d0 + c < sp.hd)
         x = *reinterpret_cast<const float4*>(vg + (key0 + r) * sp.v_ss + d0 + c);
       tile[r][c] = x.x;
       tile[r][c + 1] = x.y;
@@ -733,7 +763,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
       // row d0 + d of V^T, k-positions q .. q + 3 of this block's 32 keys
       const int d = threadIdx.x / 8, q = 4 * (threadIdx.x % 8);
       const int g = q & ~7, p0 = q & 7;
-      if (key0 + q < sp.Sk8) {
+      if (key0 + q < sp.Sk8 && d0 + d < sp.hd) {
         const float4 x = make_float4(
             tile[g + key_order(p0)][d], tile[g + key_order(p0 + 1)][d],
             tile[g + key_order(p0 + 2)][d], tile[g + key_order(p0 + 3)][d]);
@@ -818,12 +848,12 @@ struct Split {
 int split_plan(const void* k, const void* v, void* ws, const long long* dims,
                const long long* strides, Split* s) {
   const long long B = dims[0], Sk = dims[1], KV = dims[2], hd = dims[3];
-  if (B <= 0 || Sk <= 0 || KV <= 0 || (hd != 64 && hd != 128) ||
+  if (B <= 0 || Sk <= 0 || KV <= 0 || (hd != 16 && hd != 32 && hd != 64 && hd != 128) ||
       B * KV > 65535 || Sk > 0x7fffffffLL - 8 || !aligned16(k) ||
       !aligned16(v) || !aligned16(ws))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 6; ++i)
-    if (strides[i] <= 0 || strides[i] % 4) return static_cast<int>(cudaErrorInvalidValue);
+    if (strides[i] < 0 || strides[i] % 4) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_k = B * KV * Sk * hd, n_v = B * KV * hd * round8(Sk);
   s->k = static_cast<const float*>(k);
   s->v = static_cast<const float*>(v);
@@ -890,7 +920,8 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
   const long long B = dims[0], H = dims[1], KV = dims[2], Sq = dims[3],
                   Sk = dims[4], hd = dims[5];
   if (!full || !empty || B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 ||
-      Sk <= 0 || (hd != 64 && hd != 128) || stages < 1 || stages > MAX_STAGES ||
+      Sk <= 0 || (hd != 16 && hd != 32 && hd != 64 && hd != 128) || stages < 1 ||
+      stages > MAX_STAGES ||
       B * H * ((Sq + BQ - 1) / BQ) > 0x7fffffffLL || Sq > 0x3fffffffLL ||
       Sk > 0x3fffffffLL || q_offset < -0x3fffffff || q_offset > 0x3fffffff ||
       reinterpret_cast<uintptr_t>(o) % 8 != 0 || o_strides[0] % 2 ||
@@ -904,9 +935,10 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
   }
   // the box this kernel's Q tile is laid out for
   const long long* m = q_map;
-  if (m[0] != hd || m[1] != H || m[2] != Sq || m[3] != B || m[4] % 16 ||
-      m[5] % 16 || m[6] % 16 || m[7] != BOX || m[8] != 1 || m[9] != BQ ||
-      m[10] != 1)
+  const uint32_t cols = static_cast<uint32_t>(hd < BOX ? hd : BOX);
+  if (m[0] != hd || m[1] != H || m[2] != Sq || m[3] != B || m[4] < 0 || m[4] % 16 ||
+      m[5] < 0 || m[5] % 16 || m[6] < 0 || m[6] % 16 || m[7] != cols || m[8] != 1 ||
+      m[9] != BQ || m[10] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Maps maps;
   {
@@ -914,9 +946,9 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
                            static_cast<uint64_t>(m[2]), static_cast<uint64_t>(m[3])};
     const uint64_t st[3] = {static_cast<uint64_t>(m[4]), static_cast<uint64_t>(m[5]),
                             static_cast<uint64_t>(m[6])};
-    const uint32_t box[4] = {BOX, 1, BQ, 1};
+    const uint32_t box[4] = {cols, 1, BQ, 1};
     const int rc = hopper::encode_4d(&maps.q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q,
-                                     d, st, box, CU_TENSOR_MAP_SWIZZLE_128B);
+                                     d, st, box, hopper::swizzle_for_row(4 * cols));
     if (rc != 0) return -1000 - rc;
   }
   const int bk = key_tile(static_cast<int>(hd));
@@ -926,11 +958,13 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
   const uint64_t k_st[3] = {static_cast<uint64_t>(hd) * 4,
                             static_cast<uint64_t>(Sk * hd) * 4,
                             static_cast<uint64_t>(KV * Sk * hd) * 4};
-  const uint32_t k_box[4] = {BOX, static_cast<uint32_t>(bk), 1, 1};
+  const uint32_t k_box[4] = {cols, static_cast<uint32_t>(bk), 1, 1};
+  const CUtensorMapSwizzle k_swizzle = hopper::swizzle_for_row(4 * cols);
   const uint64_t v_dims[4] = {sk8, static_cast<uint64_t>(hd),
                               static_cast<uint64_t>(KV), static_cast<uint64_t>(B)};
   const uint64_t v_st[3] = {sk8 * 4, sk8 * hd * 4, sk8 * hd * KV * 4};
-  const uint32_t v_box[4] = {static_cast<uint32_t>(bk), static_cast<uint32_t>(hd), 1, 1};
+  const uint32_t v_box[4] = {static_cast<uint32_t>(bk < 32 ? bk : 32),
+                             static_cast<uint32_t>(hd), 1, 1};
   const CUtensorMapSwizzle v_swizzle =
       bk == 16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   const struct {
@@ -941,8 +975,8 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
     const uint32_t* box;
     CUtensorMapSwizzle swizzle;
   } split[4] = {
-      {&maps.k_hi, pre.k_hi, k_dims, k_st, k_box, CU_TENSOR_MAP_SWIZZLE_128B},
-      {&maps.k_lo, pre.k_lo, k_dims, k_st, k_box, CU_TENSOR_MAP_SWIZZLE_128B},
+      {&maps.k_hi, pre.k_hi, k_dims, k_st, k_box, k_swizzle},
+      {&maps.k_lo, pre.k_lo, k_dims, k_st, k_box, k_swizzle},
       {&maps.vt_hi, pre.vt_hi, v_dims, v_st, v_box, v_swizzle},
       {&maps.vt_lo, pre.vt_lo, v_dims, v_st, v_box, v_swizzle},
   };
@@ -969,6 +1003,10 @@ extern "C" int fa_forward_tf32x3(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = split_launch(pre, st);
   if (rc != 0) return rc;
-  if (hd == 128) return launch_stages<128, key_tile(128)>(stages, maps, o, p, st);
-  return launch_stages<64, key_tile(64)>(stages, maps, o, p, st);
+  switch (hd) {
+    case 128: return launch_stages<128, key_tile(128)>(stages, maps, o, p, st);
+    case 64: return launch_stages<64, key_tile(64)>(stages, maps, o, p, st);
+    case 32: return launch_stages<32, key_tile(32)>(stages, maps, o, p, st);
+    default: return launch_stages<16, key_tile(16)>(stages, maps, o, p, st);
+  }
 }

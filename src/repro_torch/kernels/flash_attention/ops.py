@@ -6,11 +6,11 @@ The layout is the reference wrapper's: q ``(B, Sq, H, hd)``, k and v
 three by stride and index the KV head as ``h // (H / KV)``, so the wrapper
 makes no transpose, repeat or padded copy.
 
-A CUDA call takes one of five kernels, by a rule on the operands
+A CUDA call takes one of three kernels, by a rule on the operands
 (:func:`route`), never as a fallback:
 
-    flash_decode      bf16, hd 64 or 128, that TMA could describe, with at
-                      most ``DECODE_MAX_SQ`` query rows (and at most
+    flash_decode      bf16, hd 64 or 128, 16-byte aligned, with at most
+                      ``DECODE_MAX_SQ`` query rows (and at most
                       ``DECODE_MAX_ROWS`` rows a KV head with GQA):
                       ``csrc/flash_decode.cu`` (one launch: a block a KV
                       head and a key range, the head's ranges one thread-
@@ -18,29 +18,28 @@ A CUDA call takes one of five kernels, by a rule on the operands
                       a K/V ring filled by TMA, mma.sync; the ranges'
                       partial softmax states merged through distributed
                       shared memory)
-    tma_wgmma         other bf16, hd 64 or 128, that TMA can describe:
+    tma_wgmma         every other bf16 call, hd 16, 32, 64 or 128:
                       ``csrc/tma_wgmma_flash.cu`` (TMA K/V ring filled by a
                       producer warpgroup, wgmma QKᵀ and PV on two consumer
                       warpgroups)
-    cp_async_mma      other bf16 (hd 16 and 32): ``csrc/flash_attention.cu``'s
-                      cp.async ring and mma.sync
-    tma_wgmma_tf32x3  f32, hd 64 or 128, that TMA can describe:
+    tma_wgmma_tf32x3  every f32 call, hd 16, 32, 64 or 128:
                       ``csrc/tma_wgmma_flash_tf32x3.cu``, a K/V split
                       pre-pass (:func:`split_kv_tf32`) and both products as
                       three TF32 wgmma products each, on the bf16 TMA
                       kernel's plan
-    ffma              other f32 (hd 16 and 32, or strides TMA cannot
-                      describe): ``csrc/flash_attention.cu``'s FFMA kernel
+
+A head dim below 128 that no kernel is built for (hd 8) runs zero-padded on
+the next one that is (:func:`padded_head_dim`).  Every operand takes a TMA
+route: the tensor maps take any stride that is a multiple of 16 bytes, a
+zero one (a broadcast dimension) included; the kernel contract raises for
+the others before any launch (:func:`_check_kernel_call`).
 
 Each kernel's K/V ring depth and its waits come from the K-loop plan that
 the synchronization compiler derives, as the pipelined matmul's do:
 :func:`~repro_torch.kernels.pipelined_matmul.ops.hopper_schedule` (a
 producer issues and loads, consumers compute; its two retained dependences
-are the full and empty mbarriers) for the TMA kernels and
-``flash_decode.cu``,
-:func:`~repro_torch.kernels.pipelined_matmul.ops.kernel_schedule` at
-``RING_DEPTH`` for ``flash_attention.cu``.  The wrapper raises on a plan
-whose retained dependences a kernel has no wait for.
+are the full and empty mbarriers).  The wrapper raises on a plan whose
+retained dependences a kernel has no wait for.
 """
 
 from __future__ import annotations
@@ -58,23 +57,15 @@ from repro_torch.kernels.flash_attention.ref import (
     split_kv_tf32_ref,
 )
 from repro_torch.kernels.pipelined_matmul.ops import (
-    CP_ASYNC_MMA,
-    FFMA,
     SMEM_PER_BLOCK,
     TMA_WGMMA,
     TMA_WGMMA_TF32X3,
     hopper_schedule,
-    kernel_schedule,
 )
 
-SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash.cu"
 TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_flash_tf32x3.cu"
 DECODE_SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
-HEAD_DIMS = (16, 32, 64, 128)  # flash_attention.cu: the instantiated HD values
-RING_DEPTH = 2  # flash_attention.cu: STAGES
-# flash_attention.cu: ISSUE(i) and the arrival wait
-KERNEL_WAITS = ("issue", "arrival")
 
 FLASH_DECODE = "flash_decode"
 # flash_decode.cu: a block takes the Sq * H / KV query rows of one KV head
@@ -88,6 +79,7 @@ FLASH_DECODE = "flash_decode"
 # deep (fewer for a range of fewer tiles): phase 6 of chip_smoke.py and
 # tools/flash_decode_rows.py measured deeper rings no faster; the kernel
 # holds up to DECODE_MAX_STAGES
+DECODE_HEAD_DIMS = (64, 128)
 DECODE_MAX_SQ = 16
 DECODE_MAX_ROWS = 64
 DECODE_BK = 64
@@ -101,11 +93,12 @@ LOG2E = math.log2(math.e)
 # flash_decode; nothing else sets it
 _decode_route = True
 
-# tma_wgmma_flash.cu: 128-row Q tiles, 128-key K/V tiles, loaded as boxes of
-# 64 hd columns (128 bytes, the widest a 128-byte swizzle takes); a stage
-# holds K and V of one tile; the ring also needs 1 KB to align itself, two
+# tma_wgmma_flash.cu, instantiated at TMA_HEAD_DIMS: 128-row Q tiles and
+# 128-key K/V tiles, loaded as boxes of min(hd, TMA_BOX) hd columns (rows
+# of 32, 64 or 128 bytes, each box swizzled by its row); a stage holds K
+# and V of one tile; the ring also needs 1 KB to align itself, two
 # mbarriers for Q and two a stage
-TMA_HEAD_DIMS = (64, 128)
+TMA_HEAD_DIMS = (16, 32, 64, 128)
 TMA_BQ = 128
 TMA_BK = 128
 TMA_BOX = 64
@@ -122,19 +115,22 @@ def tma_smem_bytes(hd: int, depth: int) -> int:
 
 def default_depth(hd: int) -> int:
     """The deepest ring the shared-memory budget takes, at most
-    ``MAX_STAGES``: 3 at hd 128 (32 KB of Q and 64 KB a stage), 4 at hd 64."""
+    ``MAX_STAGES``: 3 at hd 128 (32 KB of Q and 64 KB a stage), 4 at hd 64,
+    32 and 16."""
 
     stage = 2 * TMA_BK * hd * 2
     return min(MAX_STAGES, (SMEM_PER_BLOCK - tma_smem_bytes(hd, 0)) // stage)
 
 
 # tma_wgmma_flash_tf32x3.cu: the same 128-row Q tiles, in f32 as two
-# buffers (hi and lo, split in shared memory), loaded as boxes of 32 hd
-# columns (128 bytes); a stage holds K hi / lo and Vᵀ hi / lo of BK keys,
-# the tile with the deeper ring at each hd: BK 16 at hd 128 (D <= 3; 32
-# keys would fit D = 1 only), BK 32 at hd 64 (D <= 4)
+# buffers (hi and lo, split in shared memory), loaded as boxes of
+# min(hd, TF32X3_BOX) hd columns (rows of 64 or 128 bytes); a stage holds K
+# hi / lo and Vᵀ hi / lo of BK keys, the tile with the deeper ring at each
+# hd: BK 16 at hd 128 (D <= 3; 32 keys would fit D = 1 only), BK 32 at hd
+# 64 (D <= 4); at hd 16 and 32 every depth fits, and the wider BK 64 (Vᵀ
+# in two boxes of 32 keys) halves the tiles of an item
 TF32X3_BOX = 32
-TF32X3_BK = {128: 16, 64: 32}
+TF32X3_BK = {16: 64, 32: 64, 64: 32, 128: 16}
 
 
 def tf32x3_smem_bytes(hd: int, depth: int) -> int:
@@ -147,7 +143,7 @@ def tf32x3_smem_bytes(hd: int, depth: int) -> int:
 
 def tf32x3_default_depth(hd: int) -> int:
     """The deepest ring the budget takes, at most ``MAX_STAGES``: 3 at hd
-    128 (128 KB of Q hi / lo and 32 KB a stage), 4 at hd 64."""
+    128 (128 KB of Q hi / lo and 32 KB a stage), 4 at hd 64, 32 and 16."""
 
     stage = 4 * TF32X3_BK[hd] * hd * 4
     return min(MAX_STAGES, (SMEM_PER_BLOCK - tf32x3_smem_bytes(hd, 0)) // stage)
@@ -160,7 +156,7 @@ class TensorMap:
 
     dims: Tuple[int, int, int, int]     # (hd, heads, S, B)
     strides: Tuple[int, int, int]       # bytes: heads, S, B
-    box: Tuple[int, int, int, int]      # (64, 1, rows, 1)
+    box: Tuple[int, int, int, int]      # (columns, 1, rows, 1)
 
     def flat(self) -> Tuple[int, ...]:
         return (*self.dims, *self.strides, *self.box)
@@ -170,17 +166,19 @@ def tensor_map(shape: Sequence[int], stride: Sequence[int], rows: int,
                elt: int = 2) -> TensorMap:
     """The tensor map of an operand of ``shape`` ``(B, S, heads, hd)`` and
     element strides ``stride`` (``elt`` bytes an element), read in boxes of
-    128 bytes of hd columns (64 in bf16, 32 in f32) by ``rows`` positions
-    of one head of one batch.  A 4-D map, not a flattened 2-D
-    one, is what keeps a box at a ragged end of S inside its own batch:
-    TMA zero-fills past S instead of reading the next batch's rows."""
+    min(hd, 128 / elt) hd columns (at most 128 bytes: 64 in bf16, 32 in
+    f32; the kernel swizzles by the box's row, 32, 64 or 128 bytes) by
+    ``rows`` positions of one head of one batch.  A 4-D map, not a
+    flattened 2-D one, is what keeps a box at a ragged end of S inside its
+    own batch: TMA zero-fills past S instead of reading the next batch's
+    rows.  A zero stride (a broadcast dimension) is a stride TMA takes."""
 
     B, S, heads, hd = shape
     sb, ss, sh = stride[:3]
     return TensorMap(
         dims=(hd, heads, S, B),
         strides=(sh * elt, ss * elt, sb * elt),
-        box=(128 // elt, 1, rows, 1),
+        box=(min(hd, 128 // elt), 1, rows, 1),
     )
 
 
@@ -188,32 +186,29 @@ def route(dtype, hd: int, strides: Sequence[Sequence[int]],
           addresses: Sequence[int], sq: Optional[int] = None, group: int = 1) -> str:
     """Which kernel a CUDA call takes, from the operands' dtype, head dim,
     the (batch, sequence, head) element strides of q, k and v, their base
-    addresses, the query rows ``sq`` (None where there are none, as for the
-    split pre-pass of k and v alone) and the GQA group ``H / KV``.
+    addresses, the query rows ``sq`` (None where there are none) and the
+    GQA group ``H / KV``.
 
-    TMA (and the f32 route's split pass and flash_decode's query rows,
-    which read 16 bytes at a time) needs 16-byte aligned bases
-    and strides that are positive multiples of 16 bytes; the TMA kernels
-    and flash_decode are instantiated at hd 64 and 128.  Such bf16
-    operands with at most ``DECODE_MAX_SQ`` query rows and at most
-    ``DECODE_MAX_ROWS`` rows a KV head take flash_decode; other such
-    operands take the TMA kernel of their dtype whatever Sq and Sk are
-    (ragged ends are zero-filled and masked); other bf16 operands take the
-    cp.async kernel, other f32 operands FFMA."""
+    Every f32 call takes the 3xTF32 kernel.  A bf16 call takes flash_decode
+    where that kernel can read it (hd 64 or 128, 16-byte aligned bases and
+    strides that are multiples of 16 bytes) and it has at most
+    ``DECODE_MAX_SQ`` query rows and at most ``DECODE_MAX_ROWS`` rows a KV
+    head; every other bf16 call takes the TMA kernel, whatever Sq and Sk
+    are (ragged ends are zero-filled and masked).  Operands the TMA
+    kernels cannot read either (strides or bases off 16 bytes) are refused
+    by :func:`_check_kernel_call` before any launch."""
 
     import torch
 
-    elt = 4 if dtype == torch.float32 else 2
-    tma = (
-        hd in TMA_HEAD_DIMS
-        and all(s > 0 and (elt * s) % 16 == 0 for st in strides for s in st[:3])
+    if dtype == torch.float32:
+        return TMA_WGMMA_TF32X3
+    decode = (
+        hd in DECODE_HEAD_DIMS
+        and sq is not None and sq <= DECODE_MAX_SQ and sq * group <= DECODE_MAX_ROWS
+        and all((2 * s) % 16 == 0 for st in strides for s in st[:3])
         and all(a % 16 == 0 for a in addresses)
     )
-    if dtype == torch.float32:
-        return TMA_WGMMA_TF32X3 if tma else FFMA
-    if tma and sq is not None and sq <= DECODE_MAX_SQ and sq * group <= DECODE_MAX_ROWS:
-        return FLASH_DECODE
-    return TMA_WGMMA if tma else CP_ASYNC_MMA
+    return FLASH_DECODE if decode else TMA_WGMMA
 
 
 def decode_splits(B: int, KV: int, Sk: int, sms: int) -> int:
@@ -265,19 +260,6 @@ def _decode_schedule(depth: int = DECODE_DEPTH):
     return sched
 
 
-def _check_schedule(path: str = CP_ASYNC_MMA) -> None:
-    """Raise unless the K-loop plan at ``RING_DEPTH`` asks for exactly the
-    waits the cp.async kernels (``path``) have."""
-
-    sched = kernel_schedule(RING_DEPTH)
-    if sorted(sched.waits) != sorted(KERNEL_WAITS):
-        raise NotImplementedError(
-            f"flash attention kernel ({path}): the K-loop plan at depth "
-            f"{RING_DEPTH} asks for waits {sched.waits}; the kernel has the "
-            f"waits {KERNEL_WAITS}"
-        )
-
-
 def _tma_schedule(hd: int, depth: Optional[int], path: str = TMA_WGMMA):
     """The K-loop plan of a TMA kernel (``path``: ``tma_wgmma`` or
     ``tma_wgmma_tf32x3``) at ``depth`` (default: the deepest ring that
@@ -302,28 +284,6 @@ def _tma_schedule(hd: int, depth: Optional[int], path: str = TMA_WGMMA):
             "and the empty mbarrier"
         )
     return sched
-
-
-@functools.lru_cache(maxsize=None)
-def _entry_point():
-    """``fa_forward(dtype, q, k, v, o, dims[6], strides[12], causal, window,
-    q_offset, scale, stream) -> cudaError_t``, built and loaded on first
-    use."""
-
-    import ctypes
-
-    from repro_torch.kernels._build import load
-
-    fn = load(SOURCE).fa_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int]
-        + [ctypes.c_void_p] * 4
-        + [ctypes.POINTER(ctypes.c_longlong)] * 2
-        + [ctypes.c_int] * 3 + [ctypes.c_float]
-        + [ctypes.c_void_p]
-    )
-    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -481,30 +441,6 @@ def _check(rc: int, path: str, q, k, depth) -> None:
     raise RuntimeError(f"flash attention launch failed ({path}): cudaError {rc} ({shape})")
 
 
-def _launch(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
-            scale: Optional[float] = None) -> None:
-    """``flash_attention.cu`` (bf16 mma.sync, f32 FFMA)."""
-
-    import ctypes
-
-    import torch
-
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    dims = (ctypes.c_longlong * 6)(B, H, KV, Sq, Sk, hd)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3])
-    )
-    rc = _entry_point()(
-        0 if q.dtype == torch.float32 else 1,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        dims, strides, int(causal), 0 if window is None else int(window),
-        int(q_offset), hd**-0.5 if scale is None else scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _check(rc, FFMA if q.dtype == torch.float32 else CP_ASYNC_MMA, q, k, RING_DEPTH)
-
-
 def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
                 sched, scale: Optional[float] = None) -> None:
     """``tma_wgmma_flash.cu``, with the tensor maps of :func:`tensor_map` and
@@ -634,8 +570,9 @@ def split_kv_tf32(k, v):
     ``(B, KV, Sk, hd)``, ``vt_*`` ``(B, KV, hd, Sk8)`` (Sk8: Sk rounded up
     to 8, zero-filled) with the keys of each group of 8 in
     :data:`ref.KEY_ORDER`; hi = rna_tf32(x), lo = rna_tf32(x - hi).  CPU
-    tensors take :func:`ref.split_kv_tf32_ref`; CUDA tensors (hd 64 or
-    128, 16-byte aligned bases and strides) launch the kernel or raise.
+    tensors take :func:`ref.split_kv_tf32_ref`; CUDA tensors (hd 16, 32,
+    64 or 128, 16-byte aligned bases, strides that are multiples of 16
+    bytes, zero included) launch the kernel or raise.
     The route launches the pass inside its own call
     (:func:`_launch_tf32x3`); this is the pass alone."""
 
@@ -651,12 +588,15 @@ def split_kv_tf32(k, v):
     if k.device.type == "cpu" and v.device.type == "cpu":
         return split_kv_tf32_ref(k, v)
     B, Sk, KV, hd = k.shape
-    if not (k.device == v.device and k.device.type == "cuda") or route(
-        k.dtype, hd, [k.stride(), v.stride()], [k.data_ptr(), v.data_ptr()]
-    ) != TMA_WGMMA_TF32X3:
+    if not (
+        k.device == v.device and k.device.type == "cuda" and hd in TMA_HEAD_DIMS
+        and all(s % 4 == 0 for t in (k, v) for s in t.stride()[:3])
+        and k.stride(-1) == v.stride(-1) == 1
+        and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+    ):
         raise ValueError(
             f"split_kv_tf32: k {tuple(k.shape)} strides {k.stride()}, v strides "
-            f"{v.stride()} on {k.device} / {v.device}: it reads hd 64 or 128, "
+            f"{v.stride()} on {k.device} / {v.device}: it reads hd {TMA_HEAD_DIMS}, "
             "16 bytes at a time from 16-byte aligned CUDA tensors"
         )
     ws, parts = _split_workspace(k)
@@ -711,9 +651,9 @@ def _launch_tf32x3(q, k, v, o, causal: bool, window: Optional[int],
 def padded_head_dim(hd: int) -> int:
     """The head dim a CUDA call with ``hd`` runs at: ``hd`` itself when a
     kernel is built for it (or it is above them all, where the call
-    raises), else the next of :data:`HEAD_DIMS`."""
+    raises), else the next of :data:`TMA_HEAD_DIMS`."""
 
-    return next((h for h in HEAD_DIMS if h >= hd), hd)
+    return next((h for h in TMA_HEAD_DIMS if h >= hd), hd)
 
 
 def _check_live_keys(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -751,9 +691,9 @@ def _check_kernel_call(q, k, v, window, q_offset: int = 0, causal: bool = True) 
             "bfloat16)"
         )
     hd = q.shape[-1]
-    if hd not in HEAD_DIMS:
+    if hd not in TMA_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash attention kernel: hd={hd} (it takes hd in {HEAD_DIMS})"
+            f"flash attention kernel: hd={hd} (it takes hd in {TMA_HEAD_DIMS})"
         )
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
@@ -775,8 +715,9 @@ def _check_kernel_call(q, k, v, window, q_offset: int = 0, causal: bool = True) 
         ):
             raise NotImplementedError(
                 f"flash attention kernel: {name} with strides {t.stride()} at "
-                f"offset {t.data_ptr() % 16} (it reads rows of 16-byte-aligned "
-                "chunks: unit last stride, other strides multiples of 16 bytes)"
+                f"offset {t.data_ptr() % 16} (its tensor maps read rows of "
+                "16-byte-aligned chunks: unit last stride, other strides "
+                "multiples of 16 bytes, zero included)"
             )
 
 
@@ -787,22 +728,6 @@ def _route_of(q, k, v) -> str:
         sq=q.shape[1] if _decode_route else None,
         group=q.shape[2] // max(1, k.shape[2]),
     )
-
-
-def _flash_cu(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              q_offset: int = 0):
-    """``flash_attention.cu``'s kernel of the operands' dtype (cp.async /
-    mma.sync for bf16, FFMA for f32) on operands that :func:`route` sends
-    to a TMA kernel, to check and time the two side by side; not counted in
-    the launch counts and no route of :func:`flash_attention`."""
-
-    import torch
-
-    _check_kernel_call(q, k, v, window, q_offset, causal)
-    _check_schedule()
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, o, causal, window, q_offset)
-    return o
 
 
 def _check_decode_operands(q, k, v) -> None:
@@ -854,7 +779,7 @@ def flash_attention(
     """Softmax attention ``softmax(q kᵀ · hd**-0.5 + mask) v`` with f32
     softmax state, over q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)``.
     A head dim below 128 that no kernel is built for runs on the next one
-    that is (:data:`HEAD_DIMS`): q, k and v zero-padded, the scale of the
+    that is (:data:`TMA_HEAD_DIMS`): q, k and v zero-padded, the scale of the
     true hd, the output sliced back — exact, since the padding adds 0 to
     every score and fills only the sliced-away columns.
 
@@ -864,9 +789,8 @@ def flash_attention(
     key j at j.  On a CUDA tensor every query row must keep at least one
     key (:func:`_check_live_keys` raises otherwise).  ``depth`` is
     the K/V ring depth of the TMA routes (default: the deepest ring that
-    fits, :func:`default_depth` / :func:`tf32x3_default_depth`); the other
-    routes have one depth, ``DECODE_DEPTH`` for flash_decode and
-    ``RING_DEPTH`` for the cp.async ones.  The reference wrapper's
+    fits, :func:`default_depth` / :func:`tf32x3_default_depth`);
+    flash_decode has one depth, ``DECODE_DEPTH``.  The reference wrapper's
     ``blk_q`` / ``blk_k`` pick its tiles; here the rule picks a kernel: a
     call with few query rows, the reference's small-``blk_q`` case, takes
     ``flash_decode`` (:func:`route`), whose blocks split the keys instead.
@@ -899,24 +823,23 @@ def flash_attention(
             f"device; got {[str(d) for d in devices]}"
         )
     path = sched = None
+    to = padded_head_dim(hd)
     if q.dtype in (torch.float32, torch.bfloat16):
         path = _route_of(q, k, v)
         if path in (TMA_WGMMA, TMA_WGMMA_TF32X3):
-            sched = _tma_schedule(hd, depth, path)
+            if to in TMA_HEAD_DIMS:  # else the kernel contract raises
+                sched = _tma_schedule(to, depth, path)
         else:
-            one = DECODE_DEPTH if path == FLASH_DECODE else RING_DEPTH
-            if depth not in (None, one):
+            if depth not in (None, DECODE_DEPTH):
                 raise NotImplementedError(
                     f"flash attention ({path}): ring depth {depth} (this route "
-                    f"has one depth, {one})"
+                    f"has one depth, {DECODE_DEPTH})"
                 )
-            if path == FLASH_DECODE:
-                sched = _decode_schedule()
+            sched = _decode_schedule()
     if on_cpu:
         return flash_attention_bshd_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset
         )
-    to = padded_head_dim(hd)
     if to != hd:
         o = flash_attention(
             *(pad_head_dim(t, to) for t in (q, k, v)),
@@ -925,8 +848,6 @@ def flash_attention(
         )
         return o[..., :hd].contiguous()
     _check_kernel_call(q, k, v, window, q_offset, causal)
-    if sched is None:
-        _check_schedule(path)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o
@@ -936,16 +857,12 @@ def flash_attention(
         _launch_decode(q, k, v, o, causal, window, q_offset, _scale)
     elif path == TMA_WGMMA:
         _launch_tma(q, k, v, o, causal, window, q_offset, sched, _scale)
-    elif path == TMA_WGMMA_TF32X3:
-        _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched, _scale)
     else:
-        _launch(q, k, v, o, causal, window, q_offset, _scale)
+        _launch_tf32x3(q, k, v, o, causal, window, q_offset, sched, _scale)
     flash_attention.launches += 1
     flash_attention.routes[path] += 1
     return o
 
 
 flash_attention.launches = 0
-flash_attention.routes = {
-    FLASH_DECODE: 0, TMA_WGMMA: 0, CP_ASYNC_MMA: 0, TMA_WGMMA_TF32X3: 0, FFMA: 0,
-}
+flash_attention.routes = {FLASH_DECODE: 0, TMA_WGMMA: 0, TMA_WGMMA_TF32X3: 0}

@@ -11,10 +11,10 @@ so the output returns P itself: a P fragment in the wrong place, a V
 operand read transposed or a descriptor stride in the wrong position moves
 the one 1 of a row.
 
-The keys are random ±1 vectors and query row i is ``λ k_{π(i)}``: its score
-on key j is ``λ (hd - k_{π(i)} · k_j) / sqrt(hd)`` below the chosen key's;
-λ is the least power of two that lifts the smallest such margin over all
-rows to :data:`MARGIN`.
+The keys are random ±1 vectors, distinct within a head, and query row i
+is ``λ k_{π(i)}``: its score on key j is ``λ (hd - k_{π(i)} · k_j) /
+sqrt(hd)`` below the chosen key's; λ is the least power of two that lifts
+the smallest such margin over all rows to :data:`MARGIN`.
 """
 
 from __future__ import annotations
@@ -61,7 +61,20 @@ def one_hot_probe(
     lo, hi = live_range(Sq, Sk, causal, window)
     if np.any(hi <= lo):
         raise ValueError("one_hot_probe: a query row keeps no key")
-    k = rng.choice(np.array([-1.0, 1.0], np.float32), size=(B, Sk, KV, hd))
+    if Sk > 2**min(hd, 62):
+        raise ValueError(f"one_hot_probe: {Sk} keys cannot have distinct codes of {hd} signs")
+    signs = np.array([-1.0, 1.0], np.float32)
+    k = rng.choice(signs, size=(B, Sk, KV, hd))
+    # a head's keys have distinct codes: a code drawn twice is drawn again
+    # (at hd 16 a few hundred keys share some code; from hd 32 on, none)
+    for b in range(B):
+        for g in range(KV):
+            while True:
+                _, first = np.unique(k[b, :, g], axis=0, return_index=True)
+                again = np.setdiff1d(np.arange(Sk), first)
+                if again.size == 0:
+                    break
+                k[b, again, g] = rng.choice(signs, size=(again.size, hd))
     pick = lo + (rng.random((B, H, Sq)) * (hi - lo)).astype(np.int64)  # (B, H, Sq)
     if first_picks is not None:
         first = np.asarray(first_picks, np.int64).ravel()

@@ -23,9 +23,6 @@ they are read from the K-loop plan that the synchronization compiler
 derives, :func:`hopper_schedule` (a producer warpgroup issues and loads,
 consumer warpgroups compute) for both TMA kernels.  The wrapper raises on
 a plan whose retained dependences a kernel has no wait for.
-:func:`kernel_schedule` (``schedule.plan_pipeline``: the block's threads
-issue, the copy engine loads) maps the plan onto the flash kernel's
-cp.async ring.
 """
 
 from __future__ import annotations
@@ -38,21 +35,17 @@ from typing import Optional, Tuple
 from repro_torch.core.parallelizer import PlanOptions, plan
 from repro_torch.kernels.pipelined_matmul.ref import matmul_ref, split_tf32_ref, stage_ref
 from repro_torch.kernels.pipelined_matmul.schedule import (
-    PROCESSORS,
     kloop_dependences,
     make_kloop_program,
-    min_buffers,
-    plan_pipeline,
 )
 
 TMA_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_matmul.cu"
 TF32X3_SOURCE = Path(__file__).parent / "csrc" / "tma_wgmma_tf32x3.cu"
 MAX_STAGES = 4  # tma_wgmma_matmul.cu: MAX_STAGES
 
-# the routes of a CUDA call (see :func:`route`); the flash kernel's
-# cp.async routes take the other two names
-TMA_WGMMA, CP_ASYNC_MMA, FFMA = "tma_wgmma", "cp_async_mma", "ffma"
-TMA_WGMMA_TF32X3 = "tma_wgmma_tf32x3"
+# the routes of a CUDA call (see :func:`route`); the flash kernel's TMA
+# routes take the same names
+TMA_WGMMA, TMA_WGMMA_TF32X3 = "tma_wgmma", "tma_wgmma_tf32x3"
 # TMA's rule: 16-byte aligned bases and row strides
 TMA_ALIGN = 16
 
@@ -70,84 +63,6 @@ TF32X3_BM, TF32X3_BN, TF32X3_BK = 128, 128, 32
 TF32X3_RUN_K = 256
 TF32X3_STAGE_BYTES = 2 * (TF32X3_BM + TF32X3_BN) * TF32X3_BK * 4
 TF32X3_STAGES = min(MAX_STAGES, (SMEM_PER_BLOCK - 1024 - 64) // TF32X3_STAGE_BYTES)
-
-
-def _wait_for(dep, depth: int) -> Optional[str]:
-    """How a cp.async kernel (the flash kernel's ``flash_attention.cu``)
-    realizes one retained cross-processor dependence of the K-loop plan at
-    each K-step (None: it has no wait for it).
-
-    issue    ISSUE -> LOAD at prefetch distance 1: the block's threads start
-             the copy of the next tile themselves, so it begins once issued
-    arrival  LOAD -> COMPUTE: cp.async.wait_all + __syncthreads
-    credit   COMPUTE -> LOAD at the ring depth (slot reuse): a second
-             __syncthreads before the refill of the slot just read
-    """
-
-    (dist,) = dep.distance
-    return {
-        ("flow", "ISSUE", "LOAD", 1): "issue",
-        ("flow", "LOAD", "COMPUTE", 0): "arrival",
-        ("anti", "COMPUTE", "LOAD", depth): "credit",
-    }.get((dep.kind, dep.source, dep.sink, dist))
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelSchedule:
-    """The K-loop plan as the kernel takes it."""
-
-    depth: int                  # shared-memory ring stages
-    waits: Tuple[str, ...]      # one mechanism per retained cross wait
-    credit: bool                # the D = 1 variant: a second barrier
-
-    @property
-    def barriers_per_step(self) -> int:
-        return 1 + int(self.credit)
-
-
-@functools.lru_cache(maxsize=None)
-def kernel_schedule(depth: int) -> KernelSchedule:
-    """Map ``plan_pipeline(depth)`` onto a cp.async kernel's ring (the flash
-    kernel's), or raise ``NotImplementedError`` for a plan shape it does not
-    implement."""
-
-    if not 1 <= depth <= MAX_STAGES:
-        raise NotImplementedError(
-            f"pipelined matmul: ring depth {depth} outside the kernel's "
-            f"1..{MAX_STAGES} stages"
-        )
-    plan = plan_pipeline(depth)
-    waits = []
-    for d in plan.retained:
-        if PROCESSORS[d.source] == PROCESSORS[d.sink]:
-            continue  # same processor: program order, no wait
-        mech = _wait_for(d, depth)
-        if mech is None:
-            raise NotImplementedError(
-                f"pipelined matmul: the K-loop plan at depth {depth} retains "
-                f"{d.pretty()}, which the kernel has no wait for"
-            )
-        waits.append(mech)
-    if len(waits) != plan.waits_per_step or "arrival" not in waits:
-        raise NotImplementedError(
-            f"pipelined matmul: plan at depth {depth} asks for waits "
-            f"{waits} ({plan.waits_per_step} per step); the kernel needs the "
-            "arrival wait and one mechanism per retained wait"
-        )
-    credit = "credit" in waits
-    if credit != plan.credit_wait_needed:  # pragma: no cover - plan invariant
-        raise NotImplementedError("credit wait disagrees with the plan")
-    if depth < 2 and not credit:
-        raise NotImplementedError(
-            "pipelined matmul: a one-slot ring without the credit wait "
-            "would refill the slot being read"
-        )
-    return KernelSchedule(depth=depth, waits=tuple(waits), credit=credit)
-
-
-@functools.lru_cache(maxsize=None)
-def default_depth() -> int:
-    return min_buffers()
 
 
 HOPPER_PROCESSORS = {"ISSUE": "producer", "LOAD": "producer", "COMPUTE": "consumer"}

@@ -569,10 +569,10 @@ FLASH_CASES = [
 
 def _flash_route(dtype, hd, sq=None, group=1):
     if dtype == torch.float32:
-        return "tma_wgmma_tf32x3" if hd in (64, 128) else "ffma"
+        return "tma_wgmma_tf32x3"
     if hd in (64, 128) and sq is not None and sq <= 16 and sq * group <= 64:
         return "flash_decode"
-    return "tma_wgmma" if hd in (64, 128) else "cp_async_mma"
+    return "tma_wgmma"
 
 
 def _flash_counted(q, k, v, **kw):
@@ -614,7 +614,7 @@ def test_flash_kernel_matches_plain_version_on_cuda(cuda, case, dtype):
     assert _row_err(out, ref) <= ROW_TOL[dtype]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_tma_kernel_at_every_depth_on_cuda(cuda, hd):
     """Every ring depth that fits (1 .. default_depth) on the TMA route,
     causal over several tiles and with a window."""
@@ -639,7 +639,7 @@ def test_flash_tma_kernel_at_every_depth_on_cuda(cuda, hd):
     ],
     ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"],
 )
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_tma_one_hot_probes_are_exact_on_cuda(cuda, hd, shape, kw):
     """Each row's one live key of margin >= 128 returns its v row (or, with
     V = I, the one-hot P) bit for bit: a wrong P fragment, V transpose or
@@ -716,7 +716,7 @@ def _row_share_f64(out, q, k, v, **kw):
     return (d / ref.norm(dim=-1).clamp_min(1e-300)).max().item() / ROW_TOL[torch.float32]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_tf32x3_kernel_at_every_depth_on_cuda(cuda, hd):
     """Every ring depth that fits, causal over several tiles and with a
     window; within the f32 limit of the plain version and of f64."""
@@ -757,7 +757,7 @@ def test_flash_tf32x3_error_against_f64_and_a_one_tf32_emulation_on_cuda(cuda):
     ],
     ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"],
 )
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_tf32x3_one_hot_probes_are_exact_on_cuda(cuda, hd, shape, kw):
     """The probes' values are exact in TF32 (lo = 0), so each row returns
     its v row (with V = I the one-hot P) bit for bit: a wrong key order in
@@ -774,8 +774,10 @@ def test_flash_tf32x3_one_hot_probes_are_exact_on_cuda(cuda, hd, shape, kw):
 
 @pytest.mark.parametrize(
     "B,Sk,KV,hd,view",
-    [(4, 2048, 4, 128, False), (2, 201, 2, 128, True), (1, 5, 3, 64, False), (2, 333, 2, 64, True)],
-    ids=["yi6b", "cache_slice_ragged", "short", "cache_slice_hd64"],
+    [(4, 2048, 4, 128, False), (2, 201, 2, 128, True), (1, 5, 3, 64, False), (2, 333, 2, 64, True),
+     (4, 2048, 8, 16, False), (2, 201, 2, 16, True), (64, 512, 12, 32, False), (2, 333, 2, 32, True)],
+    ids=["yi6b", "cache_slice_ragged", "short", "cache_slice_hd64", "hd16_prefill",
+         "cache_slice_hd16", "minilm_hd32", "cache_slice_hd32"],
 )
 def test_split_kv_kernel_is_bit_equal_to_its_plain_version_on_cuda(cuda, B, Sk, KV, hd, view):
     gen = torch.Generator(device=cuda).manual_seed(Sk)
@@ -809,8 +811,8 @@ def test_flash_tf32x3_reads_kv_cache_slices_and_head_views_on_cuda(cuda):
 
 
 def test_flash_tf32x3_failure_raises_and_launches_nothing_else(cuda, monkeypatch):
-    """A failing product launch raises, naming the route and the shape; the
-    FFMA kernel is never tried."""
+    """A failing product launch raises, naming the route and the shape; no
+    other kernel is tried."""
 
     real = flash_ops._tf32x3_entry_point
 
@@ -854,8 +856,10 @@ def test_flash_tf32x3_kernel_refuses_a_schedule_without_both_waits(cuda):
 
 @pytest.mark.parametrize(
     "dtype,hd",
-    [(torch.bfloat16, 128), (torch.bfloat16, 32), (torch.float32, 128), (torch.float32, 32)],
-    ids=["tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"],
+    [(torch.bfloat16, 128), (torch.bfloat16, 32), (torch.bfloat16, 16), (torch.float32, 128),
+     (torch.float32, 32), (torch.float32, 16)],
+    ids=["tma_wgmma", "tma_wgmma_hd32", "tma_wgmma_hd16", "tma_wgmma_tf32x3",
+         "tma_wgmma_tf32x3_hd32", "tma_wgmma_tf32x3_hd16"],
 )
 @pytest.mark.parametrize("window", [None, 100])
 def test_flash_q_offset_matches_plain_version_on_every_route_on_cuda(cuda, dtype, hd, window):
@@ -873,32 +877,57 @@ def test_flash_q_offset_matches_plain_version_on_every_route_on_cuda(cuda, dtype
     assert _row_err(out, fault) > ROW_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["ffma", "cp_async_mma"])
-@pytest.mark.parametrize("hd", [64, 128])
-def test_flash_cu_kernel_at_the_tma_head_dims_on_cuda(cuda, hd, dtype):
-    """flash_attention.cu's kernels, which the routes send only hd 16 / 32
-    or strides TMA cannot describe, still hold at hd 64 and 128: the
-    timing baseline of the TMA routes, uncounted; and a broadcast (zero
-    stride) batch takes them there through the wrapper."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_broadcast_batch_takes_a_tma_route_on_cuda(cuda, hd, dtype):
+    """k and v broadcast over the batch (a zero batch stride, as
+    ``expand`` gives) and q broadcast over the heads, read in place by the
+    TMA routes: the tensor maps take a zero stride."""
 
     q, k, v = _flash_inputs(cuda, 2, 300, 333, 4, 2, hd, dtype, seed=hd + 1)
-    for kw in (dict(causal=True), dict(causal=False, window=100), dict(causal=True, q_offset=33)):
-        before, routes = flash_ops.flash_attention.launches, dict(flash_ops.flash_attention.routes)
-        out = flash_ops._flash_cu(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert flash_ops.flash_attention.launches == before
-        assert flash_ops.flash_attention.routes == routes
-        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
-        assert _row_err(out, ref) <= ROW_TOL[dtype], kw
     kb, vb = k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1)
-    out, took = _flash_counted(q, kb, vb, causal=True)
-    assert took == ("ffma" if dtype == torch.float32 else "cp_async_mma")
-    ref = flash_attention_bshd_ref(q.float(), kb.float(), vb.float(), causal=True)
+    qb = q[:, :, :1].expand(-1, -1, 4, -1)
+    assert kb.stride(0) == 0 and qb.stride(2) == 0
+    for qq, kk, vv in ((q, kb, vb), (qb, k, v), (qb, kb, vb)):
+        for kw in (dict(causal=True), dict(causal=False, window=100), dict(causal=True, q_offset=33)):
+            out, took = _flash_counted(qq, kk, vv, **kw)
+            assert took == _flash_route(dtype, hd, 300, 2)
+            ref = flash_attention_bshd_ref(qq.float(), kk.float(), vv.float(), **kw)
+            assert _row_err(out, ref) <= ROW_TOL[dtype], kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_broadcast_few_rows_on_cuda(cuda, dtype):
+    """A broadcast batch with few query rows: bf16 on flash_decode, f32 on
+    its TMA route, each reading the zero stride in place."""
+
+    q, k, v = _flash_inputs(cuda, 4, 4, 1500, 16, 16, 64, dtype, seed=9)
+    kb, vb = k[:1].expand(4, -1, -1, -1), v[:1].expand(4, -1, -1, -1)
+    out, took = _flash_counted(q, kb, vb, causal=False)
+    assert took == _flash_route(dtype, 64, 4, 1)
+    ref = flash_attention_bshd_ref(q.float(), kb.float(), vb.float(), causal=False)
     assert _row_err(out, ref) <= ROW_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float32, 128), (torch.float32, 32)],
-                         ids=["tma_wgmma", "tma_wgmma_tf32x3", "ffma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,to", [(8, 16), (24, 32), (48, 64)])
+def test_flash_head_dim_zero_padded_on_cuda(cuda, hd, to, dtype):
+    """A head dim no kernel is built for runs on the next one, zero-padded
+    at its own scale: one launch, on the TMA route of the dtype."""
+
+    q, k, v = _flash_inputs(cuda, 2, 200, 230, 4, 2, hd, dtype, seed=hd)
+    assert flash_ops.padded_head_dim(hd) == to
+    for kw in (dict(causal=True), dict(causal=False, window=50)):
+        out, took = _flash_counted(q, k, v, **kw)
+        assert took == _flash_route(dtype, to) and out.shape == q.shape
+        ref = flash_attention_bshd_ref(q.float(), k.float(), v.float(), **kw)
+        assert _row_err(out, ref) <= ROW_TOL[dtype], kw
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float32, 128), (torch.float32, 32),
+                                     (torch.bfloat16, 16)],
+                         ids=["tma_wgmma", "tma_wgmma_tf32x3", "tma_wgmma_tf32x3_hd32",
+                              "tma_wgmma_hd16"])
 def test_flash_row_without_keys_raises_before_any_launch_on_cuda(cuda, dtype, hd):
     q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 2, hd, dtype)
     before, splits = flash_ops.flash_attention.launches, flash_ops.split_kv_tf32.launches
@@ -919,6 +948,42 @@ def test_flash_kernel_reads_strided_views(cuda):
     out = flash_ops.flash_attention(q, k, v, causal=True)
     ref = flash_attention_bshd_ref(q, k, v, causal=True)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def _encode_tiled(strides):
+    """cuTensorMapEncodeTiled (the CUDA driver's, through ctypes) on a 4-D
+    bf16 map of dims (64, 2, 128, 2) innermost first, byte ``strides`` of
+    the three outer dims and a (64, 1, 64, 1) box with the 128-byte swizzle:
+    its CUresult."""
+
+    import ctypes
+
+    drv = ctypes.CDLL("libcuda.so.1")
+    fn = drv.cuTensorMapEncodeTiled
+    fn.restype = ctypes.c_int
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    raw = (ctypes.c_ubyte * 192)()
+    tmap = ctypes.addressof(raw) + (-ctypes.addressof(raw)) % 64  # 64-byte aligned
+    base = torch.zeros(1 << 16, dtype=torch.bfloat16, device="cuda")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, u32, ctypes.c_void_p,
+                   ctypes.POINTER(u64), ctypes.POINTER(u64), ctypes.POINTER(u32),
+                   ctypes.POINTER(u32), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    bf16, swizzle_128b, l2_256b = 9, 3, 3
+    return fn(tmap, bf16, 4, base.data_ptr(), (u64 * 4)(64, 2, 128, 2), (u64 * 3)(*strides),
+              (u32 * 4)(64, 1, 64, 1), (u32 * 4)(1, 1, 1, 1), 0, swizzle_128b, l2_256b, 0)
+
+
+def test_tensor_map_encoder_takes_a_zero_stride_on_cuda(cuda):
+    """The driver's encoder takes a zero stride (a broadcast dimension)
+    beside strides that are multiples of 16 bytes, in any of the outer
+    dimensions, so the flash routes read broadcast operands in place; a
+    stride off 16 bytes is refused."""
+
+    assert _encode_tiled((128, 256, 128 * 256)) == 0
+    assert _encode_tiled((128, 256, 0)) == 0
+    assert _encode_tiled((0, 256, 128 * 256)) == 0
+    assert _encode_tiled((128, 0, 0)) == 0
+    assert _encode_tiled((136, 256, 128 * 256)) != 0
 
 
 def test_chunked_attention_on_cuda_is_the_kernel(cuda):

@@ -9,6 +9,8 @@ itself is held against that plain version on the card
 ``tests/test_kernels.py``; tolerances are its 2e-5 (f32) and 3e-2 (bf16).
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,21 +174,8 @@ def test_kernel_contract_rejects_an_empty_window():
         ops._check_kernel_call(q, q, q, 0)
 
 
-def test_ring_depth_comes_from_the_kloop_plan(monkeypatch):
-    from repro_torch.kernels.pipelined_matmul.ops import kernel_schedule
-
-    assert ops.RING_DEPTH == 2
-    assert sorted(kernel_schedule(2).waits) == sorted(ops.KERNEL_WAITS)
-    ops._check_schedule()
-    # depth 1 keeps the slot-reuse dependence, a credit wait the kernel lacks
-    assert kernel_schedule(1).credit
-    monkeypatch.setattr(ops, "RING_DEPTH", 1)
-    with pytest.raises(NotImplementedError, match="depth 1"):
-        ops._check_schedule()
-
-
 # ---------------------------------------------------------------------- #
-# The TMA route: what the wrapper decides without a card
+# The TMA routes: what the wrapper decides without a card
 # ---------------------------------------------------------------------- #
 
 def _strides(shape):
@@ -206,20 +195,41 @@ def _strides(shape):
          (0, 0, 0), "tma_wgmma"),                                              # granite hd 64
         (torch.bfloat16, 128, [(8 * 201 * 128, 8 * 128, 128)] + [(640 * 256, 256, 128)] * 2,
          (0, 16, 32), "tma_wgmma"),                                            # cache slices
-        (torch.bfloat16, 32, [_strides((1, 193, 4, 32))] * 3, (0, 0, 0), "cp_async_mma"),
-        (torch.bfloat16, 16, [_strides((1, 201, 4, 16))] * 3, (0, 0, 0), "cp_async_mma"),
-        (torch.bfloat16, 128, [(132 * 100, 132, 1)] * 3, (0, 0, 0), "cp_async_mma"),  # 2-byte strides
-        (torch.bfloat16, 128, [_strides((1, 64, 2, 128))] * 3, (0, 2, 0), "cp_async_mma"),  # k offset
+        (torch.bfloat16, 32, [_strides((1, 193, 4, 32))] * 3, (0, 0, 0), "tma_wgmma"),
+        (torch.bfloat16, 16, [_strides((1, 201, 4, 16))] * 3, (0, 0, 0), "tma_wgmma"),
+        # strides or bases off 16 bytes: the TMA route's rule, and then its
+        # contract raises before any launch
+        (torch.bfloat16, 128, [(132 * 100, 132, 1)] * 3, (0, 0, 0), "tma_wgmma"),  # 2-byte strides
+        (torch.bfloat16, 128, [_strides((1, 64, 2, 128))] * 3, (0, 2, 0), "tma_wgmma"),  # k offset
         (torch.bfloat16, 128, [_strides((1, 64, 2, 128)), (0, 256, 128), (0, 256, 128)],
-         (0, 0, 0), "cp_async_mma"),                                           # broadcast batch
+         (0, 0, 0), "tma_wgmma"),                                              # broadcast batch
         (torch.float32, 128, [_strides((4, 2048, 32, 128))] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),
-        (torch.float32, 32, [_strides((1, 193, 4, 32))] * 3, (4, 0, 0), "ffma"),
+        (torch.float32, 32, [_strides((1, 193, 4, 32))] * 3, (4, 0, 0), "tma_wgmma_tf32x3"),
     ],
     ids=["yi6b", "hd64", "cache_slices", "hd32", "hd16", "odd_strides", "k_offset",
          "stride_0", "f32", "f32_hd32"],
 )
 def test_route_rule(dtype, hd, strides, addresses, expect):
     assert ops.route(dtype, hd, strides, addresses) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("sq,group", [(1, 1), (4, 4), (16, 4), (193, 1)],
+                         ids=["decode", "prompt_gqa", "16_rows", "prefill"])
+def test_every_call_takes_a_tma_route(dtype, hd, sq, group):
+    """Every bf16 call takes flash_decode (hd 64 / 128, few rows) or
+    tma_wgmma, every f32 call tma_wgmma_tf32x3: at hd 8 (padded), 16 and
+    32 whatever the rows, so a few-row call there is not flash_decode."""
+
+    strides = [_strides((2, sq, 4 * group, hd))] + [_strides((2, 300, 4, hd))] * 2
+    got = ops.route(dtype, ops.padded_head_dim(hd), strides, (0, 0, 0), sq=sq, group=group)
+    if dtype == torch.float32:
+        assert got == "tma_wgmma_tf32x3"
+    elif hd in (64, 128) and sq <= ops.DECODE_MAX_SQ and sq * group <= ops.DECODE_MAX_ROWS:
+        assert got == "flash_decode"
+    else:
+        assert got == "tma_wgmma"
 
 
 def test_route_of_views_follows_strides_and_base_addresses():
@@ -232,18 +242,38 @@ def test_route_of_views_follows_strides_and_base_addresses():
     shifted = flat[1:1 + 64 * 2 * 128].view(1, 64, 2, 128)  # 2 bytes in
     aligned = flat[8:8 + 64 * 2 * 128].view(1, 64, 2, 128)  # 16 bytes in
     assert ops._route_of(aligned, aligned, aligned) == "tma_wgmma"
-    assert ops._route_of(aligned, shifted, aligned) == "cp_async_mma"
+    assert ops._route_of(aligned, shifted, aligned) == "tma_wgmma"
+    with pytest.raises(NotImplementedError, match="offset 2"):
+        ops._check_kernel_call(aligned, shifted, aligned, None)  # before any launch
     assert ops._route_of(q.float(), k.float(), k.float()) == "tma_wgmma_tf32x3"
-    assert ops._route_of(*(t[..., :32].float() for t in (q, k, k))) == "ffma"
+    assert ops._route_of(*(t[..., :32].float() for t in (q, k, k))) == "tma_wgmma_tf32x3"
+    # a broadcast batch: a zero stride, which the tensor maps take
+    kb = k[:1].expand(2, -1, -1, -1)
+    assert kb.stride(0) == 0 and ops._route_of(q, kb, kb) == "tma_wgmma"
+    ops._check_kernel_call(q, kb, kb, None)
 
 
-@pytest.mark.parametrize("hd,depth", [(64, 4), (128, 3)])
+@pytest.mark.parametrize("hd,depth", [(16, 4), (32, 4), (64, 4), (128, 3)])
 def test_default_depth_is_the_deepest_ring_that_fits(hd, depth):
     assert ops.default_depth(hd) == depth <= ops.MAX_STAGES
     assert ops.tma_smem_bytes(hd, depth) <= ops.SMEM_PER_BLOCK
     assert depth == ops.MAX_STAGES or ops.tma_smem_bytes(hd, depth + 1) > ops.SMEM_PER_BLOCK
     # hd 128: 32 KB of Q and three 64 KB stages, 230480 of the 232448 bytes
     assert ops.tma_smem_bytes(128, 3) == 32768 + 3 * 65536 + 1024 + 80
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+def test_smem_at_small_head_dims(hd):
+    """At hd 16 and 32 a stage of K and V is 4 hd BK bytes (16 KB at hd 32):
+    every depth up to MAX_STAGES fits."""
+
+    assert ops.tma_smem_bytes(hd, 0) == 128 * hd * 2 + ops.TMA_SMEM_EXTRA
+    stage = ops.tma_smem_bytes(hd, 1) - ops.tma_smem_bytes(hd, 0)
+    assert stage == 2 * ops.TMA_BK * hd * 2 == 4 * 128 * hd
+    assert ops.default_depth(hd) == ops.MAX_STAGES
+    assert ops.tma_smem_bytes(hd, ops.MAX_STAGES) <= ops.SMEM_PER_BLOCK
+    for depth in range(1, ops.MAX_STAGES + 1):
+        assert ops._tma_schedule(hd, depth).depth == depth
 
 
 def test_tma_kernel_constants_agree_with_the_wrapper():
@@ -259,7 +289,15 @@ def test_tma_kernel_constants_agree_with_the_wrapper():
     assert const("SMEM_PER_BLOCK") == ops.SMEM_PER_BLOCK
     assert "SMEM_BYTES_EXTRA = 1024 + 8 * (2 + 2 * MAX_STAGES)" in src
     assert ops.TMA_SMEM_EXTRA == 1024 + 8 * (2 + 2 * ops.MAX_STAGES)
-    assert tuple(ops.TMA_HEAD_DIMS) == (64, 128)
+    # the head dims the host entry takes, each instantiated
+    assert tuple(ops.TMA_HEAD_DIMS) == (16, 32, 64, 128)
+    assert "(hd != 16 && hd != 32 && hd != 64 && hd != 128)" in src
+    for hd in ops.TMA_HEAD_DIMS:
+        assert f"case {hd}: return launch_stages<{hd}>" in src or (
+            hd == 16 and "default: return launch_stages<16>" in src)
+    # flash_decode keeps its own head dims, read from its source
+    dec = ops.DECODE_SOURCE.read_text()
+    assert "(hd != 64 && hd != 128)" in dec and tuple(ops.DECODE_HEAD_DIMS) == (64, 128)
 
 
 def test_tensor_map_of_a_contiguous_q():
@@ -284,6 +322,37 @@ def test_tensor_map_of_a_kv_cache_slice():
     assert tm.box == (64, 1, 128, 1)
 
 
+@pytest.mark.parametrize(
+    "dtype,hd,cols,row",
+    [(torch.bfloat16, 16, 16, 32), (torch.bfloat16, 32, 32, 64), (torch.bfloat16, 64, 64, 128),
+     (torch.bfloat16, 128, 64, 128), (torch.float32, 16, 16, 64), (torch.float32, 32, 32, 128),
+     (torch.float32, 64, 32, 128), (torch.float32, 128, 32, 128)],
+    ids=["bf16_hd16", "bf16_hd32", "bf16_hd64", "bf16_hd128", "f32_hd16", "f32_hd32",
+         "f32_hd64", "f32_hd128"],
+)
+def test_tensor_map_box_and_swizzle_at_every_head_dim(dtype, hd, cols, row):
+    """A box is min(hd, 128 bytes) of hd columns; the kernels swizzle each
+    box by its row (32, 64 or 128 bytes), which the host entries take from
+    the box (``hopper::swizzle_for_row``)."""
+
+    import re
+
+    q = torch.zeros(2, 300, 4, hd, dtype=dtype)
+    elt = q.element_size()
+    tm = ops.tensor_map(q.shape, q.stride(), ops.TMA_BQ, elt)
+    assert tm.dims == (hd, 4, 300, 2)
+    assert tm.strides == (hd * elt, 4 * hd * elt, 300 * 4 * hd * elt)
+    assert tm.box == (cols, 1, ops.TMA_BQ, 1) and cols * elt == row
+    header = (Path(ops.TMA_SOURCE).parents[2] / "csrc" / "hopper.cuh").read_text()
+    body = re.search(r"swizzle_for_row\(uint32_t row_bytes\) \{(.*?)\n\}", header, re.S).group(1)
+    assert f"row_bytes == {row} ? CU_TENSOR_MAP_SWIZZLE_{row}B" in " ".join(body.split())
+    if dtype == torch.bfloat16:
+        assert "swizzle_for_row(box[0] * 2)" in header  # encode_bf16_4d
+    else:
+        src = ops.TF32X3_SOURCE.read_text()
+        assert "hopper::swizzle_for_row(4 * cols)" in src  # Q's map and K's
+
+
 def _with_waits(depth, waits):
     from repro_torch.kernels.pipelined_matmul.ops import HopperSchedule
 
@@ -299,8 +368,10 @@ def test_tma_route_refuses_a_schedule_without_both_waits(monkeypatch, waits):
     q = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="full and the empty"):
         ops.flash_attention(q, q, q)  # the plan is read on the CPU too
-    small = torch.zeros(1, 16, 2, 32)
-    ops.flash_attention(small, small, small)  # ffma: not this plan
+    for dtype in (torch.bfloat16, torch.float32):  # hd 32: a TMA route's plan too
+        small = torch.zeros(1, 16, 2, 32, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="full and the empty"):
+            ops.flash_attention(small, small, small)
 
 
 def test_tma_route_takes_its_waits_from_the_kloop_plan(monkeypatch):
@@ -335,16 +406,15 @@ def test_tma_route_refuses_a_ring_that_does_not_fit():
     with pytest.raises(NotImplementedError, match="ring depth 0"):
         ops.flash_attention(q, q, q, depth=0)
     small = torch.zeros(1, 16, 2, 32, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="cp_async_mma.*one depth"):
-        ops.flash_attention(small, small, small, depth=3)
+    with pytest.raises(NotImplementedError, match="tma_wgmma.*ring depth 5 at hd=32"):
+        ops.flash_attention(small, small, small, depth=5)
+    assert ops.flash_attention(small, small, small, depth=4).shape == small.shape
     out = ops.flash_attention(q, q, q, depth=3)  # fits: the plain version on the CPU
     assert out.shape == q.shape
 
 
 def test_routes_are_counted_beside_launches():
-    assert set(ops.flash_attention.routes) == {
-        "flash_decode", "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
-    }
+    assert set(ops.flash_attention.routes) == {"flash_decode", "tma_wgmma", "tma_wgmma_tf32x3"}
     (_, tq), (_, tk), (_, tv) = _inputs(8, (1, 16, 2, 64), (1, 16, 2, 64), "bfloat16")
     before = dict(ops.flash_attention.routes)
     ops.flash_attention(tq, tk, tv)
@@ -365,7 +435,7 @@ PROBES = [
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize(
     "shape,kw", PROBES, ids=["causal", "ragged", "window", "causal_identity_v", "ragged_identity_v"]
 )

@@ -249,9 +249,9 @@ def _kv(Sk, KV, hd):
         (torch.bfloat16, 128, 16, 2048, 32, 4, "tma_wgmma"),       # 128 rows a KV head
         (torch.bfloat16, 64, 16, 2048, 32, 8, "flash_decode"),     # granite, 64 rows
         (torch.bfloat16, 64, 17, 1500, 16, 16, "tma_wgmma"),       # above DECODE_MAX_SQ
-        (torch.bfloat16, 32, 1, 2048, 4, 4, "cp_async_mma"),       # hd 32
+        (torch.bfloat16, 32, 1, 2048, 4, 4, "tma_wgmma"),          # hd 32: not flash_decode
         (torch.float32, 64, 1, 1500, 16, 16, "tma_wgmma_tf32x3"),  # f32 keeps its route
-        (torch.float32, 32, 1, 1500, 16, 16, "ffma"),
+        (torch.float32, 32, 1, 1500, 16, 16, "tma_wgmma_tf32x3"),
     ],
     ids=["decode_cross", "prompt_cross", "prompt_self", "encoder", "yi6b_8", "yi6b_16",
          "granite_16", "sq_17", "hd32", "f32", "f32_hd32"],
@@ -266,11 +266,17 @@ def test_route_rule_sends_few_rows_to_flash_decode(dtype, hd, Sq, Sk, H, KV, exp
 
 
 def test_route_of_misaligned_few_rows_is_cp_async():
+    """A few-row call flash_decode cannot read (a base 2 bytes off 16)
+    takes the TMA route's rule, now that the cp.async route is gone, and
+    the kernel contract refuses it before any launch."""
+
     flat = torch.zeros(1 * 4 * 2 * 64 + 8, dtype=torch.bfloat16)
     shifted = flat[1:1 + 4 * 2 * 64].view(1, 4, 2, 64)
     aligned = flat[8:8 + 4 * 2 * 64].view(1, 4, 2, 64)
     assert ops._route_of(aligned, aligned, aligned) == "flash_decode"
-    assert ops._route_of(shifted, aligned, aligned) == "cp_async_mma"
+    assert ops._route_of(shifted, aligned, aligned) == "tma_wgmma"
+    with pytest.raises(NotImplementedError, match="offset 2"):
+        ops._check_kernel_call(shifted, aligned, aligned, None)
 
 
 def test_private_switch_times_tma_on_few_rows(monkeypatch):
@@ -281,11 +287,10 @@ def test_private_switch_times_tma_on_few_rows(monkeypatch):
     assert ops._route_of(q, k, k) == "tma_wgmma"
 
 
-def test_route_refuses_another_depth_and_reads_its_plan(monkeypatch):
+def test_route_refuses_another_depth_and_reads_its_plan():
     """The route has one ring depth, ``DECODE_DEPTH`` (fewer stages for a
     range of fewer tiles): another is refused; each depth it runs reads the
-    Hopper K-loop plan (the full and the empty mbarrier).  The cp.async
-    kernels keep their plan at ``RING_DEPTH`` and refuse a credit wait."""
+    Hopper K-loop plan (the full and the empty mbarrier)."""
 
     q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="flash_decode.*one depth"):
@@ -294,9 +299,6 @@ def test_route_refuses_another_depth_and_reads_its_plan(monkeypatch):
     for depth in range(1, ops.DECODE_DEPTH + 1):
         sched = ops._decode_schedule(depth)
         assert sched.depth == depth and sorted(sched.waits) == sorted(ops.DECODE_WAITS)
-    monkeypatch.setattr(ops, "RING_DEPTH", 1)  # a plan with a credit wait
-    with pytest.raises(NotImplementedError, match=r"\(cp_async_mma\).*depth 1"):
-        ops._check_schedule(ops.CP_ASYNC_MMA)
 
 
 def test_no_launch_is_counted_on_the_cpu():

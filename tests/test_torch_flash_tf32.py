@@ -32,12 +32,17 @@ from repro_torch.kernels.pipelined_matmul.ref import rna_tf32_ref
 ROW_TOL = 2e-5  # tests/test_kernels.py's f32 tolerance, per output row
 
 # (B, Sq, Sk, H, KV, hd, causal, window): the route's shapes at a small
-# size: several key tiles causal with GQA, a window, ragged lengths
+# size, at each hd it takes: several key tiles causal with GQA, a window,
+# ragged lengths
 EMULATION_CASES = [
     (1, 256, 256, 4, 2, 64, True, None),
     (1, 256, 256, 2, 1, 128, True, 100),
     (1, 193, 201, 2, 2, 128, False, None),
     (1, 193, 201, 4, 2, 64, True, None),
+    (1, 256, 256, 4, 2, 32, True, None),
+    (1, 193, 201, 4, 4, 32, False, None),
+    (1, 256, 256, 4, 2, 16, True, 100),
+    (1, 193, 201, 2, 1, 16, False, None),
 ]
 
 
@@ -101,9 +106,10 @@ def test_emulation_takes_q_offset_as_the_plain_version_does():
 # The K / V split
 # ---------------------------------------------------------------------- #
 
+@pytest.mark.parametrize("hd", [16, 32, 64])
 @pytest.mark.parametrize("Sk", [64, 201, 5], ids=["whole", "ragged", "short"])
-def test_split_kv_layout_and_key_order(Sk):
-    B, KV, hd = 2, 3, 64
+def test_split_kv_layout_and_key_order(Sk, hd):
+    B, KV = 2, 3
     _, k, v = (torch.from_numpy(a) for a in _inputs(Sk, B, 1, Sk, KV, KV, hd))
     k_hi, k_lo, vt_hi, vt_lo = split_kv_tf32_ref(k, v)
     sk8 = -(-Sk // 8) * 8
@@ -222,14 +228,16 @@ def _strides(shape):
          (0, 0, 0), "tma_wgmma_tf32x3"),                              # granite hd 64
         (128, [(8 * 201 * 128, 8 * 128, 128)] + [(640 * 256, 256, 128)] * 2,
          (0, 16, 32), "tma_wgmma_tf32x3"),                            # cache slices
-        (32, [_strides((1, 193, 4, 32))] * 3, (0, 0, 0), "ffma"),     # hd 32
-        (16, [_strides((1, 201, 4, 16))] * 3, (0, 0, 0), "ffma"),     # hd 16
-        (128, [(130 * 100, 130, 1)] * 3, (0, 0, 0), "ffma"),          # 4-byte strides
-        (64, [(66 * 64, 66 * 64, 66)] * 3, (0, 0, 0), "ffma"),        # 264-byte head stride
-        (128, [_strides((1, 64, 2, 128))] * 3, (0, 8, 0), "ffma"),    # k 8 bytes in
-        (128, [_strides((1, 64, 2, 128))] * 3, (4, 0, 0), "ffma"),    # q 4 bytes in
+        (32, [_strides((1, 193, 4, 32))] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),  # hd 32
+        (16, [_strides((1, 201, 4, 16))] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),  # hd 16
+        # strides or bases off 16 bytes: the route's rule, and then its
+        # contract raises before any launch
+        (128, [(130 * 100, 130, 1)] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),   # 4-byte strides
+        (64, [(66 * 64, 66 * 64, 66)] * 3, (0, 0, 0), "tma_wgmma_tf32x3"),  # 264-byte head stride
+        (128, [_strides((1, 64, 2, 128))] * 3, (0, 8, 0), "tma_wgmma_tf32x3"),  # k 8 bytes in
+        (128, [_strides((1, 64, 2, 128))] * 3, (4, 0, 0), "tma_wgmma_tf32x3"),  # q 4 bytes in
         (64, [_strides((1, 64, 2, 64)), (0, 128, 64), (0, 128, 64)],
-         (0, 0, 0), "ffma"),                                          # broadcast batch
+         (0, 0, 0), "tma_wgmma_tf32x3"),                                  # broadcast batch
     ],
     ids=["yi6b", "hd64", "cache_slices", "hd32", "hd16", "odd_strides",
          "head_stride_264_bytes", "k_offset", "q_offset_bytes", "stride_0"],
@@ -243,17 +251,21 @@ def test_f32_route_of_views_follows_strides_and_base_addresses():
     aligned = flat[4:4 + 64 * 2 * 128].view(1, 64, 2, 128)   # 16 bytes in
     shifted = flat[1:1 + 64 * 2 * 128].view(1, 64, 2, 128)   # 4 bytes in
     assert ops._route_of(aligned, aligned, aligned) == "tma_wgmma_tf32x3"
-    assert ops._route_of(aligned, shifted, aligned) == "ffma"
+    assert ops._route_of(aligned, shifted, aligned) == "tma_wgmma_tf32x3"
+    with pytest.raises(NotImplementedError, match="offset 4"):
+        ops._check_kernel_call(aligned, shifted, aligned, None)  # before any launch
     qkv = torch.zeros(2, 96, 8, 64)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     assert ops._route_of(q, k, v) == "tma_wgmma_tf32x3"
-    assert ops._route_of(*(t[..., :32] for t in (q, k, v))) == "ffma"
+    assert ops._route_of(*(t[..., :32] for t in (q, k, v))) == "tma_wgmma_tf32x3"
+    ops._check_kernel_call(*(t[..., :16] for t in (q, k, v)), None)
 
 
 @pytest.mark.parametrize(
     "hd,depth,smem",
-    [(128, 3, 131072 + 3 * 32768 + 1104), (64, 4, 65536 + 4 * 32768 + 1104)],
-    ids=["hd128_bk16", "hd64_bk32"],
+    [(128, 3, 131072 + 3 * 32768 + 1104), (64, 4, 65536 + 4 * 32768 + 1104),
+     (32, 4, 32768 + 4 * 32768 + 1104), (16, 4, 16384 + 4 * 16384 + 1104)],
+    ids=["hd128_bk16", "hd64_bk32", "hd32_bk64", "hd16_bk64"],
 )
 def test_tf32x3_default_depth_is_the_deepest_ring_that_fits(hd, depth, smem):
     assert ops.tf32x3_default_depth(hd) == depth <= ops.MAX_STAGES
@@ -264,17 +276,20 @@ def test_tf32x3_default_depth_is_the_deepest_ring_that_fits(hd, depth, smem):
 
 
 def test_tf32x3_default_tile_is_the_deeper_ring():
-    """Each hd's key tile (16 or 32 keys: a Vᵀ row of one 64- or 128-byte
-    swizzle span) is the one whose ring is the deeper in the budget."""
+    """Each hd's key tile is the one whose ring is the deeper in the budget
+    (16 or 32 keys at hd 128 and 64: a Vᵀ row of one 64- or 128-byte
+    swizzle span), and at hd 32 and 16, where every depth fits either
+    way, the wider 64 keys (Vᵀ in two 128-byte boxes)."""
 
     def ring(hd, bk):
         free = ops.SMEM_PER_BLOCK - ops.tf32x3_smem_bytes(hd, 0)
         return min(ops.MAX_STAGES, free // (4 * bk * hd * 4))
 
-    assert ops.TF32X3_BK == {128: 16, 64: 32}
+    assert ops.TF32X3_BK == {128: 16, 64: 32, 32: 64, 16: 64}
     assert (ring(128, 16), ring(128, 32), ring(64, 32), ring(64, 16)) == (3, 1, 4, 4)
+    assert (ring(32, 64), ring(16, 64)) == (4, 4)  # every depth fits: the wider tile
     for hd, bk in ops.TF32X3_BK.items():
-        assert ops.tf32x3_default_depth(hd) == ring(hd, bk) >= ring(hd, 48 - bk)
+        assert ops.tf32x3_default_depth(hd) == ring(hd, bk) >= ring(hd, 32 if bk == 16 else 16)
         assert ops._tma_schedule(hd, None, "tma_wgmma_tf32x3").depth == (
             ops.tf32x3_default_depth(hd)
         )
@@ -293,11 +308,13 @@ def test_tf32x3_kernel_constants_agree_with_the_wrapper():
     # Q hi + lo, and a stage of K hi / lo and Vᵀ hi / lo, as the wrapper counts
     assert "return 2 * Q_BYTES + stages * STAGE_BYTES + SMEM_BYTES_EXTRA;" in src
     assert "STAGE_BYTES = 2 * K_BYTES + 2 * V_BYTES;" in src
-    assert "static_assert(BK == 16 || BK == 32," in src
-    assert "constexpr int key_tile(int hd) { return hd == 128 ? 16 : 32; }" in src
-    assert ops.TF32X3_BK == {hd: 16 if hd == 128 else 32 for hd in ops.TMA_HEAD_DIMS}
+    assert "static_assert(BK == 16 || BK == 32 || BK == 64," in src
+    assert "constexpr int key_tile(int hd) { return hd == 128 ? 16 : hd == 64 ? 32 : 64; }" in src
+    assert ops.TF32X3_BK == {hd: {128: 16, 64: 32}.get(hd, 64) for hd in ops.TMA_HEAD_DIMS}
     assert "launch_stages<128, key_tile(128)>" in src and "launch_stages<64, key_tile(64)>" in src
-    assert "(hd != 64 && hd != 128)" in src and tuple(ops.TMA_HEAD_DIMS) == (64, 128)
+    assert "launch_stages<32, key_tile(32)>" in src and "launch_stages<16, key_tile(16)>" in src
+    assert "(hd != 16 && hd != 32 && hd != 64 && hd != 128)" in src
+    assert tuple(ops.TMA_HEAD_DIMS) == (16, 32, 64, 128)
     # the Vᵀ swizzle follows the row of BK keys: 64 bytes at BK 16
     assert "bk == 16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B" in src
 
@@ -317,7 +334,8 @@ def test_tf32x3_route_refuses_a_schedule_without_both_waits(monkeypatch, waits):
     with pytest.raises(NotImplementedError, match="full and the empty"):
         ops.flash_attention(q, q, q)  # the plan is read on the CPU too
     small = torch.zeros(1, 16, 2, 32)
-    ops.flash_attention(small, small, small)  # ffma: not this plan
+    with pytest.raises(NotImplementedError, match=r"tma_wgmma_tf32x3.*full and the empty"):
+        ops.flash_attention(small, small, small)  # hd 32: the same route, the same plan
 
 
 @pytest.mark.parametrize(
@@ -345,9 +363,7 @@ def test_tf32x3_route_takes_its_waits_from_the_kloop_plan():
 
 
 def test_routes_and_split_launches_are_counted_on_the_cpu_as_none():
-    assert set(ops.flash_attention.routes) == {
-        "flash_decode", "tma_wgmma", "cp_async_mma", "tma_wgmma_tf32x3", "ffma"
-    }
+    assert set(ops.flash_attention.routes) == {"flash_decode", "tma_wgmma", "tma_wgmma_tf32x3"}
     q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 16, 16, 2, 2, 64))
     before = dict(ops.flash_attention.routes), ops.split_kv_tf32.launches
     ops.flash_attention(q, k, v)

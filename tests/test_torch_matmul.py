@@ -10,7 +10,6 @@ tolerances are the reference's (``tests/test_kernels.py``): 2e-5 in f32
 and 3e-2 in bf16, the absolute one scaled by sqrt(K).
 """
 
-import dataclasses
 import re
 import shutil
 import types
@@ -80,71 +79,9 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 # depth -> plan -> kernel
 # ---------------------------------------------------------------------- #
 
-def test_default_depth_is_min_buffers():
-    assert ops.default_depth() == 2
-
-
-def test_depth_one_takes_the_credit_wait_variant():
-    s = ops.kernel_schedule(1)
-    assert s.depth == 1 and s.credit
-    assert sorted(s.waits) == ["arrival", "credit"]
-    assert s.barriers_per_step == 2
-
-
-@pytest.mark.parametrize("depth", [2, 3, 4])
-def test_depth_two_and_up_take_one_barrier(depth):
-    s = ops.kernel_schedule(depth)
-    assert s.depth == depth and not s.credit
-    assert sorted(s.waits) == ["arrival", "issue"]
-    assert s.barriers_per_step == 1
-
-
-@pytest.mark.parametrize("depth", [1, 2])
-def test_waits_are_the_plans(depth):
-    plan = ops.plan_pipeline(depth)
-    s = ops.kernel_schedule(depth)
-    assert len(s.waits) == plan.waits_per_step
-    assert s.credit == plan.credit_wait_needed
-
-
 def test_depth_outside_the_ring_raises():
     with pytest.raises(NotImplementedError, match="ring depth"):
-        ops.kernel_schedule(5)
-    with pytest.raises(NotImplementedError, match="ring depth"):
         ops.matmul(torch.zeros(2, 2), torch.zeros(2, 2), depth=0)
-
-
-def test_plan_with_a_wait_the_kernel_lacks_raises(monkeypatch):
-    real = ops.plan_pipeline(2)
-    odd = dataclasses.replace(
-        real,
-        retained=real.retained
-        + (Dependence(FLOW, "COMPUTE", "LOAD", "buf", (3,)),),
-        waits_per_step=real.waits_per_step + 1,
-    )
-    monkeypatch.setattr(ops, "plan_pipeline", lambda depth: odd)
-    ops.kernel_schedule.cache_clear()
-    try:
-        with pytest.raises(NotImplementedError, match="no wait for"):
-            ops.kernel_schedule(2)
-    finally:
-        ops.kernel_schedule.cache_clear()
-
-
-def test_plan_without_the_arrival_wait_raises(monkeypatch):
-    real = ops.plan_pipeline(2)
-    odd = dataclasses.replace(
-        real,
-        retained=tuple(d for d in real.retained if d.sink != "COMPUTE"),
-        waits_per_step=real.waits_per_step - 1,
-    )
-    monkeypatch.setattr(ops, "plan_pipeline", lambda depth: odd)
-    ops.kernel_schedule.cache_clear()
-    try:
-        with pytest.raises(NotImplementedError, match="arrival"):
-            ops.kernel_schedule(2)
-    finally:
-        ops.kernel_schedule.cache_clear()
 
 
 @pytest.mark.parametrize(
@@ -196,7 +133,7 @@ def test_the_shared_processor_map_keeps_the_credit_only_at_depth_one(depth):
     dependence is covered by program order from D = 2 on; with a producer
     warpgroup of its own nothing covers it."""
 
-    assert ops.kernel_schedule(depth).credit == (depth == 1)
+    assert schedule.plan_pipeline(depth).credit_wait_needed == (depth == 1)
     assert ops.hopper_schedule(depth).empty
 
 
@@ -204,7 +141,7 @@ def test_hopper_stages_is_the_deepest_ring_that_fits():
     assert ops.HOPPER_STAGES == 4 <= ops.MAX_STAGES
     ring = ops.HOPPER_STAGES * ops.HOPPER_STAGE_BYTES + 1024 + 64
     assert ring <= ops.SMEM_PER_BLOCK < ring + ops.HOPPER_STAGE_BYTES
-    assert ops.HOPPER_STAGES != ops.default_depth()
+    assert ops.HOPPER_STAGES != schedule.min_buffers()
 
 
 def test_kernel_constants_agree_with_the_wrapper():
