@@ -1,6 +1,8 @@
 """Train, prefill and decode steps, as the reference's ``launch/steps.py``.
 PyTorch runs eagerly, so a step is the plain function: the serving steps
-under ``torch.inference_mode``, the train step under autograd.
+under ``torch.inference_mode``, the train step under autograd.  Each call
+opens one step span (:func:`repro_torch.spans.step`): ``train.step``,
+``serve.prefill``, ``serve.decode`` (its argmax a child ``lm.sample``).
 
 ``make_train_step`` closes over (config, optimizer) and returns
 ``(params, opt_state, batch) -> (params, opt_state, metrics)``.  Optional
@@ -15,10 +17,12 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.sharded import place
+from repro_torch.obs import trace
 from repro_torch.optim.optimizer import AdamW, AdamWState, global_norm
 
 
@@ -171,6 +175,10 @@ def make_train_step(
         return _grads_of(params, batch, cfg, act_constrain if seq_shard else None)
 
     def step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
+        with spans.step("train.step", batch["tokens"]):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
@@ -244,7 +252,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
     @torch.inference_mode()
     def prefill_step(params, batch, cache):
-        with _placed(params):
+        with spans.step("serve.prefill", batch["tokens"]), _placed(params):
             return zoo.prefill(params, batch, cfg, cache)
 
     return prefill_step
@@ -259,12 +267,13 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     def serve_step(params, tokens, cache, cache_len):
         from repro_torch.models import sharded
 
-        with _placed(params):
+        with spans.step("serve.decode", tokens), _placed(params):
             logits, cache = zoo.decode_step(params, tokens, cfg, cache, cache_len)
-            logits = logits[:, -1, :]
-            if sharded.is_dtensor(logits):  # the vocab whole: one all-gather
-                logits = sharded.whole_along(logits, -1)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            with trace.module("lm.sample"):
+                logits = logits[:, -1, :]
+                if sharded.is_dtensor(logits):  # the vocab whole: one all-gather
+                    logits = sharded.whole_along(logits, -1)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt[:, None], cache
 
     return serve_step

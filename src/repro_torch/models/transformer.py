@@ -16,6 +16,13 @@ per-block dicts run by a Python loop (``repro_torch.convert`` unstacks a
 reference tree), and the remainder layers follow, as in the reference.
 Every layer returns its MoE aux loss (zero without MoE), summed over the
 stack.
+
+Spans (:func:`repro_torch.obs.trace.module`, no-ops while tracing is off):
+``lm.embed`` and ``lm.unembed`` (the final norm and the head) once a call;
+in each layer, with its index, ``lm.norm`` (each RMSNorm), and on the
+attention and dense-MLP paths ``lm.qkv``, ``lm.rope``, ``lm.cache_write``,
+``lm.attention`` (the core alone), ``lm.out_proj`` and ``lm.mlp``.  All but
+``lm.embed`` ask for device time.  Under remat the recompute opens them again.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     unembed,
 )
+from repro_torch.obs import trace
 
 # ---------------------------------------------------------------------- #
 # init
@@ -142,40 +150,44 @@ def positions(mode: str, seq: int, cache_len, device) -> torch.Tensor:
     return torch.as_tensor(cache_len, device=device).reshape(1)
 
 
-def _attention(p, h, cfg, window, mode, cache, cache_len):
+def _attention(p, h, cfg, window, mode, cache, cache_len, layer):
     """The attention mixer: (output, new cache)."""
 
-    q, k, v = attn_lib.qkv_project(p, h)
-    pos = positions(mode, h.shape[1], cache_len, h.device)
-    q = attn_lib.apply_rope(q, pos, cfg.rope_theta)
-    k = attn_lib.apply_rope(k, pos, cfg.rope_theta)
+    with trace.module("lm.qkv", layer, True):
+        q, k, v = attn_lib.qkv_project(p, h)
+    with trace.module("lm.rope", layer, True):
+        pos = positions(mode, h.shape[1], cache_len, h.device)
+        q = attn_lib.apply_rope(q, pos, cfg.rope_theta)
+        k = attn_lib.apply_rope(k, pos, cfg.rope_theta)
     new_cache = cache
-    if mode == "train":
-        o = attn_lib.chunked_attention(
-            q, k, v, causal=True, window=window, chunk=cfg.attn_chunk
-        )
-    elif mode == "prefill":
-        if cfg.kv_quant:
-            new_cache = attn_lib.update_kv_cache_q(cache, k, v, 0)
-        else:
-            kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, 0)
-            new_cache = {"k": kc, "v": vc}
-        o = attn_lib.chunked_attention(
-            q, k, v, causal=True, window=window, chunk=cfg.attn_chunk
-        )
-    else:  # decode
-        if cfg.kv_quant:
-            new_cache = attn_lib.update_kv_cache_q(cache, k, v, cache_len)
+    if mode != "train":
+        start = 0 if mode == "prefill" else cache_len
+        with trace.module("lm.cache_write", layer, True):
+            if cfg.kv_quant:
+                new_cache = attn_lib.update_kv_cache_q(cache, k, v, start)
+            else:
+                kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, start)
+                new_cache = {"k": kc, "v": vc}
+    with trace.module("lm.attention", layer, True):
+        if mode != "decode":
+            o = attn_lib.chunked_attention(
+                q, k, v, causal=True, window=window, chunk=cfg.attn_chunk
+            )
+        elif cfg.kv_quant:
             o = attn_lib.decode_attention_q(
                 q, new_cache, cache_len + 1, window=window
             )
         else:
-            kc, vc = attn_lib.update_kv_cache(
-                cache["k"], cache["v"], k, v, cache_len
+            o = attn_lib.decode_attention(
+                q, new_cache["k"], new_cache["v"], cache_len + 1, window=window
             )
-            new_cache = {"k": kc, "v": vc}
-            o = attn_lib.decode_attention(q, kc, vc, cache_len + 1, window=window)
-    return attn_lib.out_project(p, o), new_cache
+    with trace.module("lm.out_proj", layer, True):
+        return attn_lib.out_project(p, o), new_cache
+
+
+def _norm(p: dict, x: torch.Tensor, cfg: ModelConfig, layer: int) -> torch.Tensor:
+    with trace.module("lm.norm", layer, True):
+        return rmsnorm(p, x, cfg.norm_eps)
 
 
 def _apply_layer(
@@ -186,16 +198,18 @@ def _apply_layer(
     mode: str,
     cache: Optional[dict],
     cache_len,
+    layer: int,
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss).  The cache is updated in place."""
+    """Returns (x, new_cache, aux_loss).  The cache is updated in place;
+    ``layer`` is the layer's index in the stack (its spans')."""
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     # --- mixer ---
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = _norm(p["norm1"], x, cfg, layer)
     if pos.mixer in (ATTN, ATTN_LOCAL):
         window = cfg.sliding_window if pos.mixer == ATTN_LOCAL else None
-        o, new_cache = _attention(p["attn"], h, cfg, window, mode, cache, cache_len)
+        o, new_cache = _attention(p["attn"], h, cfg, window, mode, cache, cache_len, layer)
     elif pos.mixer == MAMBA:
         if mode == "train":
             o, _ = mamba_lib.mamba_apply(p["mamba"], h, cfg, None)
@@ -210,10 +224,12 @@ def _apply_layer(
 
     # --- mlp ---
     if pos.mlp == MLP_DENSE and "mlp" in p:
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = residual(x, mlp(p["mlp"], h))
+        h = _norm(p["norm2"], x, cfg, layer)
+        with trace.module("lm.mlp", layer, True):
+            y = mlp(p["mlp"], h)
+        x = residual(x, y)
     elif pos.mlp == MLP_MOE:
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        h = _norm(p["norm2"], x, cfg, layer)
         y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
         x = residual(x, y)
     return x, new_cache, aux
@@ -234,20 +250,26 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _checkpointed_block(
-    bp: dict, x: torch.Tensor, cfg: ModelConfig
+    bp: dict, x: torch.Tensor, cfg: ModelConfig, b: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block in train mode under ``torch.utils.checkpoint``, as the
     reference runs its scan body under ``jax.checkpoint``: ``remat="full"``
     saves only the block's input (``nothing_saveable``), ``"dots"`` also
     the products :func:`_dots_policy` names.  Returns (x, the block's aux
     loss), both out of the checkpointed body, so the aux keeps its
-    gradient."""
+    gradient.  ``b`` is the block's index.  The recompute joins the span
+    the forward ran under, as autograd may run it on another thread."""
+
+    outer = trace.current()
 
     def body(xb):
         aux = torch.zeros((), dtype=torch.float32, device=xb.device)
-        for i, pos in enumerate(cfg.block):
-            xb, _, a = _apply_layer(bp[f"pos{i}"], xb, pos, cfg, "train", None, None)
-            aux = accumulate(aux, a)
+        with trace.joined(outer):
+            for i, pos in enumerate(cfg.block):
+                xb, _, a = _apply_layer(
+                    bp[f"pos{i}"], xb, pos, cfg, "train", None, None, b * len(cfg.block) + i
+                )
+                aux = accumulate(aux, a)
         return xb, aux
 
     kwargs = {}
@@ -284,7 +306,7 @@ def _run_stack(
     x = constrain(x)
     for b, bp in enumerate(params["blocks"]):
         if remat:
-            x, a = _checkpointed_block(bp, x, cfg)
+            x, a = _checkpointed_block(bp, x, cfg, b)
             x = constrain(x)
             aux = accumulate(aux, a)
             continue
@@ -293,7 +315,7 @@ def _run_stack(
         for i, pos in enumerate(cfg.block):
             pc = cache["blocks"][b][f"pos{i}"] if cache is not None else None
             x, nbc[f"pos{i}"], a = _apply_layer(
-                bp[f"pos{i}"], x, pos, cfg, mode, pc, cache_len
+                bp[f"pos{i}"], x, pos, cfg, mode, pc, cache_len, b * len(cfg.block) + i
             )
             block_aux = accumulate(block_aux, a)
         x = constrain(x)
@@ -302,7 +324,8 @@ def _run_stack(
     for i in range(cfg.remainder_layers):
         pc = cache["rem"][f"layer{i}"] if cache is not None else None
         x, new_cache["rem"][f"layer{i}"], a = _apply_layer(
-            params["rem"][f"layer{i}"], x, cfg.block[i], cfg, mode, pc, cache_len
+            params["rem"][f"layer{i}"], x, cfg.block[i], cfg, mode, pc, cache_len,
+            cfg.num_blocks * len(cfg.block) + i,
         )
         aux = accumulate(aux, a)
     return x, (new_cache if cache is not None else None), aux
@@ -312,11 +335,19 @@ def _run_stack(
 # public entry points
 # ---------------------------------------------------------------------- #
 
-def _embed_inputs(params, tokens, cfg, prefix_embeds):
-    x = embed(params["embed"], tokens).to(cdtype(cfg))
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x
+def _embed_inputs(params, tokens, cfg, prefix_embeds=None):
+    with trace.module("lm.embed"):
+        x = embed(params["embed"], tokens).to(cdtype(cfg))
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return x
+
+
+def _unembed(params, x, cfg):
+    """The final norm and the head."""
+
+    with trace.module("lm.unembed", None, True):
+        return unembed(params["embed"], rmsnorm(params["final_norm"], x, cfg.norm_eps), cfg)
 
 
 def forward(
@@ -336,8 +367,7 @@ def forward(
     x, _, aux = _run_stack(
         params, x, cfg, "train", None, None, act_constrain=act_constrain
     )
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), aux
+    return _unembed(params, x, cfg), aux
 
 
 def prefill(
@@ -353,8 +383,7 @@ def prefill(
 
     x = _embed_inputs(params, tokens, cfg, prefix_embeds)
     x, new_cache, _ = _run_stack(params, x, cfg, "prefill", cache, None)
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), new_cache
+    return _unembed(params, x[:, -1:, :], cfg), new_cache
 
 
 def decode_step(
@@ -366,7 +395,6 @@ def decode_step(
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B,1); cache_len = tokens already cached."""
 
-    x = embed(params["embed"], tokens).to(cdtype(cfg))
+    x = _embed_inputs(params, tokens, cfg)
     x, new_cache, _ = _run_stack(params, x, cfg, "decode", cache, cache_len)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), new_cache
+    return _unembed(params, x, cfg), new_cache

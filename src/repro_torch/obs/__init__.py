@@ -1,6 +1,6 @@
 """repro_torch.obs — observability for the staged pipeline.
 
-Three pieces, all stdlib-only (this package sits at the very bottom of the
+Two pieces, both stdlib-only (this package sits at the very bottom of the
 dependency stack, below even :mod:`repro_torch.core.policy` — it must import from
 nowhere inside ``repro``):
 
@@ -8,26 +8,24 @@ nowhere inside ``repro``):
   records Chrome-trace complete events when tracing is enabled (off by
   default; the disabled path is one branch/no-op context manager per span
   site).  Export with ``obs.trace.trace_json()`` or, at the pipeline level,
-  ``Executable.trace_json()``.
+  ``Executable.trace_json()``; ``obs.trace.merge_chrome_trace`` lays the
+  spans over a torch.profiler trace.  The LM path's step spans, and their
+  device time, come from :mod:`repro_torch.spans`.
 * :mod:`repro_torch.obs.metrics` — one thread-safe registry of counters, gauges
   and p50/p99 histograms.  The analysis/inspector/compile cache stat dicts
   are registry-backed views now; speculation rollbacks, WavefrontError
   rejections, per-backend run counts and serve per-wave latencies live here
   too.  ``obs.metrics.snapshot()`` is the JSON artifact.
-* :mod:`repro_torch.obs.profile` — predicted-vs-measured strategy rows (every
-  ``StrategyPlan`` offer's predicted cost next to the winning strategy's
-  measured wall time), emitted into ``SYNC_REPORTS`` by
-  ``benchmarks/run.py``.
 
-``reset_all()`` is the single test/bench reset: metrics, trace buffer,
-profiler records, and the three pipeline caches, in one call.
+``reset_all()`` is the single reset for tests and measurements: metrics,
+trace buffer and the three pipeline caches, in one call.
 """
 
 from __future__ import annotations
 
-from . import metrics, profile, trace
+from . import metrics, trace
 
-__all__ = ["metrics", "profile", "trace", "reset_all", "obs_summary"]
+__all__ = ["metrics", "trace", "reset_all", "obs_summary"]
 
 
 def obs_summary(backend: str = "") -> dict:
@@ -68,7 +66,6 @@ def reset_all() -> None:
 
     metrics.reset()
     trace.clear()
-    profile.clear()
     from repro_torch.core.inspector import clear_inspector_cache
     from repro_torch.core.parallelizer import clear_analysis_cache
 

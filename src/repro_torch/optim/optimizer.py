@@ -16,6 +16,8 @@ therefore the leaf's rank in the reference's layout
 
 The update rounds as the reference's does: ``u`` in f32, cast to the
 param's dtype, then added in that dtype.
+
+``update`` is one step span, ``optim.update`` (:func:`repro_torch.spans.step`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as tree_lib
 
 
@@ -74,6 +77,12 @@ class AdamW:
         return self.learning_rate * warm * decay
 
     def update(
+        self, grads: Any, state: AdamWState, params: Any
+    ) -> Tuple[Any, AdamWState]:
+        with spans.step("optim.update", device=state.step.device):
+            return self._update(grads, state, params)
+
+    def _update(
         self, grads: Any, state: AdamWState, params: Any
     ) -> Tuple[Any, AdamWState]:
         step = state.step + 1

@@ -2015,3 +2015,44 @@ def test_whisper_cross_attention_runs_on_flash_decode_on_cuda(cuda, monkeypatch)
     assert took.get("flash_decode") == len(decoder)
     assert sum(took.values()) == len(calls)
     assert torch.isfinite(run.prefill_logits.float()).all()
+
+
+def test_lm_spans_carry_device_time_on_cuda_and_none_on_the_cpu(cuda):
+    """The timed spans of a prefill, a decode step and a train step (remat
+    full: its recompute runs on autograd's device thread) read a positive
+    ``dur_device`` on the card, in the call of their step; on the CPU none."""
+
+    import dataclasses
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.obs import trace
+    from repro_torch.optim.optimizer import AdamW
+
+    timed = {"lm.norm", "lm.qkv", "lm.rope", "lm.cache_write", "lm.attention", "lm.out_proj",
+             "lm.mlp", "lm.unembed", "serve.prefill", "serve.decode", "train.step",
+             "optim.update"}
+    cfg = dataclasses.replace(get_smoke_config("granite_3_2b"), remat="full")
+    opt = AdamW()
+    for device in (cuda, torch.device("cpu")):
+        params = model_zoo.init(cfg, device=device, seed=0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=device)
+        cache = model_zoo.init_cache(cfg, 2, 16, device=device)
+        trace.clear()
+        with trace.tracing():
+            _, cache = make_prefill_step(cfg)(params, {"tokens": tokens}, cache)
+            make_serve_step(cfg)(params, tokens[:, -1:], cache, 8)
+            make_train_step(cfg, opt)(params, opt.init(params),
+                                      {"tokens": tokens, "labels": tokens})
+        torch.cuda.synchronize()
+        ev = trace.events()
+        steps = {e["name"]: e["args"]["call"] for e in ev if e["args"]["depth"] == 1}
+        assert set(steps) == {"serve.prefill", "serve.decode", "train.step"}
+        assert sum(e["name"] == "lm.attention" and e["args"]["call"] == steps["train.step"]
+                   for e in ev) == 2 * cfg.num_layers
+        assert {e["name"] for e in ev} >= timed | {"lm.embed", "lm.sample"}
+        for e in ev:
+            if device.type == "cuda" and e["name"] in timed:
+                assert e["args"]["dur_device"] > 0, e
+            else:
+                assert "dur_device" not in e["args"], e
+    trace.clear()

@@ -21,7 +21,6 @@ VERBATIM = [
     "obs/__init__.py",
     "obs/trace.py",
     "obs/metrics.py",
-    "obs/profile.py",
     *sorted(
         str(p.relative_to(REF)) for p in (REF / "core").glob("*.py")
     ),
@@ -56,6 +55,19 @@ VERBATIM = [
 
 # The copies that differ beyond the rename, and why.
 DIFFERING = {
+    "obs/__init__.py": (
+        "no profile module (the predicted-vs-measured rows had no caller in "
+        "the port); the docstring names trace.merge_chrome_trace and "
+        "repro_torch.spans"
+    ),
+    "obs/trace.py": (
+        "the LM path's spans: call (a step span with a call id that the "
+        "spans under it share, and an optional device timer), module (a "
+        "span with a layer index and no keyword dict), epoch_ns on every "
+        "event (the anchor pair retaken when tracing turns on), dur_device "
+        "read from the timer's marks in events(), merge_chrome_trace, and "
+        "the shared null context public as NULL"
+    ),
     "core/parallelizer.py": (
         "the lazily registered backends are the port's own: "
         '{"torch": "repro_torch.compile", "torch_spmd": '
@@ -135,7 +147,11 @@ DIFFERING = {
         "eager steps (autograd.grad, a Python loop over microbatches); under "
         "a mesh the microbatch split is an all-to-all, gradients stay "
         "Partial across microbatches and are reduced once (to grad_shardings "
-        "when given), and updated state returns to its input placements"
+        "when given), and updated state returns to its input placements; "
+        "each call opens one step span (train.step, serve.prefill, "
+        "serve.decode with its argmax as lm.sample) through "
+        "repro_torch.spans.step, which turns tracing on for the call while "
+        "a torch.profiler records (one check of its flag a call)"
     ),
 }
 
