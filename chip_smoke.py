@@ -120,16 +120,22 @@ non-zero:
    against ``tma_wgmma`` at Sq 1, 4, 16, 32 and 64 over 1500 keys that
    sets the route's threshold; at whisper's decode cross shape the
    kernel's time split into its loads, its products and its merge (timing
-   probes) and its kernels a call under the profiler;
+   probes) and its kernels a call under the profiler; and
+   ``decode_attention`` over a partly filled cache at yi-6b's and
+   granite's decode steps (``DECODE_CACHE_CASES``, the slots outside the
+   live keys NaN) against the plain version, with the last live key
+   dropped as a planted fault, and its device time against the bound;
 7. yi-6b at full width (32 layers, bf16, random weights from a seed)
    serving 8 requests of 2048 prompt tokens in waves of 4 slots, 32 new
    tokens each, through ``repro_torch.launch``'s step functions: one flash
-   launch per layer per prefill, all on the TMA route; the first wave's logits against a rerun
-   whose attention is the plain version, and against one whose causal
-   edge is off by one; every layer's kernel output against the plain
-   version on the wave's own activations, with the same planted fault;
-   prefill and decode times, tokens/s, peak memory and the idle share of
-   one decode wave;
+   launch per layer per prefill on the TMA route and one per layer per
+   decode step on flash_decode; the first wave's logits against a rerun
+   whose prefill and decode attention is the plain version, and against
+   one whose causal edge is off by one; every layer's kernel output against
+   the plain version on the wave's own activations, with the same planted
+   fault, and every layer's decode attention at a decode step; prefill and
+   decode times, tokens/s, peak memory and the idle share of one decode
+   wave;
 7b. granite-3-2b trained at full width and depth (40 layers, 2.636 B
    parameters, bf16, remat "full", random weights from a seed) for 8
    steps of 4 x 2048 tokens through ``repro_torch.runtime.train_loop``:
@@ -343,6 +349,14 @@ DECODE_CASES = [
     ("granite decode", 4, 1, 2048, 32, 8, 64, True, None, 2047),
     ("granite 16 rows, window 1024", 4, 16, 2048, 32, 8, 64, True, 1024, 2032),
     ("hd 128 MHA 4 rows", 4, 4, 1500, 16, 16, 128, False, None, 0),
+]
+# (label, B, Smax, H, KV, hd, window, cache_len): decode_attention, the
+# model's entry, over a partly filled cache at the main path's decode
+# shapes (yi-6b's decode pool, granite's with gemma3's 1024 window): the
+# live keys end one key into a tile, well before Smax
+DECODE_CACHE_CASES = [
+    ("yi-6b decode step", 4, 3072, 32, 4, 128, None, 2049),
+    ("granite decode step, window 1024", 4, 3072, 32, 8, 64, 1024, 2049),
 ]
 # the query rows at which flash_decode and tma_wgmma are timed at
 # whisper's cross shape (Sk 1500, 16 heads of 64) and at yi-6b's decode
@@ -3089,24 +3103,118 @@ def _decode_rows(torch, ops, inputs, outs):
     emit("flash_decode crossover: " + json.dumps(crossover))
     split = _decode_split(torch, ops, DECODE_CASES[0], *inputs[DECODE_CASES[0]], flush)
     emit("flash_decode split: " + json.dumps(split))
+    cache_rows = _decode_cache_rows(torch, ops, flush)
     del flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "crossover": crossover, "split": split}
+    return {"rows": rows, "crossover": crossover, "split": split, "cache_rows": cache_rows}
+
+
+def _decode_cache_rows(torch, ops, flush):
+    """``decode_attention`` at every ``DECODE_CACHE_CASES`` row: one
+    flash_decode launch over the whole cache, whose slots outside the live
+    keys hold NaN, against the plain version (``decode_attention_plain`` in
+    f32 on the same cache without the NaN; largest row-relative error
+    within ``ROW_TOL["bf16"]``), a planted fault (the last live key
+    dropped) that must read above it, and the launch's device time alone
+    (:func:`_held_times`) against its byte bound over the live keys."""
+
+    from repro_torch.kernels.flash_attention.ref import live_span
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    for label, B, Smax, H, KV, hd, window, cache_len in DECODE_CACHE_CASES:
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                   for shape in ((B, 1, H, hd), (B, Smax, KV, hd), (B, Smax, KV, hd)))
+        lo, hi = live_span(1, Smax, True, window, cache_len - 1)
+        kn, vn = k.clone(), v.clone()
+        for t in (kn, vn):
+            t[:, :lo] = float("nan")
+            t[:, hi:] = float("nan")
+        call = lambda: attention.decode_attention(q, kn, vn, cache_len, window=window)  # noqa: E731
+        before = dict(ops.flash_attention.routes)
+        out = call()
+        took = {r: n - before[r] for r, n in ops.flash_attention.routes.items() if n != before[r]}
+        check(took == {"flash_decode": 1}, f"flash_decode cache {label}: launches {took}")
+        finite = bool(torch.isfinite(out.float()).all())
+        rel = row_rel_err(out, attention.decode_attention_plain(
+            q.float(), k.float(), v.float(), cache_len=cache_len, window=window))
+        check(finite and rel <= ROW_TOL["bf16"],
+              f"flash_decode cache {label}: finite {finite}, row relative error {rel} > "
+              f"{ROW_TOL['bf16']}")
+        keys = torch.arange(Smax, device="cuda")
+        dropped = row_rel_err(out, masked_attention(
+            torch, q, k, v, ((keys >= lo) & (keys < hi - 1))[None]))
+        check(dropped > ROW_TOL["bf16"],
+              f"flash_decode cache {label}: planted fault 'last live key dropped' reads "
+              f"{dropped}, inside the limit {ROW_TOL['bf16']}: the check cannot see it")
+        held = _held_times(torch, {"flash_decode": call}, DECODE_REPS, flush)["flash_decode"]
+        bound_ms, bound_by, _ = flash_bound(B, 1, Smax, H, KV, hd, True, window, "bf16", 2,
+                                            q_offset=cache_len - 1, live_keys=hi - lo)
+        row = {
+            "case": f"{label}, cache_len {cache_len} of {Smax}, bf16",
+            "kernel_route": "flash_decode",
+            "shape": {"B": B, "Smax": Smax, "H": H, "KV": KV, "hd": hd, "window": window,
+                      "cache_len": cache_len},
+            "live_keys": [lo, hi],
+            "outside_live_keys": "NaN",
+            "max_row_rel_err": rel,
+            "row_rel_limit": ROW_TOL["bf16"],
+            "planted_faults": {"last live key dropped": dropped},
+            "device_ms": held["device_ms"],
+            "host_ms": held["host_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_share": bound_ms / held["device_ms"],
+            "reps": DECODE_REPS,
+        }
+        rows.append(row)
+        emit("flash_decode cache: " + json.dumps(row))
+        del q, k, v, kn, vn, out
+    return rows
 
 
 # ---------------------------------------------------------------------- #
 # Phase 7: yi-6b serving, the LM slice's main path
 # ---------------------------------------------------------------------- #
 
-def _attention_replaced(fn):
-    """Route the model's prefill attention to ``fn`` for one rerun (a
-    comparison, not the served path)."""
+def _attention_replaced(fn, plain_decode=False):
+    """Route the model's prefill attention to ``fn``, and with
+    ``plain_decode`` its decode attention to the plain version, for one
+    rerun (a comparison, not the served path)."""
+
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import attention
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(attention, "chunked_attention", fn))
+    if plain_decode:
+        stack.enter_context(mock.patch.object(attention, "decode_takes_kernel",
+                                              lambda *args: False))
+    return stack
+
+
+def _decode_checked(torch, readings):
+    """Decode attention on its served path, each call's output held
+    against the plain version in f32 on the same q and cache (the largest
+    row-relative error, appended to ``readings``)."""
 
     from unittest import mock
 
     from repro_torch.models import attention
 
-    return mock.patch.object(attention, "chunked_attention", fn)
+    served = attention.decode_attention
+
+    def checked(q, k, v, cache_len, *, window=None):
+        out = served(q, k, v, cache_len, window=window)
+        ref = attention.decode_attention_plain(
+            q.float(), k.float(), v.float(), cache_len=cache_len, window=window)
+        readings.append(row_rel_err(out, ref))
+        return out
+
+    return mock.patch.object(attention, "decode_attention", checked)
 
 
 def _causal_edge_off_by_one(q, k, v, *, causal=True, window=None, chunk=1024, q_offset=0):
@@ -3178,13 +3286,16 @@ def serve_phase(torch):
     launches, flash_routes, matmul_launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     prefills = len(waves)
+    steps = prefills * (SERVE_NEW_TOKENS - 1)
     check(
-        launches == cfg.num_layers * prefills,
-        f"serve: {launches} flash launches, expected {cfg.num_layers} x {prefills}",
+        launches == cfg.num_layers * (prefills + steps),
+        f"serve: {launches} flash launches, expected {cfg.num_layers} x ({prefills} + {steps})",
     )
-    check(
-        flash_routes["tma_wgmma"] == launches,
-        f"serve: flash routes {flash_routes}, expected all {launches} on tma_wgmma",
+    check(  # the prefills on tma_wgmma, the decode steps' attention on flash_decode
+        flash_routes["tma_wgmma"] == cfg.num_layers * prefills
+        and flash_routes["flash_decode"] == cfg.num_layers * steps,
+        f"serve: flash routes {flash_routes}, expected {cfg.num_layers * prefills} on "
+        f"tma_wgmma and {cfg.num_layers * steps} on flash_decode",
     )
     check(  # the projections are torch.matmul, as the reference leaves them to XLA
         matmul_launches == 0,
@@ -3201,13 +3312,13 @@ def serve_phase(torch):
             "serve: a token outside the vocabulary",
         )
 
-    # the first wave again, its prefill attention the plain version; then
-    # its prefill with the plain version's causal edge off by one, which the
-    # same check must fail
+    # the first wave again, its prefill and decode attention the plain
+    # version; then its prefill with the plain version's causal edge off by
+    # one, which the same check must fail
     from repro_torch.models.attention import chunked_attention_plain
 
     prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
-    with _attention_replaced(chunked_attention_plain):
+    with _attention_replaced(chunked_attention_plain, plain_decode=True):
         plain = generate(params, cfg, waves[0], SERVE_NEW_TOKENS, cache=cache)
     with _attention_replaced(_causal_edge_off_by_one):
         faulty, cache = prefill_step(params, waves[0], cache)
@@ -3245,6 +3356,20 @@ def serve_phase(torch):
     # time: the idle share is taken against the unprofiled wall time
     logits, cache = prefill_step(params, waves[0], cache)
     first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+
+    # every layer's decode attention at the wave's first step against the
+    # plain version, on the layer's own q and cache (its slots past the
+    # live keys hold the earlier waves' keys)
+    decode_layers = []
+    before = _read_counts()[1]["flash_decode"]
+    with _decode_checked(torch, decode_layers):
+        serve_step(params, first, cache, SERVE_PROMPT)
+    took = _read_counts()[1]["flash_decode"] - before
+    decode_layer_err = max(decode_layers)
+    check(len(decode_layers) == cfg.num_layers == took,
+          f"serve: {len(decode_layers)} decode attention layers checked, {took} on flash_decode")
+    check(decode_layer_err <= ROW_TOL["bf16"],
+          f"serve: a layer's decode attention reads {decode_layer_err} > {ROW_TOL['bf16']}")
 
     def decode_wave():
         nonlocal cache
@@ -3291,6 +3416,7 @@ def serve_phase(torch):
         "layers_max_row_rel_err": layer_err,
         "layers_min_planted_fault": layer_fault,
         "layers_row_rel_limit": ROW_TOL["bf16"],
+        "decode_layers_max_row_rel_err": decode_layer_err,
         "greedy_tokens_agreeing_with_plain": agree,
         "greedy_tokens_compared": plain.tokens.numel(),
         "decode_wave_wall_ms": wave_ms,
@@ -3820,8 +3946,9 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
     bf16 weights from ``SEED``, ``requests`` prompts in waves of ``slots``
     through ``generate`` (the main path: every count set to 0 just before,
     read just after), the flash launches it must make (``flash_per_prefill``
-    a prefill, ``flash_per_step`` a decode step, all on ``tma_wgmma`` unless
-    ``flash_routes`` gives the launches of each route) and no
+    a prefill on ``tma_wgmma``, ``flash_per_step`` a decode step on
+    ``flash_decode``, unless ``flash_routes`` gives the launches of each
+    route) and no
     pipelined-matmul launch; where it launches the kernel, the first
     wave's prefill logits against a rerun whose attention is the plain
     version and one with a planted fault (:func:`_attention_fault`); one
@@ -3864,7 +3991,10 @@ def _family_serve(torch, label, cfg, *, requests, slots, prompt, new_tokens,
     peak = torch.cuda.max_memory_allocated()
     expect = len(waves) * (flash_per_prefill + (new_tokens - 1) * flash_per_step)
     check(launches == expect, f"{label}: {launches} flash launches, expected {expect}")
-    want_routes = {"tma_wgmma": launches} if flash_routes is None else flash_routes
+    want_routes = flash_routes or {
+        "tma_wgmma": len(waves) * flash_per_prefill,
+        "flash_decode": len(waves) * (new_tokens - 1) * flash_per_step,
+    }
     check({r: n for r, n in routes.items() if n} == {r: n for r, n in want_routes.items() if n},
           f"{label}: flash routes {routes}, expected {want_routes}")
     check(matmul_launches == 0, f"{label}: {matmul_launches} pipelined-matmul launches, expected none")
@@ -4074,7 +4204,8 @@ def moe_serve_phase(torch):
     cfg = get_config(MOE_ARCH)
     row, params, waves, cache, results = _family_serve(
         torch, "moe", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
-        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=cfg.num_layers, flash_per_step=0,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=cfg.num_layers,
+        flash_per_step=cfg.num_layers,
     )
     t0 = time.perf_counter()
     row.update(_moe_checks(torch, cfg, params, waves[0], cache))
@@ -4230,7 +4361,7 @@ def mamba_serve_phase(torch):
     # 2048 keys gives O(1/45): its planted fault is held at the layer
     row, params, waves, cache, results = _family_serve(
         torch, "hybrid", cfg, requests=HYBRID_REQUESTS, slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
-        new_tokens=HYBRID_NEW_TOKENS, flash_per_prefill=1, flash_per_step=0,
+        new_tokens=HYBRID_NEW_TOKENS, flash_per_prefill=1, flash_per_step=1,
         logits_fault_held=False,
     )
     # after the profiled decode wave the cache holds both kinds of state
@@ -4434,7 +4565,9 @@ def _decode_ab(torch, cfg, params, batch, cache):
             before = dict(ops.flash_attention.routes)
             out[route]["ms_per_step"].append(timed(wave) / steps)
             took = {r: n - before[r] for r, n in ops.flash_attention.routes.items() if n != before[r]}
-            check(took == {route: steps * cfg.num_layers}, f"decode A/B on {route}: launches {took}")
+            # each layer's self (decode_attention) and cross attention
+            check(took == {route: 2 * steps * cfg.num_layers},
+                  f"decode A/B on {route}: launches {took}")
         for route in out:
             ops._decode_route = route == "flash_decode"
             part_ms = timed(lambda: wave(PROFILED_STEPS))
@@ -4476,12 +4609,17 @@ def encdec_serve_phase(torch):
     waves, L, F = SERVE_REQUESTS // SERVE_SLOTS, cfg.num_layers, cfg.encoder.num_frames
     row, params, waves_, cache, results = _family_serve(
         torch, "encdec", cfg, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, prompt=ENCDEC_PROMPT,
-        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=3 * L, flash_per_step=L, tally=tally,
+        new_tokens=SERVE_NEW_TOKENS, flash_per_prefill=3 * L, flash_per_step=2 * L,
+        tally=tally,
         flash_routes={"tma_wgmma": waves * L,
-                      "flash_decode": waves * (2 * L + (SERVE_NEW_TOKENS - 1) * L)},
+                      "flash_decode": waves * (2 * L + (SERVE_NEW_TOKENS - 1) * 2 * L)},
     )
-    check(sum(calls.values()) == row["flash_launches"],
-          f"encdec: {sum(calls.values())} attention calls for {row['flash_launches']} launches")
+    # the decode steps' self attention is decode_attention's (flash_decode),
+    # which the chunked_attention tally does not see
+    self_decode = waves * (SERVE_NEW_TOKENS - 1) * L
+    check(sum(calls.values()) + self_decode == row["flash_launches"],
+          f"encdec: {sum(calls.values())} attention calls and {self_decode} decode self "
+          f"attention calls for {row['flash_launches']} launches")
     launches = {
         "encoder": (F, F, False, "tma_wgmma"),
         "decoder self prefill": (ENCDEC_PROMPT, ENCDEC_PROMPT, True, "flash_decode"),
@@ -4605,10 +4743,13 @@ def batching_phase(torch, smi):
           f"batching: {run.waves} waves served {len(run.done)} requests")
     check(all(len(r.generated) == SERVE_NEW_TOKENS for r in run.done),
           "batching: a request holds other than SERVE_NEW_TOKENS tokens")
-    check(launches == cfg.num_layers * n_waves,
-          f"batching: {launches} flash launches, expected {cfg.num_layers} x {n_waves}")
-    check(flash_routes["tma_wgmma"] == launches,
-          f"batching: flash routes {flash_routes}, expected all {launches} on tma_wgmma")
+    steps = n_waves * (SERVE_NEW_TOKENS - 1)
+    check(launches == cfg.num_layers * (n_waves + steps),
+          f"batching: {launches} flash launches, expected {cfg.num_layers} x ({n_waves} + {steps})")
+    check(flash_routes["tma_wgmma"] == cfg.num_layers * n_waves
+          and flash_routes["flash_decode"] == cfg.num_layers * steps,
+          f"batching: flash routes {flash_routes}, expected the prefills on tma_wgmma and the "
+          "decode steps on flash_decode")
     check(matmul_launches == 0, f"batching: {matmul_launches} pipelined-matmul launches")
     check(latency["serve.run_ms"]["n"] == n_waves, f"batching: serve.run_ms {latency['serve.run_ms']}")
     for i, wave in enumerate(waves[2:], start=3):

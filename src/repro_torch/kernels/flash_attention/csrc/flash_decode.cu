@@ -42,15 +42,19 @@
 //     they complete on the stage's mbarrier (arrive.expect_tx of the
 //     stage's bytes), and every warp waits on the stage's parity.  The
 //     boxes are 128-byte swizzled, and ldmatrix reads them through the same
-//     swizzle, without bank conflicts.  The maps end at the live span's end
-//     hi: keys past a range but below hi are real keys (masked, P = 0);
-//     keys from hi on arrive as zeros, so K and V past the live span are
-//     never read and cannot bring a NaN into 0 * V.  The host encodes the
-//     maps once for each (k, v, shape, strides, hi) and passes them to
-//     every launch (fa_decode_maps; ops._decode_plan keeps them).  One bulk
-//     copy a key row instead (128 bytes, no tensor map) is ~750 copies a
-//     block, and the copy engine's rate on them held such a kernel at 3.5x
-//     this one's time (PERF.md).  The ring is
+//     swizzle, without bank conflicts.  The maps span all Sk keys, so that
+//     they depend on the operands alone and not on the call's live span: a
+//     decode step's cache grows by one key a step, and its maps, encoded
+//     once for each (k, v, shape, strides) by fa_decode_maps and kept by
+//     ops._decode_maps, serve every step of a round.  The live span [lo,
+//     hi) is a launch argument.  No range starts before lo; keys past a
+//     range but below hi are real keys (masked, P = 0); the last tile of
+//     the span may reach past hi, and those keys (a cache's unwritten
+//     slots, maybe NaN) are masked in S and zeroed in the V fragments,
+//     since 0 * NaN in the PV product would be NaN (keys from Sk on arrive
+//     as zeros).  One bulk copy a key row instead (128 bytes, no tensor
+//     map) is ~750 copies a block, and the copy engine's rate on them held
+//     such a kernel at 3.5x this one's time (PERF.md).  The ring is
 //     ops.DECODE_DEPTH = 2 stages deep (1 for a range of one tile): deeper
 //     rings read no faster at whisper's shapes, and a ring of 6 stages (a
 //     whole 375-key range in flight from the start) leaves room for 62 of
@@ -144,6 +148,12 @@ struct Params {
   float scale_log2;
   int lo, hi, chunk;  // the live keys [lo, hi) in ranges of chunk keys
   int stages;         // D, the ring's depth
+};
+
+// a compile-time flag for a generic lambda's argument
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -316,8 +326,13 @@ __global__ void __launch_bounds__(THREADS)
     for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
-  // every warp reads every tile, its KW keys of it, in order
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  // one tile, every warp its KW keys of it; TAIL: the tile reaches past the
+  // live span's end hi (the span's last tile, shorter than BK), whose keys
+  // from hi on are read from memory and zeroed in V (a cache's unwritten
+  // slots may hold NaN, and 0 * NaN in the PV product is NaN); the other
+  // tiles run without that mask
+  auto tile_step = [&](const int tile, auto tail) {
+    constexpr bool TAIL = decltype(tail)::value;
     const int s = tile % D;
     hopper::mbar_wait(full0 + 8 * s, (tile / D) & 1);  // tile is in stage s
     if (tile == 0) {
@@ -334,9 +349,19 @@ __global__ void __launch_bounds__(THREADS)
       ldmatrix_x4(r, ks + swizzled(kg * KW + np * 16 + (lane / 16) * 8 + lane % 8,
                                    kk * 16 + ((lane / 8) % 2) * 8));
     };
+    const int key_w = k0 + tile * BK + kg * KW;  // this warp's first key of the tile
     auto v_frag = [&](uint32_t (&r)[4], int kk, int np) {
       ldmatrix_x4_trans(r, vs + swizzled(kg * KW + kk * 16 + lane % 16,
                                          np * 16 + (lane / 16) * 8));
+      // r[e] holds keys 2t and 2t + 1 (+ 8 for odd e) of the 16-key step,
+      // the lower key in the lower half: keys from hi on are zeroed
+      if constexpr (TAIL) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_w + kk * 16 + (e % 2) * 8 + 2 * t;
+          r[e] &= (key < p.hi ? 0x0000ffffu : 0u) | (key + 1 < p.hi ? 0xffff0000u : 0u);
+        }
+      }
     };
     // the stage is free once every warp has read it (with EARLY, as soon
     // as its fragments are in registers); tile + D refills it
@@ -353,7 +378,7 @@ __global__ void __launch_bounds__(THREADS)
     };
     if constexpr (STOP == 2) {  // a timing probe: the loads alone
       release();
-      continue;
+      return;
     }
     uint32_t kf[S::EARLY ? HD / 16 : 1][S::EARLY ? NT / 2 : 1][4];
     uint32_t vf[S::EARLY ? KW / 16 : 1][S::EARLY ? OT / 2 : 1][4];
@@ -393,7 +418,6 @@ __global__ void __launch_bounds__(THREADS)
 
     // scale (log2 units), mask to -inf, online softmax over rows g, g + 8
     // (a row's scores spread over the 4 threads of a quad)
-    const int key_w = k0 + tile * BK + kg * KW;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -458,6 +482,12 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     if constexpr (!S::EARLY) release();
+  };
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (k0 + (tile + 1) * BK > p.hi)
+      tile_step(tile, Flag<true>{});
+    else
+      tile_step(tile, Flag<false>{});
   }
   if constexpr (STOP != 0) return;  // a timing probe: no merge, no peer reads
   __syncthreads();  // every warp is done with the ring
@@ -680,16 +710,17 @@ bool params(Params* p, const void* q, void* o, const long long* dims,
 // v 16-byte aligned.
 
 // Writes k's and then v's tensor map (128 bytes each) into maps: (hd, KV,
-// hi, B), innermost first, in boxes of 64 columns of one head of one batch
-// by BK keys; a box past the live span's end hi stays in its batch and
-// arrives as zeros.  Returns 0, or -1000 less the CUresult of an encoding
-// (-1001: the driver lacks cuTensorMapEncodeTiled).
+// Sk, B), innermost first, in boxes of 64 columns of one head of one batch
+// by BK keys; a box past Sk stays in its batch and arrives as zeros.  The
+// maps read no lo, hi, chunk or splits of dims: one encoding serves every
+// live span over the same operands.  Returns 0, or -1000 less the CUresult
+// of an encoding (-1001: the driver lacks cuTensorMapEncodeTiled).
 extern "C" int fa_decode_maps(const void* k, const void* v, const long long* dims,
                               const long long* strides, void* maps) {
   const long long hd = dims[5];
   const void* bases[2] = {k, v};
   const uint64_t d[4] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(dims[2]),
-                         static_cast<uint64_t>(dims[7]), static_cast<uint64_t>(dims[0])};
+                         static_cast<uint64_t>(dims[4]), static_cast<uint64_t>(dims[0])};
   const uint32_t box[4] = {BOX, 1, BK, 1};
   for (int t = 0; t < 2; ++t) {
     const long long* st = strides + 3 + 3 * t;  // batch, sequence, head

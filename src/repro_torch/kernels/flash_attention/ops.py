@@ -374,34 +374,61 @@ def _sm_count(index: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """flash_decode's launch for one call shape: the ctypes arrays
-    ``fa_decode`` takes, the key ranges (the cluster's blocks), the ring's
-    K-loop plan at the depth it runs, how many of the launch's clusters the
-    card holds at once, and the tensor maps encoded for it so far, by the
-    addresses of k and v (:func:`_decode_args`)."""
+    """flash_decode's launch for one call: the ctypes arrays ``fa_decode``
+    takes (``dims`` carries the call's live span, its key ranges and their
+    length), the key ranges (the cluster's blocks), the ring's K-loop plan at
+    the depth it runs and how many of the launch's clusters the card holds
+    at once."""
 
     dims: object
     strides: object
     splits: int
     sched: object
     clusters: int
-    maps: dict = dataclasses.field(default_factory=dict, compare=False)
 
 
-# tensor maps a plan keeps (by k's and v's addresses) before it drops them all
-DECODE_MAPS_KEPT = 64
+# tensor maps kept (by k's and v's addresses, shape and strides) before all
+# are dropped: a decode step holds one pair a layer, 64 at most in the configs
+DECODE_MAPS_KEPT = 256
+_DECODE_MAPS: dict = {}
 
 
 @functools.lru_cache(maxsize=1024)
+def _decode_clusters(shape: Tuple[int, ...], strides: Tuple[int, ...], splits: int,
+                     depth: int, device: int) -> int:
+    """How many clusters of ``splits`` blocks of flash_decode's launch at
+    ``shape`` / ``strides`` (as :func:`_decode_plan` takes them) and ring
+    ``depth`` card ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``), queried once for each: the count
+    reads no live span, so the query's ``dims`` give it ``splits`` ranges
+    of one key.  Raises where the card cannot place one cluster."""
+
+    import ctypes
+
+    B, Sq, H, KV, Sk, hd = shape
+    dims = (ctypes.c_longlong * 10)(B, H, KV, Sq, Sk, hd, 0, splits, 1, splits)
+    c = ctypes.c_int(0)
+    rc = _decode_entry_point("fa_decode_clusters")(
+        dims, (ctypes.c_longlong * 12)(*strides), depth, ctypes.byref(c))
+    if rc != 0 or c.value < 1:
+        raise RuntimeError(
+            f"flash attention ({FLASH_DECODE}): the card cannot place a cluster of {splits} "
+            f"blocks of {decode_smem_bytes(hd, Sq * (H // KV), depth)} bytes of shared memory "
+            f"for B={B}, Sq={Sq}, H={H}, KV={KV}, Sk={Sk}, hd={hd} (cudaError {rc})"
+        )
+    return c.value
+
+
 def _decode_plan(shape: Tuple[int, ...], strides: Tuple[int, ...], lo: int, hi: int,
-                 sms: int) -> DecodePlan:
-    """flash_decode's launch for one call shape, built once.  ``shape`` is
-    ``(B, Sq, H, KV, Sk, hd)``, ``strides`` the (batch, sequence, head)
-    strides of q, k, v and o, ``[lo, hi)`` the live keys
-    (:func:`ref.live_span`), ``sms`` the card's SMs.  The ring is
-    ``DECODE_DEPTH`` stages deep, at most a range's tiles, and the plan is
-    read at that depth.  Raises where the card cannot place one cluster of
-    the launch (``cudaOccupancyMaxActiveClusters``)."""
+                 sms: int, device: int) -> DecodePlan:
+    """flash_decode's launch for one call.  ``shape`` is ``(B, Sq, H, KV, Sk,
+    hd)``, ``strides`` the (batch, sequence, head) strides of q, k, v and o,
+    ``[lo, hi)`` the live keys (:func:`ref.live_span`), ``sms`` the card's
+    SMs, ``device`` its index.  The ring is ``DECODE_DEPTH`` stages deep, at
+    most a range's tiles, and the plan is read at that depth.  The span
+    fills ``dims`` anew at every call; the cluster count is queried once a
+    shape, strides, splits, depth and card (:func:`_decode_clusters`), so a
+    decode step one key longer than the last queries nothing."""
 
     import ctypes
 
@@ -412,15 +439,8 @@ def _decode_plan(shape: Tuple[int, ...], strides: Tuple[int, ...], lo: int, hi: 
     dims = (ctypes.c_longlong * 10)(B, H, KV, Sq, Sk, hd, lo, hi, chunk, splits)
     stride_arr = (ctypes.c_longlong * 12)(*strides)
     sched = _decode_schedule(depth)
-    n = ctypes.c_int(0)
-    rc = _decode_entry_point("fa_decode_clusters")(dims, stride_arr, depth, ctypes.byref(n))
-    if rc != 0 or n.value < 1:
-        raise RuntimeError(
-            f"flash attention ({FLASH_DECODE}): the card cannot place a cluster of {splits} "
-            f"blocks of {decode_smem_bytes(hd, Sq * (H // KV), depth)} bytes of shared memory "
-            f"for B={B}, Sq={Sq}, H={H}, KV={KV}, Sk={Sk}, hd={hd} (cudaError {rc})"
-        )
-    return DecodePlan(dims, stride_arr, splits, sched, n.value)
+    clusters = _decode_clusters(shape, strides, splits, depth, device)
+    return DecodePlan(dims, stride_arr, splits, sched, clusters)
 
 
 def _check(rc: int, path: str, q, k, depth) -> None:
@@ -471,26 +491,37 @@ def _launch_tma(q, k, v, o, causal: bool, window: Optional[int], q_offset: int,
     _check(rc, TMA_WGMMA, q, k, sched.depth)
 
 
-def _decode_args(plan: DecodePlan, q, k, v, o, causal: bool, window: Optional[int],
-                 q_offset: int, scale: Optional[float] = None) -> tuple:
-    """``fa_decode``'s arguments for one call on ``plan``: k's and v's
-    tensor maps are encoded at the first call with their addresses and
-    kept on the plan (whisper's cross-attention K and V stay in place
-    across decode steps), so that a call encodes nothing."""
+def _decode_maps(plan: DecodePlan, q, k, v):
+    """k's and v's tensor maps for ``plan`` (256 bytes, and their address),
+    encoded at the first call over these operands and kept
+    (``DECODE_MAPS_KEPT``): the maps span all Sk keys and read no live span,
+    so a decode step reads the same maps as the step before it, and
+    whisper's cross-attention K and V, which stay in place across decode
+    steps, encode nothing either."""
 
     import ctypes
 
+    key = (k.data_ptr(), v.data_ptr(), tuple(k.shape), k.stride()[:3], v.stride()[:3])
+    maps = _DECODE_MAPS.get(key)
+    if maps is not None:
+        return maps
+    buf = (ctypes.c_ubyte * 256)()
+    rc = _decode_entry_point("fa_decode_maps")(key[0], key[1], plan.dims, plan.strides, buf)
+    _check(rc, FLASH_DECODE, q, k, plan.sched.depth)
+    if len(_DECODE_MAPS) >= DECODE_MAPS_KEPT:
+        _DECODE_MAPS.clear()
+    maps = _DECODE_MAPS[key] = (buf, ctypes.addressof(buf))
+    return maps
+
+
+def _decode_args(plan: DecodePlan, q, k, v, o, causal: bool, window: Optional[int],
+                 q_offset: int, scale: Optional[float] = None) -> tuple:
+    """``fa_decode``'s arguments for one call on ``plan``, with k's and v's
+    kept tensor maps (:func:`_decode_maps`)."""
+
     import torch
 
-    key = (k.data_ptr(), v.data_ptr())
-    maps = plan.maps.get(key)
-    if maps is None:
-        buf = (ctypes.c_ubyte * 256)()
-        rc = _decode_entry_point("fa_decode_maps")(key[0], key[1], plan.dims, plan.strides, buf)
-        _check(rc, FLASH_DECODE, q, k, plan.sched.depth)
-        if len(plan.maps) >= DECODE_MAPS_KEPT:
-            plan.maps.clear()
-        maps = plan.maps[key] = (buf, ctypes.addressof(buf))
+    maps = _decode_maps(plan, q, k, v)
     return (
         q.data_ptr(), o.data_ptr(), maps[1], plan.dims, plan.strides,
         int(causal), 0 if window is None else int(window), int(q_offset),
@@ -506,10 +537,11 @@ def _plan_of(q, k, v, o, causal: bool, window: Optional[int], q_offset: int) -> 
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lo, hi = live_span(Sq, Sk, causal, window, q_offset)
+    index = q.device.index
     return _decode_plan(
         (B, Sq, H, KV, Sk, hd),
         (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]),
-        lo, hi, _sm_count(q.device.index),
+        lo, hi, _sm_count(index), index,
     )
 
 
@@ -721,13 +753,29 @@ def _check_kernel_call(q, k, v, window, q_offset: int = 0, causal: bool = True) 
             )
 
 
-def _route_of(q, k, v) -> str:
+def _route_of(q, k, v, rule_only: bool = False) -> str:
+    """:func:`route` for the operands; with ``_decode_route`` cleared (and
+    not ``rule_only``) as if the call had no query rows."""
+
     return route(
         q.dtype, q.shape[-1], [t.stride()[:3] for t in (q, k, v)],
         [t.data_ptr() for t in (q, k, v)],
-        sq=q.shape[1] if _decode_route else None,
+        sq=q.shape[1] if rule_only or _decode_route else None,
         group=q.shape[2] // max(1, k.shape[2]),
     )
+
+
+def takes_flash_decode(q, k, v) -> bool:
+    """Whether the route rule sends a call over q, k and v to flash_decode:
+    all three bf16, and :func:`route` admits them (head dim, query rows,
+    rows a KV head, alignment).  chip_smoke.py's A/B, which clears
+    ``_decode_route``, sends such a call to tma_wgmma instead; this reads
+    the rule alone."""
+
+    import torch
+
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and _route_of(q, k, v, rule_only=True) == FLASH_DECODE)
 
 
 def _check_decode_operands(q, k, v) -> None:

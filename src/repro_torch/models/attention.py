@@ -12,10 +12,23 @@ reference Pallas kernel's counterpart; a call outside the kernel's contract
 raises ``NotImplementedError`` naming the argument and never runs the plain
 version instead.
 
-Decode attention is plain PyTorch in the reference too, and stays so.  The
-KV-cache updates write into the cache tensors in place (the reference's
-``dynamic_update_slice`` copies): at full size a copy per layer and token
-would move the whole cache.
+``decode_attention`` is plain PyTorch in the reference.  Here a call that
+the flash kernel's rule sends to its few-row ``flash_decode`` route takes
+the kernel (:func:`decode_takes_kernel`: CUDA operands the rule admits, a
+Python-int ``cache_len`` and a cache whose sequence is not split over
+ranks).  The kernel reads the cache in place, by stride, and only its live
+keys, bounded by the query's position ``cache_len - 1`` and the window;
+the plain version's two ``einsum``s lay the whole cache out again in every
+layer and step.  Every other call (CPU, f32, another head dim, a tensor
+``cache_len``, whose value the host would have to wait for, or a
+sequence-sharded cache) takes the plain version, counted on CUDA in
+``attention.decode_plain_calls``; a kernel call outside the kernel's
+contract raises, as in ``chunked_attention``.  The int8 cache's
+``decode_attention_q`` is plain.
+
+The KV-cache updates write into the cache tensors in place (the
+reference's ``dynamic_update_slice`` copies): at full size a copy per
+layer and token would move the whole cache.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from repro_torch.obs import metrics
 
 NEG_INF = -1e30
 TRAIN_PLAIN_CALLS = metrics.counter("attention.train_plain_calls")
+DECODE_PLAIN_CALLS = metrics.counter("attention.decode_plain_calls")
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -233,6 +247,25 @@ def _valid_positions(cache_len, smax: int, window: Optional[int], device) -> tor
     return valid
 
 
+def decode_takes_kernel(device_type: str, q, k_cache, v_cache, cache_len,
+                        seq_sharded: bool) -> bool:
+    """Whether a decode call takes the flash kernel, from what the call
+    sees of its operands: a CUDA ``device_type``, q, k and v that the
+    kernel's rule sends to its ``flash_decode`` route
+    (:func:`ops.takes_flash_decode`: bf16, head dim, rows a KV head,
+    alignment), ``cache_len`` a Python int (a tensor's value would wait on
+    the device) and a cache that does not split its sequence over ranks."""
+
+    from repro_torch.kernels.flash_attention import ops
+
+    return (
+        device_type == "cuda"
+        and isinstance(cache_len, int)
+        and not seq_sharded
+        and ops.takes_flash_decode(q, k_cache, v_cache)
+    )
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -245,18 +278,36 @@ def decode_attention(
 
     ``cache_len`` (an int, a 0-d tensor or a (B,) tensor) marks the filled
     prefix (the new token's KV must already be written at cache_len-1).
-    Grouped-GQA contraction: the cache is never repeated to H heads.
-    DTensor operands run on their local shards unless the cache splits its
-    sequence (then DTensor's rules reduce the softmax across shards).
+    A call :func:`decode_takes_kernel` admits is ``ops.flash_attention``
+    over the whole cache at query position ``cache_len - 1``, which bounds
+    its keys to the filled prefix (and the window), on the flash_decode
+    route (on tma_wgmma where chip_smoke.py's A/B clears
+    ``ops._decode_route``); every other call is the plain
+    version, a grouped-GQA contraction that never repeats the cache to H
+    heads.  DTensor operands run on their local shards unless the cache
+    splits its sequence (then DTensor's rules reduce the softmax across
+    shards, on the plain version).
     """
 
     body = functools.partial(_decode_attention, cache_len=cache_len, window=window)
     if sharded.seq_sharded(k_cache):
-        return body(q, k_cache, v_cache)
+        return body(q, k_cache, v_cache, seq_sharded=True)
     return sharded.attention(body, q, k_cache, v_cache)
 
 
-def _decode_attention(q, k_cache, v_cache, *, cache_len, window):
+def _decode_attention(q, k_cache, v_cache, *, cache_len, window, seq_sharded=False):
+    if decode_takes_kernel(q.device.type, q, k_cache, v_cache, cache_len, seq_sharded):
+        from repro_torch.kernels.flash_attention import ops
+
+        return ops.flash_attention(
+            q, k_cache, v_cache, causal=True, window=window, q_offset=cache_len - 1
+        )
+    if q.device.type == "cuda":
+        DECODE_PLAIN_CALLS.inc()
+    return decode_attention_plain(q, k_cache, v_cache, cache_len=cache_len, window=window)
+
+
+def decode_attention_plain(q, k_cache, v_cache, *, cache_len, window):
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

@@ -1990,8 +1990,8 @@ def test_whisper_cross_attention_runs_on_flash_decode_on_cuda(cuda, monkeypatch)
     """``models/encdec.py``'s cross attention on the card through the
     kernel: whisper's smoke config in bf16, served for 4 steps; the
     decoder's calls (its prompt's self and cross attention, each decode
-    step's cross attention) take flash_decode when their head dim is one
-    the route takes, and their launches are counted by route."""
+    step's self and cross attention) take flash_decode when their head dim
+    is one the route takes, and their launches are counted by route."""
 
     import dataclasses
 
@@ -2005,16 +2005,151 @@ def test_whisper_cross_attention_runs_on_flash_decode_on_cuda(cuda, monkeypatch)
         calls.append((q.shape[1], k.shape[1], flash_ops._route_of(q, k, v)))
         return real(q, k, v, **kw)
 
+    self_decode = []
+    real_decode = attention.decode_attention
+
+    def tally_decode(q, k, v, cache_len, **kw):
+        self_decode.append(attention.decode_takes_kernel(
+            q.device.type, q, k, v, cache_len, False))
+        return real_decode(q, k, v, cache_len, **kw)
+
     before = dict(flash_ops.flash_attention.routes)
+    plain = attention.DECODE_PLAIN_CALLS.value
     monkeypatch.setattr(attention, "chunked_attention", tally)
+    monkeypatch.setattr(attention, "decode_attention", tally_decode)
     run = serve_lm.generate(params, cfg, batch, 4)
     took = {r: n - before[r] for r, n in flash_ops.flash_attention.routes.items() if n != before[r]}
     F = cfg.encoder.num_frames
     decoder = [c for c in calls if c[0] != F]
     assert decoder and all(r == "flash_decode" for *_, r in decoder)
-    assert took.get("flash_decode") == len(decoder)
-    assert sum(took.values()) == len(calls)
+    assert len(self_decode) == 3 * cfg.num_layers and all(self_decode)
+    assert took.get("flash_decode") == len(decoder) + len(self_decode)
+    assert sum(took.values()) == len(calls) + len(self_decode)
+    assert attention.DECODE_PLAIN_CALLS.value == plain
     assert torch.isfinite(run.prefill_logits.float()).all()
+
+
+# decode attention on the kernel: (B, Smax, KV, G, hd, window, cache_len),
+# yi-6b's decode shape at a small batch and granite's with a window
+DECODE_ATTENTION_CASES = [
+    (8, 3072, 4, 8, 128, None, 1),
+    (8, 3072, 4, 8, 128, None, 2049),
+    (8, 3072, 4, 8, 128, None, 3072),
+    (8, 3072, 8, 4, 64, 1024, 1),
+    (8, 3072, 8, 4, 64, 1024, 2049),
+    (8, 3072, 8, 4, 64, 1024, 3072),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_ATTENTION_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_decode_attention_reads_the_live_cache_on_flash_decode_on_cuda(cuda, case):
+    """``decode_attention`` on bf16 operands is one flash_decode launch
+    over the whole cache, against the plain version in f32 on the same
+    values within the bf16 row limit.  The slots outside the live keys
+    (past ``cache_len``, before the window) hold NaN: the kernel reads none
+    of them into its output.  The plain version on the card in f32 counts
+    one plain call."""
+
+    B, Smax, KV, G, hd, window, cache_len = case
+    q, k, v = _flash_inputs(cuda, B, 1, Smax, KV * G, KV, hd, torch.bfloat16, seed=cache_len)
+    lo = 0 if window is None else max(0, cache_len - window)
+    kn, vn = k.clone(), v.clone()
+    for t in (kn, vn):
+        t[:, cache_len:] = float("nan")
+        t[:, :lo] = float("nan")
+    routes, plain = dict(flash_ops.flash_attention.routes), attention.DECODE_PLAIN_CALLS.value
+    out = attention.decode_attention(q, kn, vn, cache_len, window=window)
+    torch.cuda.synchronize()
+    took = {r: n - routes[r] for r, n in flash_ops.flash_attention.routes.items() if n != routes[r]}
+    assert took == {"flash_decode": 1}
+    assert attention.DECODE_PLAIN_CALLS.value == plain
+    ref = attention.decode_attention(q.float(), k.float(), v.float(), cache_len, window=window)
+    assert attention.DECODE_PLAIN_CALLS.value == plain + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert _row_err(out, ref) <= ROW_TOL[torch.bfloat16]
+    if cache_len > 1:  # the last live key dropped: the check sees it
+        dropped = attention.decode_attention(q.float(), k.float(), v.float(), cache_len - 1,
+                                             window=window)
+        assert _row_err(out, dropped) > ROW_TOL[torch.bfloat16]
+
+
+def _tiny_bf16_decoder(cuda):
+    """yi-6b's smoke decoder at hd 64, bf16: a decode step's attention is
+    one the kernel takes."""
+
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config("yi_6b"), head_dim=64)
+    return cfg, model_zoo.init(cfg, device=cuda, seed=0)
+
+
+def test_decode_step_takes_flash_decode_in_every_layer_on_cuda(cuda, monkeypatch):
+    """A bf16 decoder's decode step raises ``flash_attention.routes
+    ["flash_decode"]`` by its layer count and counts no plain decode call;
+    its logits agree with the same step on the plain decode attention."""
+
+    from repro_torch import tree as tree_lib
+
+    cfg, params = _tiny_bf16_decoder(cuda)
+    cache = model_zoo.init_cache(cfg, 2, 64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for c in tree_lib.leaves(cache):  # a filled prefix of 40 positions in every layer
+        c[:, :40] = torch.randn(c[:, :40].shape, device=cuda, generator=gen).to(c.dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1), device=cuda, generator=gen)
+    routes, plain = dict(flash_ops.flash_attention.routes), attention.DECODE_PLAIN_CALLS.value
+    with torch.inference_mode():
+        logits, _ = model_zoo.decode_step(params, tokens, cfg, cache, 40)
+    torch.cuda.synchronize()
+    took = {r: n - routes[r] for r, n in flash_ops.flash_attention.routes.items() if n != routes[r]}
+    assert took == {"flash_decode": cfg.num_layers}
+    assert attention.DECODE_PLAIN_CALLS.value == plain
+    monkeypatch.setattr(attention, "decode_takes_kernel", lambda *a: False)
+    with torch.inference_mode():
+        plain_logits, _ = model_zoo.decode_step(params, tokens, cfg, cache, 40)
+    assert attention.DECODE_PLAIN_CALLS.value == plain + cfg.num_layers
+    rel = ((logits.float() - plain_logits.float()).norm() / plain_logits.float().norm()).item()
+    assert rel <= 3e-2, rel
+
+
+def test_decode_step_at_the_next_cache_len_encodes_no_tensor_map_on_cuda(cuda, monkeypatch):
+    """Two decode steps of a bf16 decoder at ``cache_len`` and ``cache_len +
+    1``: the first encodes each layer's K / V tensor maps and queries the
+    card's cluster count once; the second encodes no map and queries
+    nothing (the live span rides in the launch's ``dims``)."""
+
+    import collections
+
+    from repro_torch.launch.steps import make_serve_step
+
+    cfg, params = _tiny_bf16_decoder(cuda)
+    cache = model_zoo.init_cache(cfg, 2, 1024, device=cuda)
+    calls = collections.Counter()
+    real = flash_ops._decode_entry_point
+
+    def counted(name):
+        fn = real(name)
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(flash_ops, "_decode_entry_point", counted)
+    monkeypatch.setattr(flash_ops, "_DECODE_MAPS", type(flash_ops._DECODE_MAPS)())
+    flash_ops._decode_clusters.cache_clear()
+    serve = make_serve_step(cfg)
+    tokens = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    tokens, cache = serve(params, tokens, cache, 600)
+    torch.cuda.synchronize()
+    assert calls["fa_decode"] == cfg.num_layers
+    assert calls["fa_decode_maps"] == cfg.num_layers and calls["fa_decode_clusters"] == 1
+    first = dict(calls)
+    tokens, cache = serve(params, tokens, cache, 601)
+    torch.cuda.synchronize()
+    assert calls["fa_decode"] == first["fa_decode"] + cfg.num_layers
+    assert calls["fa_decode_maps"] == first["fa_decode_maps"]
+    assert calls["fa_decode_clusters"] == first["fa_decode_clusters"]
 
 
 def test_lm_spans_carry_device_time_on_cuda_and_none_on_the_cpu(cuda):

@@ -186,6 +186,78 @@ def test_key_ranges_cut_the_live_span():
 # The split rule and the route rule: pure functions
 # ---------------------------------------------------------------------- #
 
+@pytest.mark.parametrize("window", [None, 1, 7, 1024])
+@pytest.mark.parametrize("cache_len", [1, 2, 700, 2049, 3071, 3072])
+def test_live_span_at_the_decode_position_keeps_the_plain_mask(cache_len, window):
+    """Decode attention on the kernel sits its query at ``cache_len - 1``:
+    the call's live span is exactly the keys the plain version's
+    ``_valid_positions`` keeps, the filled prefix and the window."""
+
+    from repro_torch.models.attention import _valid_positions
+
+    Smax = 3072
+    lo, hi = live_span(1, Smax, True, window, cache_len - 1)
+    valid = _valid_positions(cache_len, Smax, window, "cpu")[0]
+    assert valid.nonzero().flatten().tolist() == list(range(lo, hi))
+
+
+@pytest.fixture
+def fake_entry_points(monkeypatch):
+    """``ops._decode_entry_point`` with no library: every entry returns 0,
+    the cluster query reports one cluster; the calls are counted by name.
+    The kept maps and cluster counts start empty and are emptied after."""
+
+    import collections
+
+    calls = collections.Counter()
+
+    def entry(name):
+        def fn(*args):
+            calls[name] += 1
+            if name == "fa_decode_clusters":
+                args[-1]._obj.value = 1
+            return 0
+        return fn
+
+    monkeypatch.setattr(ops, "_decode_entry_point", entry)
+    monkeypatch.setattr(ops, "_DECODE_MAPS", type(ops._DECODE_MAPS)())
+    ops._decode_clusters.cache_clear()
+    yield calls
+    ops._decode_clusters.cache_clear()
+
+
+@pytest.mark.parametrize("B,KV,G,hd,window", [(256, 4, 8, 128, None), (8, 4, 8, 128, None),
+                                              (4, 8, 4, 64, 1024)],
+                         ids=["yi6b_pool", "yi6b_small", "granite_window"])
+def test_a_decode_step_one_key_longer_encodes_and_queries_nothing(fake_entry_points, B, KV, G,
+                                                                  hd, window):
+    """The host's per-call work at consecutive decode positions over one
+    cache: the tensor maps are encoded once for each layer's cache (they
+    read no live span) and the cluster count is queried once for each
+    shape, strides, splits and depth; the span itself rides in ``dims``."""
+
+    calls = fake_entry_points
+    Smax, layers = 3072, 3
+    caches = [tuple(torch.zeros(B, Smax, KV, hd, dtype=torch.bfloat16) for _ in range(2))
+              for _ in range(layers)]
+    q = torch.zeros(B, 1, KV * G, hd, dtype=torch.bfloat16)
+    for step, cache_len in enumerate(range(2049, 2049 + 4)):
+        before = dict(calls)
+        for k, v in caches:
+            shape = (B, 1, KV * G, KV, Smax, hd)
+            strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *q.stride()[:3])
+            lo, hi = live_span(1, Smax, True, window, cache_len - 1)
+            plan = ops._decode_plan(shape, strides, lo, hi, H100_SMS, 0)
+            assert list(plan.dims)[6:8] == [lo, hi] == [max(0, cache_len - (window or Smax)),
+                                                         cache_len]
+            assert plan.splits * list(plan.dims)[8] >= hi - lo
+            ops._decode_maps(plan, q, k, v)
+        if step == 0:
+            assert calls["fa_decode_maps"] == layers and calls["fa_decode_clusters"] == 1
+        else:
+            assert dict(calls) == before, cache_len
+
+
 @pytest.mark.parametrize(
     "B,KV,Sk,splits",
     [

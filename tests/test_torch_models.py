@@ -215,6 +215,59 @@ def test_decode_attention(cache_len, window):
     _close(out, ref)
 
 
+# (device, (q, k, v dtypes), hd, cache_len, seq_sharded, H / KV, k / v
+# rows padded by) → takes the kernel
+BF16_QKV = (torch.bfloat16,) * 3
+DECODE_DISPATCH = {
+    "bf16_hd64_int": (("cuda", BF16_QKV, 64, 2049, False, 4, 0), True),
+    "bf16_hd128_int": (("cuda", BF16_QKV, 128, 3072, False, 8, 0), True),
+    "bf16_hd128_first_slot": (("cuda", BF16_QKV, 128, 1, False, 8, 0), True),
+    "bf16_64_rows_a_kv_head": (("cuda", BF16_QKV, 128, 9, False, 64, 0), True),
+    "f32": (("cuda", (torch.float32,) * 3, 128, 2049, False, 8, 0), False),
+    "bf16_q_f32_cache": (("cuda", (torch.bfloat16, torch.float32, torch.float32), 128, 9,
+                          False, 8, 0), False),
+    "hd32": (("cuda", BF16_QKV, 32, 2049, False, 8, 0), False),
+    "hd16": (("cuda", BF16_QKV, 16, 2049, False, 8, 0), False),
+    "hd8": (("cuda", BF16_QKV, 8, 2049, False, 8, 0), False),
+    "tensor_0d": (("cuda", BF16_QKV, 128, torch.tensor(2049), False, 8, 0), False),
+    "tensor_per_row": (("cuda", BF16_QKV, 128, torch.tensor([3, 9]), False, 8, 0), False),
+    "seq_sharded": (("cuda", BF16_QKV, 128, 2049, True, 8, 0), False),
+    "cpu": (("cpu", BF16_QKV, 128, 2049, False, 8, 0), False),
+    "bf16_128_rows_a_kv_head": (("cuda", BF16_QKV, 128, 9, False, 128, 0), False),
+    "cache_rows_off_16_bytes": (("cuda", BF16_QKV, 128, 9, False, 8, 1), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_DISPATCH))
+def test_decode_dispatch_rule(case):
+    """``decode_takes_kernel``: CUDA operands that the flash kernel's rule
+    sends to flash_decode (bf16, hd 64 or 128, at most 64 rows a KV head,
+    16-byte rows) with a Python-int ``cache_len`` over a cache that is not
+    sequence-sharded take the kernel; every other call the plain version."""
+
+    (device, dtypes, hd, cache_len, seq_sharded, group, pad), kernel = DECODE_DISPATCH[case]
+    KV = 2
+    q = torch.zeros(2, 1, KV * group, hd, dtype=dtypes[0])
+    k, v = (torch.zeros(2, 16, KV, hd + pad, dtype=d)[..., pad:] for d in dtypes[1:])
+    assert tattn.decode_takes_kernel(device, q, k, v, cache_len, seq_sharded) is kernel
+
+
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_attention_stays_plain_on_the_cpu(hd, window):
+    """A bf16 call at a kernel head dim with an int ``cache_len`` on the
+    CPU is the plain version, bit for bit: no launch, and
+    ``attention.decode_plain_calls`` (CUDA calls only) stays where it was."""
+
+    (_, tq), (_, tk), (_, tv) = _qkv(15, 2, 1, 12, 4, 2, hd, "bfloat16")
+    plain = tattn.DECODE_PLAIN_CALLS.value
+    launches = flash_ops.flash_attention.launches
+    out = tattn.decode_attention(tq, tk, tv, 9, window=window)
+    assert torch.equal(out, tattn.decode_attention_plain(tq, tk, tv, cache_len=9, window=window))
+    assert tattn.DECODE_PLAIN_CALLS.value == plain
+    assert flash_ops.flash_attention.launches == launches
+
+
 def test_update_kv_cache_matches_dynamic_update_slice():
     (jn, tn), (jc, tc), _ = _qkv(10, 2, 3, 10, 2, 2, 8)
     (jcv, tcv), _, _ = _qkv(11, 2, 10, 10, 2, 2, 8)
