@@ -47,8 +47,6 @@ def after_window(drv, iters, control: bool) -> dict:
     """The program's numbers over the window ``iters``, and with
     ``control`` the control's (and training's half-batch fault's)."""
 
-    from reference import decoder as ref
-
     row = {"calls": len(iters)}
     drv.release()
     kind = drv.mix["kind"]
@@ -57,7 +55,7 @@ def after_window(drv, iters, control: bool) -> dict:
         row["program"] = drv.numbers(drv.program_readings(), exact)
         row["losses"] = {"program": drv.losses, "reference": exact["losses"]}
         if control:
-            row["control"] = drv.numbers(drv.reference(ref.fp8), exact)
+            row["control"] = drv.numbers(drv.reference(drv.family.fp8), exact)
             half = list(range(drv.mix["batch"] // 2))
             row["half_batch"] = drv.numbers(drv.reference(rows=half), exact)
     elif kind == "prefill_closed":

@@ -3,10 +3,13 @@ metric readers, the check against the plain reference, and the result.
 
 Everything about a cell is found by name: ``BENCHMARK.json`` names its
 configuration and traffic mix; ``bench/configs/<config>.json`` holds the
-sizes, ``bench/traffic/<traffic>.json`` the mix, whose ``kind`` names the
-driver in ``bench/kinds/<kind>.py``; ``bench/limits/<workload>.json``
-holds the limit of each number that the check compares; and each metric is
-read by ``bench/metrics/<metric>.py``.
+sizes, and its ``model_type`` names the family in
+``bench/families/<model_type>.py`` (sizes, the port's configuration,
+weights, plain reference and arithmetic); ``bench/traffic/<traffic>.json``
+holds the mix, whose ``kind`` names the driver in
+``bench/kinds/<kind>.py``; ``bench/limits/<workload>.json`` holds the limit
+of each number that the check compares; and each metric is read by
+``bench/metrics/<metric>.py``.
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ import statistics
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 import torch
 
-import dims as dims_lib
 import devtrace as trace_lib
+import weights
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -35,7 +39,8 @@ JAX_NAMES = ("jax", "jaxlib", "flax", "repro")
 @dataclasses.dataclass
 class Cell:
     name: str
-    dims: dims_lib.Dims
+    family: ModuleType  # families/<model_type>.py
+    dims: object  # the family's sizes
     mix: dict
     limits: dict
     end_to_end: List[dict]
@@ -43,24 +48,48 @@ class Cell:
 
 
 def load_cell(name: str, spec_path: Path = ROOT / "BENCHMARK.json") -> Cell:
-    spec = json.loads(Path(spec_path).read_text())
+    """The cell ``name`` of the spec at ``spec_path``: its configuration file
+    as the spec names it from the spec's directory, its traffic mix and
+    limits under the spec's first ``paths`` entry."""
+
+    spec_path = Path(spec_path)
+    spec = json.loads(spec_path.read_text())
+    root = spec_path.parent
+    bench = root / spec["paths"][0]
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in {spec_path.name}: {sorted(cells)}")
     w = cells[name]
     conf = next(c for c in spec["configs"] if c["name"] == w["config"])
+    raw = json.loads((root / conf["file"]).read_text())
+    family = family_of(raw["model_type"])
 
     def mine(m):
         return name in m.get("workloads", [name])
 
     return Cell(
         name=name,
-        dims=sized(dims_lib.load(ROOT / conf["file"], w["config"])),
-        mix=json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text()),
-        limits=json.loads((BENCH / "limits" / f"{name}.json").read_text()),
+        family=family,
+        dims=sized(family, family.dims(w["config"], raw)),
+        mix=json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text()),
+        limits=json.loads((bench / "limits" / f"{name}.json").read_text()),
         end_to_end=[m for m in spec["end_to_end"] if mine(m)],
         per_layer=[m for m in spec["per_layer"] if mine(m)],
     )
+
+
+def family_of(model_type: str) -> ModuleType:
+    """``bench/families/<model_type>.py``; a model type with no module
+    stops the run."""
+
+    name = f"families.{model_type}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise SystemExit(f"model_type {model_type!r} has no family module: no module "
+                         f"{name} (bench/families/{model_type}.py)") from None
 
 
 def reader(metric: str) -> Callable:
@@ -73,28 +102,10 @@ def reader(metric: str) -> Callable:
     return mod.read
 
 
-def model_config(d: dims_lib.Dims, **overrides):
-    """The port's configuration object for these sizes; ``overrides`` (a
-    mix's ``remat``) are further fields of it."""
-
-    from repro_torch.configs.base import ATTN, MLP_DENSE, LayerPos, ModelConfig
-
-    cfg = ModelConfig(
-        name=d.name, family="decoder", num_layers=d.num_layers, d_model=d.d_model,
-        num_heads=d.num_heads, num_kv_heads=d.num_kv_heads, head_dim=d.head_dim,
-        d_ff=d.d_ff, vocab_size=d.vocab_size, block=(LayerPos(mixer=ATTN, mlp=MLP_DENSE),),
-        rope_theta=d.rope_theta, norm_eps=d.norm_eps, dtype=d.dtype,
-        tie_embeddings=d.tie_embeddings, **overrides,
-    )
-    if cfg.padded_num_heads != d.num_heads:
-        raise ValueError(f"{d.name}: the port pads the heads")
-    return cfg
-
-
-def sized(d: dims_lib.Dims) -> dims_lib.Dims:
+def sized(family: ModuleType, d):
     """``d`` with the embedding table's row count as the port pads it."""
 
-    return dataclasses.replace(d, padded_vocab=model_config(d).padded_vocab_size)
+    return dataclasses.replace(d, padded_vocab=family.port_config(d).padded_vocab_size)
 
 
 def sync(device: torch.device) -> None:
@@ -124,10 +135,16 @@ class Driver:
     and returns the numbers it compares."""
 
     def __init__(self, cell: Cell, seed: int, device: torch.device):
-        self.cell, self.dims, self.mix = cell, cell.dims, cell.mix
+        self.cell, self.family, self.dims, self.mix = cell, cell.family, cell.dims, cell.mix
         self.seed, self.device = seed, device
-        self.cfg = model_config(cell.dims, **{k: self.mix[k] for k in ("remat",) if k in self.mix})
+        self.cfg = self.family.port_config(cell.dims,
+                                           **{k: self.mix[k] for k in ("remat",) if k in self.mix})
         self.reading_s = 0.0  # set-up time spent on the check's readings
+
+    def flat_weights(self) -> Dict[tuple, torch.Tensor]:
+        """The cell's weights from the seed, by path: the family's leaves."""
+
+        return weights.make_flat(self.family.leaf_specs(self.dims), self.seed, self.device)
 
     def setup(self) -> None:
         raise NotImplementedError

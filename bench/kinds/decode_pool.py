@@ -7,8 +7,9 @@ its round again from the prompts (the cache's positions past the prompt
 are written anew).
 
 The check samples sequences drawn from the seed and holds every token
-served to them in the first round to the plain reference's logits over the
-prompt and the tokens before it.
+served to them in the first round to the logits of the cell's family's
+plain reference over the prompt and the tokens before it
+(``served_gaps``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import torch
 import harness
 import traffic
 import weights
-from reference import decoder as ref
 
 
 class Driver(harness.Driver):
@@ -31,7 +31,7 @@ class Driver(harness.Driver):
 
         mix, V = self.mix, self.dims.vocab_size
         N, P = mix["sequences"], mix["prompt_len"]
-        self.params = weights.tree_of(weights.make_flat(self.dims, self.seed, self.device))
+        self.params = weights.tree_of(self.flat_weights())
         self.cache = model_zoo.init_cache(self.cfg, N, mix["max_len"], device=self.device)
         self.prompts = traffic.prompts(self.seed, 0, N, P, V, self.device)
         prefill = make_prefill_step(self.cfg)
@@ -71,13 +71,13 @@ class Driver(harness.Driver):
 
     def gaps(self, control: bool = False) -> torch.Tensor:
         served = torch.cat(self.round, dim=1)  # (N, n + 1)
-        w = weights.make_flat(self.dims, self.seed, self.device)
+        w = self.flat_weights()
         P, n = self.mix["prompt_len"], served.shape[1] - 1
         out = []
         for s in traffic.sample(self.seed, 3, self.mix["sequences"], self.mix["check_sequences"]):
             toks = torch.cat([self.prompts[s], served[s, :n]])
-            out.append(ref.served_gaps(w, toks, range(P - 1, P + n), served[s], self.dims,
-                                       control=control))
+            out.append(self.family.served_gaps(w, toks, range(P - 1, P + n), served[s],
+                                               self.dims, control=control))
         return torch.cat(out)
 
     def check(self, iters) -> Dict[str, float]:

@@ -8,9 +8,10 @@ The time to first token of a request is from the call's submission to its
 token on the host.  The check samples calls drawn from the seed, one of the
 longest length among them, and holds each of their prompts' served token
 and last-position logit row (the program's output, kept on the device
-through the window) to the plain reference's logits over the prompt.  The
-control is read at the same positions: the reference in float8 in the
-program's place.
+through the window) to the logits of the cell's family's plain reference
+over the prompt (``last_logits`` with ``exact``).  The control is read at
+the same positions: the reference in float8 (``fp8``) in the program's
+place.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import torch
 import harness
 import traffic
 import weights
-from reference import decoder as ref
 
 WARM_STREAM = 1 << 40  # prompt streams of the warm-up calls, apart from the window's
 
@@ -34,7 +34,7 @@ class Driver(harness.Driver):
         from repro_torch.models import model_zoo
 
         mix, V = self.mix, self.dims.vocab_size
-        self.params = weights.tree_of(weights.make_flat(self.dims, self.seed, self.device))
+        self.params = weights.tree_of(self.flat_weights())
         self.cache = model_zoo.init_cache(self.cfg, mix["batch"], max(mix["lengths"]) + 1,
                                           device=self.device)
         self.prefill = make_prefill_step(self.cfg)
@@ -81,23 +81,35 @@ class Driver(harness.Driver):
         logit, and the widest gap between the logit row and the
         reference's, both in units of the reference's logits' standard
         deviation there.  With ``control`` the float8 reference's argmax
-        and row stand in for the program's."""
+        and row stand in for the program's.
 
-        w = weights.make_flat(self.dims, self.seed, self.device)
+        A family's ``last_logits`` gives one row, or several (R, V) where
+        its reference cannot tell at the configuration's precision which
+        computation the model makes (an MoE router's near tie); a prompt
+        is then judged against the row nearest the program's."""
+
+        w = self.flat_weights()
+        V = self.dims.vocab_size
         served_gap = logit_gap = 0.0
         for r in self.sample(iters):
             toks = self.prompts[r["prompt"]]
             for b in range(toks.shape[0]):
-                exact = ref.last_logits(w, toks[b], self.dims, ref.exact)
+                rows = self.family.last_logits(w, toks[b], self.dims, self.family.exact)
                 if control:
-                    row = ref.last_logits(w, toks[b], self.dims, ref.fp8)
+                    row = self.family.last_logits(w, toks[b], self.dims, self.family.fp8)
+                    row = row.reshape(-1, V)[0]
                     served = torch.argmax(row)
                 else:
-                    row = r["logits"][b, :self.dims.vocab_size].float()
+                    row = r["logits"][b, :V].float()
                     served = r["served"][b].to(self.device)
-                std = exact.std()
-                served_gap = max(served_gap, float((exact.max() - exact[served.long()]) / std))
-                logit_gap = max(logit_gap, float((row - exact).abs().max() / std))
+                gaps = []
+                for exact in rows.reshape(-1, V):
+                    std = exact.std()
+                    gaps.append((float((row - exact).abs().max() / std),
+                                 float((exact.max() - exact[served.long()]) / std)))
+                nearest = min(gaps)
+                logit_gap = max(logit_gap, nearest[0])
+                served_gap = max(served_gap, nearest[1])
         return {"served_gap": served_gap, "logit_gap": logit_gap}
 
     def check(self, iters) -> Dict[str, float]:

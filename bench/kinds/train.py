@@ -6,12 +6,14 @@ AdamW state, and drives it through the mix's ``warm_steps`` first steps on
 the window's own call and feed.  The check's readings of the program come
 from those steps: every leaf's first gradient as AdamW got it (its first
 moment after one step over 1 - b1) and every leaf's change after the third
-step (each step's loss is kept for ``control.py``).  The plain reference
-follows the same three steps after the window.
+step (each step's loss is kept for ``control.py``).  The cell's family's
+plain reference (``train``) follows the same three steps after the window.
 
 In the traced slice the driver opens a named range around each call of the
 port's attention and of ``AdamW.update``, so that the trace gives their
-device time in the traced step (the program has no spans there).
+device time in the traced step, the attention's backward included: the
+program's ``lm.attention`` span holds its forward and remat's recompute,
+and autograd runs the backward outside the layer spans.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import torch
 import harness
 import traffic
 import weights
-from reference import decoder as ref
 
 CHECKED_STEPS = 3
 ATTENTION, OPTIMIZER = "bench.attention", "bench.optimizer"
@@ -49,7 +50,7 @@ class Driver(harness.Driver):
         from repro_torch.optim.optimizer import AdamW
 
         self.opt = AdamW(**self.mix["optimizer"])
-        self.params = weights.tree_of(weights.make_flat(self.dims, self.seed, self.device))
+        self.params = weights.tree_of(self.flat_weights())
         self.state = self.opt.init(self.params)
         self.step_fn = make_train_step(self.cfg, self.opt)
         self.losses = []
@@ -61,7 +62,7 @@ class Driver(harness.Driver):
                 self.first_grad = {p: float(torch.linalg.vector_norm(m)) / (1 - b1)
                                    for p, m in weights.paths_of(self.state.mu)}
             if step == CHECKED_STEPS:
-                w0 = weights.make_flat(self.dims, self.seed, self.device)
+                w0 = self.flat_weights()
                 self.change = {p: float(torch.linalg.vector_norm(t.float() - w0[p].float()))
                                for p, t in weights.paths_of(self.params)}
                 del w0
@@ -108,14 +109,16 @@ class Driver(harness.Driver):
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def reference(self, mm=ref.exact, rows=None) -> dict:
-        """The reference's three steps: losses, first gradients (after the
+    def reference(self, mm=None, rows=None) -> dict:
+        """The reference's three steps, every product through ``mm`` (the
+        family's ``exact`` by default): losses, first gradients (after the
         clip, and before it) and each leaf's change."""
 
-        w0 = weights.make_flat(self.dims, self.seed, self.device)
+        w0 = self.flat_weights()
         batches = [traffic.train_batch(self.mix, self.seed, s, self.dims.vocab_size, self.device)
                    for s in range(1, CHECKED_STEPS + 1)]
-        out = ref.train(w0, batches, self.dims, self.mix["optimizer"], mm, rows=rows)
+        out = self.family.train(w0, batches, self.dims, self.mix["optimizer"],
+                                mm or self.family.exact, rows=rows)
         out["change"] = {p: float(torch.linalg.vector_norm(out["params"][p].float() - w0[p].float()))
                          for p in w0}
         del out["params"], w0

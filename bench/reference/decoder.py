@@ -1,8 +1,9 @@
-"""Plain PyTorch reference of the dense decoder that the configurations
-describe, and of its training step.  It imports nothing of the program.
+"""Plain PyTorch reference of the dense llama-form family
+(``families/llama.py``, which model types ``llama`` and ``granite`` use),
+and of its training step.  It imports nothing of the program.
 
-What it computes, from a configuration file's sizes (``bench/dims.py``)
-and the weights of ``bench/weights.py``:
+What it computes, from the family's sizes (``families/llama.dims``) and
+the weights that ``weights.make_flat`` makes of its leaves:
 
 * the llama-form decoder: token embedding; per layer RMSNorm, q / k / v
   projections, rotary embeddings on the first and second halves of each

@@ -42,7 +42,6 @@ MIXES = {
 
 
 def tiny_cell(kind: str, limits=None, tied=None):
-    import dims
     import harness
 
     spec = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
@@ -52,7 +51,7 @@ def tiny_cell(kind: str, limits=None, tied=None):
     raw = TINY_TRAIN if kind == "train" else TINY
     if tied is not None:
         raw = dict(raw, tie_word_embeddings=tied)
-    cell.dims = harness.sized(dims.from_json("tiny", raw))
+    cell.dims = harness.sized(cell.family, cell.family.dims("tiny", raw))
     cell.mix = copy.deepcopy(MIXES[kind])
     if limits is not None:
         cell.limits = limits

@@ -87,9 +87,9 @@ def test_every_metric_has_a_reader_and_every_reader_a_metric():
 @pytest.mark.parametrize("conf", SPEC["configs"], ids=lambda c: c["name"])
 def test_config_files(conf):
     """A file of its own under paths; the keys it changes from the source
-    are those ``reduced`` lists, and none is a width."""
+    are those ``reduced`` lists, and none is a width; its family reads it."""
 
-    import dims
+    import harness
 
     raw = json.loads((ROOT / conf["file"]).read_text())
     assert conf["file"].startswith("bench/configs/")
@@ -97,7 +97,7 @@ def test_config_files(conf):
     assert all(raw[k] != v for k, v in raw["published"].items())
     widths = re.compile(r"(hidden|intermediate|head|_dim|_rank|size$|expert)")
     assert not any(widths.search(k) for k in conf["reduced"])
-    dims.from_json(conf["name"], raw)
+    harness.family_of(raw["model_type"]).dims(conf["name"], raw)
 
 
 @pytest.mark.parametrize("name,arch,published", [
@@ -114,7 +114,7 @@ def test_config_is_the_ports_own(name, arch, published):
     import harness
     from repro_torch.configs import get_config
 
-    ours = harness.model_config(harness.load_cell(next(
-        w["name"] for w in SPEC["workloads"] if w["config"] == name)).dims)
+    cell = harness.load_cell(next(w["name"] for w in SPEC["workloads"] if w["config"] == name))
+    ours = cell.family.port_config(cell.dims)
     shipped = get_config(arch)
     assert dataclasses.replace(ours, name=shipped.name) == dataclasses.replace(shipped, **published)

@@ -1,8 +1,9 @@
-"""Seeded weights of a dense decoder, made on the device in a few large
-calls and laid out as the port's parameter tree.
+"""Seeded weights, made on the device in a few large calls and laid out as
+the port's parameter tree, from the leaves a family lists
+(``families/<family>.py``'s ``leaf_specs``).
 
 One ``torch.randn`` stream (in chunks of at most ``CHUNK`` elements) fills
-one bf16 buffer; every matrix is a view of it, scaled in place.  The same
+one bf16 buffer; every drawn leaf is a view of it, scaled in place.  The same
 seed gives the same weights on the same device, so the program and the
 plain reference are handed the same values, and the reference can make
 them again after the program's state is freed.
@@ -15,37 +16,9 @@ from typing import Dict, List, Tuple
 import torch
 
 CHUNK = 1 << 30
-EMBED_SCALE = 0.02
 
 Path = Tuple[object, ...]
-
-
-def leaf_specs(dims) -> List[Tuple[Path, Tuple[int, ...], str]]:
-    """(path in the port's tree, shape, init) of every leaf, in draw order;
-    init is a scale for a N(0, 1) draw, or ``"ones"`` for a norm scale."""
-
-    d, H, KV, hd = dims.d_model, dims.num_heads, dims.num_kv_heads, dims.head_dim
-    ff, Vp = dims.d_ff, dims.padded_vocab
-    if H % 16 and H > 16:
-        raise ValueError(f"{dims.name}: {H} query heads would be padded by the port")
-    specs = [(("embed", "tok"), (Vp, d), EMBED_SCALE)]
-    if not dims.tie_embeddings:  # tied: the head is the table's transpose
-        specs.append((("embed", "head"), (d, Vp), EMBED_SCALE))
-    for b in range(dims.num_layers):
-        p = ("blocks", b, "pos0")
-        specs += [
-            (p + ("norm1", "scale"), (d,), "ones"),
-            (p + ("attn", "wq"), (d, H, hd), d**-0.5),
-            (p + ("attn", "wk"), (d, KV, hd), d**-0.5),
-            (p + ("attn", "wv"), (d, KV, hd), d**-0.5),
-            (p + ("attn", "wo"), (H, hd, d), (H * hd) ** -0.5),
-            (p + ("norm2", "scale"), (d,), "ones"),
-            (p + ("mlp", "w_gate"), (d, ff), d**-0.5),
-            (p + ("mlp", "w_up"), (d, ff), d**-0.5),
-            (p + ("mlp", "w_down"), (ff, d), ff**-0.5),
-        ]
-    specs.append((("final_norm", "scale"), (d,), "ones"))
-    return specs
+Spec = Tuple[Path, Tuple[int, ...], object]
 
 
 def _numel(shape) -> int:
@@ -55,11 +28,12 @@ def _numel(shape) -> int:
     return n
 
 
-def make_flat(dims, seed: int, device) -> Dict[Path, torch.Tensor]:
-    """Every leaf by path: the matrices bf16 views of one seeded buffer, the
-    norm scales f32 ones."""
+def make_flat(specs: List[Spec], seed: int, device) -> Dict[Path, torch.Tensor]:
+    """Every leaf of ``specs`` (path, shape, init) by path.  An init is a
+    scale: a bf16 view of the seeded buffer times it; ``(dtype, scale)``:
+    that draw in another dtype (an MoE router the port keeps in float32);
+    or ``"ones"``: float32 ones (a norm scale)."""
 
-    specs = leaf_specs(dims)
     total = sum(_numel(s) for _, s, init in specs if init != "ones")
     gen = torch.Generator(device=device).manual_seed(seed)
     buf = torch.empty(total, dtype=torch.bfloat16, device=device)
@@ -73,7 +47,12 @@ def make_flat(dims, seed: int, device) -> Dict[Path, torch.Tensor]:
             out[path] = torch.ones(shape, dtype=torch.float32, device=device)
             continue
         n = _numel(shape)
-        out[path] = buf[off:off + n].view(shape).mul_(init)
+        draw = buf[off:off + n].view(shape)
+        if isinstance(init, tuple):
+            dtype, scale = init
+            out[path] = draw.to(getattr(torch, dtype)).mul_(scale)
+        else:
+            out[path] = draw.mul_(init)
         off += n
     return out
 
